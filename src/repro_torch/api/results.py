@@ -8,7 +8,8 @@ columns -- objective trace, step-sizes/weights (``gammas``), delays
 coordinates -- while keeping the raw solver tuple available (``raw``) so
 comparisons against the underlying runners stay possible.  ``raw`` holds
 device tensors; the derived views move what they read to the host.
-Solver-specific columns (``opt_residual``) live in ``extras``.
+Solver-specific columns (``opt_residual``, ``versions``) live in
+``extras``.
 """
 from __future__ import annotations
 
@@ -138,17 +139,28 @@ class Results:
         """(B, K // record_every) simulated wall-clock time of each RECORDED
         event (column j is event ``j*s + s - 1``), recomputed from the
         grid's own pre-sampled randomness with the event race on the
-        device of the run."""
+        device of the run (PIAG per bucket, federated per cell)."""
         import torch
 
         from ..core.engine import trace_scan
         from ..sweep.runners import run_bucketed
 
+        s = int(self.record_every)
+        device = self.raw.x.device
+        if self.solver in ("fedasync", "fedbuff"):
+            from ..federated.events import generate_federated_trace
+            bs, n_steps = 1, None
+            if self.spec is not None:
+                if self.solver == "fedbuff":
+                    bs = self.spec.solver.buffer_size
+                n_steps = self.spec.solver.n_steps
+            return np.stack([generate_federated_trace(
+                c.n_workers, self.n_events, clients=list(c.workers),
+                buffer_size=bs, seed=c.seed, n_steps=n_steps,
+                device=device).t_wall[s - 1::s] for c in self.cells])
         if self.solver != "piag":
             raise NotImplementedError(
                 f"virtual_time for solver={self.solver!r} is not ported yet")
-        s = int(self.record_every)
-        device = self.raw.x.device
 
         def run_bucket(b):
             T = torch.from_numpy(b.grid.service_times(b.width)).to(device)

@@ -6,15 +6,17 @@ policies (with the paper's tau-bar tuning protocol for the fixed family),
 topology factories, the ``SweepGrid`` -- on the spec's device and performs
 the build-time horizon validation.  ``run(spec)`` then dispatches:
 
-=========  ==========================  ===========================
-solver     solo                        batched
-=========  ==========================  ===========================
-piag       ``core.piag.run_piag``      ``sweep.runners.sweep_piag``
-=========  ==========================  ===========================
+========  ==================================  ================================
+solver    solo                                batched
+========  ==================================  ================================
+piag      ``core.piag.run_piag``              ``sweep.runners.sweep_piag``
+fedasync  ``federated.server.run_fedasync``   ``sweep.runners.sweep_fedasync``
+fedbuff   ``federated.server.run_fedbuff``    ``sweep.runners.sweep_fedbuff``
+========  ==================================  ================================
 
 What is not ported yet raises ``NotImplementedError`` naming its ROADMAP
-queue A item: the BCD and federated solvers, the sharded backend, faults,
-telemetry and checkpointed resume.
+queue A item: the BCD solver, the sharded backend, faults, telemetry and
+checkpointed resume.
 """
 from __future__ import annotations
 
@@ -28,10 +30,15 @@ from ..core.piag import run_piag
 from ..core.problems import make_lasso, make_logreg
 from ..core.prox import make_prox
 from ..core.stepsize import make_policy
+from ..federated.events import (generate_federated_trace,
+                                heterogeneous_clients)
+from ..federated.server import _problem_pieces, run_fedasync, run_fedbuff
 from ..kernels.dispatch import resolve_device
 from ..sweep.grid import (SweepGrid, make_grid, measure_tau_bar,
                           standard_topology_factories)
-from ..sweep.runners import resolve_grid_horizon, sweep_piag
+from ..sweep.runners import (fed_bucket_races, races_tau_bar,
+                             resolve_grid_horizon, sweep_fedasync,
+                             sweep_fedbuff, sweep_piag)
 from .results import Results
 from .spec import (FIXED_FAMILY, ExecutionSpec, ExperimentSpec, ProblemSpec,
                    SolverSpec, check_horizon)
@@ -62,6 +69,7 @@ class Resolved(NamedTuple):
     tau_bar: Optional[int]
     horizon: int
     device: torch.device
+    races: Optional[list] = None  # a batched federated run's bucket races
 
 
 # -------------------------------------------------------------- resolve ----
@@ -100,7 +108,10 @@ def _build_topologies(spec: ExperimentSpec):
     if ts.kind == "custom":
         topos = dict(ts.topologies)
     elif ts.kind == "edge":
-        raise _not_ported("the federated 'edge' topology", 8)
+        params = dict(ts.params)
+        seed = params.pop("seed", ts.seed)  # params may pin its own seed
+        topos = {"edge": lambda n, _p=params: heterogeneous_clients(
+            n, seed=seed, **_p)}
     else:
         topos = standard_topology_factories(ts.seed)
     if ts.names is not None:
@@ -126,12 +137,18 @@ def _measure_tau_bar(spec: ExperimentSpec, topos, device) -> int:
                            device=device)
 
 
+def _auto_gamma_prime(spec: ExperimentSpec, problem) -> float:
+    if spec.solver.name == "piag":
+        return 0.99 / problem.L
+    return 0.6  # federated base mixing weight alpha
+
+
 def _build_policies(spec: ExperimentSpec, problem, tau_bar: Optional[int]):
     pg = spec.policies
     if pg.policies is not None:
         return dict(pg.policies)
     gp = pg.gamma_prime if pg.gamma_prime is not None \
-        else 0.99 / problem.L
+        else _auto_gamma_prime(spec, problem)
     out = {}
     for name in pg.names:
         kwargs = dict(pg.policy_kwargs.get(name, {}))
@@ -156,8 +173,6 @@ def _check_ported(spec: ExperimentSpec, resume=None) -> None:
     sv, ex = spec.solver, spec.execution
     if sv.name == "bcd":
         raise _not_ported("solver='bcd' (Async-BCD)", 5)
-    if sv.federated:
-        raise _not_ported(f"solver={sv.name!r} (federated)", 8)
     if ex.backend == "sharded":
         raise _not_ported("backend='sharded'", 12)
     if spec.faults is not None:
@@ -168,6 +183,34 @@ def _check_ported(spec: ExperimentSpec, resume=None) -> None:
         raise _not_ported("checkpointed resume (resume=...)", 11)
 
 
+def _resolve_horizon(spec: ExperimentSpec, grid: SweepGrid,
+                     tau_bar: Optional[int], device):
+    """(the concrete window-buffer size, the bucket races to reuse or
+    None): integer horizons pass through; ``'auto'`` sizes from the
+    declared ``expected_max_delay``, the already-measured worker tau-bar
+    (PIAG), or the federated upload staleness of the buckets' races, with
+    the spec's ``horizon_slack``.  A batched federated run keeps those
+    races, so its sweep runs the server loops over them and races each
+    bucket once."""
+    sv, ex = spec.solver, spec.execution
+    bound = spec.delay.expected_max_delay
+    if bound is None and not sv.federated:
+        bound = tau_bar
+    bs = sv.buffer_size if sv.name == "fedbuff" else 1
+    races = None
+    if sv.federated and sv.horizon == "auto" and bound is None:
+        races = fed_bucket_races(
+            grid, bs, sv.n_steps, device,
+            ex.bucket_widths if ex.backend == "batched" else None)
+        bound = races_tau_bar(races)
+        if ex.backend != "batched" or ex.reference:
+            races = None
+    return resolve_grid_horizon(
+        sv.horizon, grid, fed=sv.federated, buffer_size=bs,
+        n_steps=sv.n_steps, slack=spec.delay.horizon_slack, bound=bound,
+        device=device), races
+
+
 def resolve(spec: ExperimentSpec) -> Resolved:
     """Materialize problem, prox, policies and grid on the spec's device
     (``ExecutionSpec.device``; None = the CUDA card, raising when there is
@@ -176,28 +219,29 @@ def resolve(spec: ExperimentSpec) -> Resolved:
     device = resolve_device(spec.execution.device)
     problem = _build_problem(spec, device)
     prox = _build_prox(spec, problem)
-    slack = spec.delay.horizon_slack
 
     if spec.grid is not None:
         if spec.validate_horizon:
             _validate_horizon(spec, None)
-        horizon = resolve_grid_horizon(
-            spec.solver.horizon, spec.grid, slack=slack,
-            bound=spec.delay.expected_max_delay, device=device)
-        return Resolved(spec, problem, prox, spec.grid, None, horizon, device)
+        horizon, races = _resolve_horizon(spec, spec.grid, None, device)
+        return Resolved(spec, problem, prox, spec.grid, None, horizon, device,
+                        races)
 
     topos = _build_topologies(spec)
     pg = spec.policies
     needs_bound = (pg.policies is None and pg.tau_bound is None
                    and any(n in FIXED_FAMILY for n in pg.names))
+    worker_solver = not spec.solver.federated
     auto = spec.solver.horizon == "auto"
-    needs_measure = (
+    needs_measure = worker_solver and (
         (needs_bound and spec.delay.measure)
         or (spec.validate_horizon and spec.delay.measure
             and spec.delay.expected_max_delay is None)
         or (auto and spec.delay.expected_max_delay is None))
     tau_bar = _measure_tau_bar(spec, topos, device) if needs_measure else None
-    if needs_bound and tau_bar is None:
+    if spec.solver.federated:
+        tau_bar = 0  # fixed baselines are not the federated story
+    elif needs_bound and tau_bar is None:
         raise ValueError(
             "fixed-family policies need tau_bound (or DelaySpec.measure)")
 
@@ -207,12 +251,11 @@ def resolve(spec: ExperimentSpec) -> Resolved:
                                 if spec.topology.n_workers is not None
                                 else None))
     if spec.validate_horizon:
-        _validate_horizon(spec, tau_bar)
-    bound = spec.delay.expected_max_delay
-    horizon = resolve_grid_horizon(
-        spec.solver.horizon, grid, slack=slack,
-        bound=tau_bar if bound is None else bound, device=device)
-    return Resolved(spec, problem, prox, grid, tau_bar, horizon, device)
+        _validate_horizon(spec, tau_bar if worker_solver else None)
+    horizon, races = _resolve_horizon(
+        spec, grid, tau_bar if worker_solver else None, device)
+    return Resolved(spec, problem, prox, grid, tau_bar, horizon, device,
+                    races)
 
 
 # ------------------------------------------------------------- dispatch ----
@@ -247,6 +290,52 @@ def _run_piag(r: Resolved):
                              tr, c.policy, r.prox, objective=objective,
                              horizon=h, use_tau_max=utm, record_every=s,
                              engine=eng, grad_fn=grad_fn))
+    return _stack_rows(rows)
+
+
+def _run_fed(r: Resolved):
+    spec = r.spec
+    sv = spec.solver
+    update, x0, data = _problem_pieces(r.problem, r.prox, sv.local_lr)
+    objective = r.problem.P
+    h, n_steps = r.horizon, sv.n_steps
+    bs = sv.buffer_size if sv.name == "fedbuff" else 1
+    s = spec.execution.record_every
+    eng = spec.execution.engine
+    if spec.execution.backend == "batched":
+        if sv.name == "fedasync":
+            return sweep_fedasync(update, x0, data, r.grid,
+                                  objective=objective, horizon=h,
+                                  reference=spec.execution.reference,
+                                  n_steps=n_steps,
+                                  bucket_widths=spec.execution.bucket_widths,
+                                  record_every=s, engine=eng, races=r.races)
+        return sweep_fedbuff(update, x0, data, r.grid, eta=sv.eta,
+                             buffer_size=bs, objective=objective, horizon=h,
+                             reference=spec.execution.reference,
+                             n_steps=n_steps,
+                             bucket_widths=spec.execution.bucket_widths,
+                             record_every=s, engine=eng, races=r.races)
+
+    rows = []
+    for c in r.grid.cells:
+        tr = generate_federated_trace(c.n_workers, r.grid.n_events,
+                                      clients=list(c.workers),
+                                      buffer_size=bs, seed=c.seed,
+                                      n_steps=n_steps, device=r.device)
+        cd = tuple(leaf[:c.n_workers] for leaf in data)
+        if sv.name == "fedasync":
+            rows.append(run_fedasync(update, x0, cd, tr, c.policy,
+                                     objective=objective, horizon=h,
+                                     record_every=s, engine=eng))
+        else:
+            rows.append(run_fedbuff(update, x0, cd, tr, c.policy, eta=sv.eta,
+                                    buffer_size=bs, objective=objective,
+                                    horizon=h, record_every=s, engine=eng))
+    return _stack_rows(rows)
+
+
+def _stack_rows(rows):
     return type(rows[0])(*(
         torch.stack(leaves) if isinstance(leaves[0], torch.Tensor)
         else leaves[0] for leaves in zip(*rows)))
@@ -258,12 +347,13 @@ def run(spec: ExperimentSpec, resume=None) -> Results:
 
     Runs on ``spec.execution.device``: the CUDA card unless the spec names
     ``"cpu"``; with no card and no device named it raises.  Under the
-    default ``engine='fused'`` every event of the run is one launch of the
-    hand-written kernel on the card."""
+    default ``engine='fused'`` every event of the run is one launch of a
+    hand-written kernel on the card (per bucket, for the batched
+    backend)."""
     _check_ported(spec, resume)
     r = resolve(spec)
     t0 = time.perf_counter()
-    raw = _run_piag(r)
+    raw = _run_fed(r) if spec.solver.federated else _run_piag(r)
     if r.device.type == "cuda":
         torch.cuda.synchronize(r.device)
     elapsed = time.perf_counter() - t0
@@ -276,8 +366,9 @@ def run(spec: ExperimentSpec, resume=None) -> Results:
 # -------------------------------------------------- component escape ----
 
 def component_spec(solver: str, backend: str, *, problem, grid, prox,
-                   record_every: int = 1, engine: str = "fused",
-                   device=None, **solver_kwargs) -> ExperimentSpec:
+                   reference: bool = False, record_every: int = 1,
+                   engine: str = "fused", device=None,
+                   **solver_kwargs) -> ExperimentSpec:
     """A spec from prebuilt components (problem + grid + prox), bypassing
     the declarative build; horizon validation and tau-bar measurement are
     off, as in the reference.  ``device`` defaults to the problem's."""
@@ -287,8 +378,9 @@ def component_spec(solver: str, backend: str, *, problem, grid, prox,
     return ExperimentSpec(
         problem=ProblemSpec(kind="custom", problem=problem, prox_op=prox),
         solver=SolverSpec(name=solver, **solver_kwargs),
-        execution=ExecutionSpec(backend=backend, record_every=record_every,
-                                engine=engine, device=device),
+        execution=ExecutionSpec(backend=backend, reference=reference,
+                                record_every=record_every, engine=engine,
+                                device=device),
         delay=DelaySpec(measure=False),
         n_events=grid.n_events,
         grid=grid,
@@ -297,9 +389,11 @@ def component_spec(solver: str, backend: str, *, problem, grid, prox,
 
 
 def run_components(solver: str, backend: str, *, problem, grid, prox,
-                   record_every: int = 1, engine: str = "fused",
-                   device=None, **solver_kwargs) -> Results:
+                   reference: bool = False, record_every: int = 1,
+                   engine: str = "fused", device=None,
+                   **solver_kwargs) -> Results:
     """``run`` over prebuilt components (see ``component_spec``)."""
     return run(component_spec(solver, backend, problem=problem, grid=grid,
-                              prox=prox, record_every=record_every,
-                              engine=engine, device=device, **solver_kwargs))
+                              prox=prox, reference=reference,
+                              record_every=record_every, engine=engine,
+                              device=device, **solver_kwargs))

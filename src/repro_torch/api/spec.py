@@ -146,7 +146,8 @@ class TopologySpec:
     ``kind``:      ``"standard"`` -- the four worker regimes of
                    ``sweep.standard_topology_factories`` (PIAG/BCD);
                    ``"edge"``     -- heterogeneous federated clients
-                   (federated; not ported yet);
+                   (``federated.heterogeneous_clients`` with ``params``;
+                   ``params`` may pin its own ``seed``);
                    ``"custom"``   -- use ``topologies`` directly.
     ``names``:     optional subset of the regime names.
     ``n_workers``: worker counts; more than one grows the ragged
@@ -262,7 +263,10 @@ class ExecutionSpec:
                  ``num_processes`` / ``process_id``: sharded-backend knobs,
                  kept so specs read as in the reference.
     ``bucket_widths``: explicit ragged-bucket width menu (None = pow-2).
-    ``reference``: federated sweeps only (not ported yet).
+    ``reference``: federated batched sweeps only: take the events from
+                 the heapq twin (``simulate_federated`` on the same
+                 pre-sampled rounds) instead of the device race; bitwise
+                 the same events.
     ``record_every``: decimated trace recording -- materialize (and compute
                  the objective for) only every s-th event row; rows
                  ``s-1, 2s-1, ...`` of the stride-1 run.  Must divide
@@ -271,7 +275,8 @@ class ExecutionSpec:
                  yet, ROADMAP queue A item 9).
     ``engine``:  per-event inner loop.  ``"fused"`` (the PORT's default)
                  runs the policy update (window sum / select / push) and
-                 the prox step as ONE launch of the hand-written CUDA
+                 the solver update (PIAG's prox step, the FedAsync mix, the
+                 FedBuff buffer step) as ONE launch of a hand-written CUDA
                  kernel per event for all cells (``kernels.fused_step``);
                  ``"scan"`` runs them as composed torch ops, the counterpart
                  of the reference's default scan engine.  On the CPU both

@@ -113,15 +113,23 @@ def window_sum(state: StepsizeState, tau) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` rounded as ONE float32 operation, the way the reference's
-    compiled program contracts it into an FMA.
+    """``a * b + c`` rounded ONCE to float32, a correctly rounded FMA, the way
+    the reference's compiled program contracts it (and ``__fmaf_rn`` in the
+    CUDA kernels).
 
-    The float32 product is exact in float64, so the float64 sum rounds once
-    and the result once more to float32; that differs from a true float32
-    FMA only when the float64 sum lands exactly on a float32 tie, about
-    once in 2^29.  The CUDA kernel computes the same double expression, so
-    kernel and plain version agree bitwise."""
-    return (a.double() * b.double() + c.double()).float()
+    The float32 product is exact in float64.  The float64 sum is rounded to
+    odd (TwoSum gives its error; an inexact sum with an even last bit steps
+    one ulp toward the exact value), and a float64 rounded to odd rounds to
+    float32 exactly as the exact value would, since 53 >= 24 + 2 bits."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    even = (s.view(torch.int64) & 1) == 0
+    step = (err != 0) & even & torch.isfinite(s)
+    toward = torch.copysign(torch.full_like(s, float("inf")), err)
+    return torch.where(step, torch.nextafter(s, toward), s).float()
 
 
 def _push(state: StepsizeState, gamma: torch.Tensor,

@@ -3,22 +3,28 @@
 Each function takes arrays from ``repro`` as numpy (``np.asarray`` of a
 JAX array) and returns the port's object with its tensors on ``device``,
 so a test can hand both packages identical state: a problem's data and
-constants, an iterate, a step-size state, policy parameters and an event
-trace.
+constants, an iterate, a step-size state, policy parameters, an event
+trace, and the federated state -- client models given as plain numbers,
+pre-sampled client rounds, federated traces (host or device columns) and
+a federated result's leaves.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .core.engine import EventTrace
+from .core.engine import EventTrace, WorkerModel
 from .core.problems import LogRegProblem
+from .federated.events import (ClientModel, ClientRounds, FederatedTrace,
+                               FederatedTraceArrays)
+from .federated.server import FedResult
 from .core.stepsize import StepsizeState
 from .kernels.dispatch import resolve_device
 from .sweep.policies import PolicyParams
 
 __all__ = ["logreg_problem", "iterate", "stepsize_state", "policy_params",
-           "event_trace"]
+           "event_trace", "client_models", "client_rounds",
+           "federated_trace", "federated_trace_arrays", "fed_result"]
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -68,3 +74,65 @@ def event_trace(worker, tau, t_wall, tau_max=None, read_at=None) -> EventTrace:
         read_at = (np.arange(tau.shape[0]) - tau).astype(np.int32)
     return EventTrace(worker, np.asarray(read_at, np.int32), tau, tau_max,
                       np.asarray(t_wall, np.float64))
+
+
+def client_models(clients) -> list:
+    """The port's ``ClientModel`` list from clients given as plain numbers:
+    one mapping per client with the reference's fields (``compute`` and
+    ``upload`` as mappings of ``mean``, ``sigma``, ``p_straggle``,
+    ``straggle_x``; ``local_epochs``, ``p_dropout``, ``rejoin_after``) --
+    ``dataclasses.asdict`` of a reference client has this form."""
+    def worker(m):
+        return WorkerModel(mean=float(m["mean"]), sigma=float(m["sigma"]),
+                           p_straggle=float(m["p_straggle"]),
+                           straggle_x=float(m["straggle_x"]))
+    return [ClientModel(compute=worker(c["compute"]),
+                        upload=worker(c["upload"]),
+                        local_epochs=int(c["local_epochs"]),
+                        p_dropout=float(c["p_dropout"]),
+                        rejoin_after=float(c["rejoin_after"]))
+            for c in clients]
+
+
+def client_rounds(drop_u, duration) -> ClientRounds:
+    """``ClientRounds`` (host float32 arrays) from the reference's two
+    leaves."""
+    return ClientRounds(np.array(drop_u, np.float32, copy=True),
+                        np.array(duration, np.float32, copy=True))
+
+
+_FED_COLS = (("client", np.int32), ("read_at", np.int32), ("tau", np.int32),
+             ("aggregate", np.int32), ("version", np.int32),
+             ("local_steps", np.int32))
+
+
+def federated_trace(client, read_at, tau, aggregate, version, local_steps,
+                    t_wall) -> FederatedTrace:
+    """A ``FederatedTrace`` (host arrays) from a reference trace's seven
+    columns."""
+    cols = [np.asarray(a, dt) for a, (_, dt) in zip(
+        (client, read_at, tau, aggregate, version, local_steps), _FED_COLS)]
+    return FederatedTrace(*cols, np.asarray(t_wall, np.float64))
+
+
+def federated_trace_arrays(client, read_at, tau, aggregate, version,
+                           local_steps, t_wall, n_uploads, exhausted,
+                           device=None) -> FederatedTraceArrays:
+    """``FederatedTraceArrays`` (tensors on ``device``) from the
+    reference's nine leaves."""
+    cols = [_tensor(a, dt, device) for a, (_, dt) in zip(
+        (client, read_at, tau, aggregate, version, local_steps), _FED_COLS)]
+    return FederatedTraceArrays(*cols, _tensor(t_wall, np.float32, device),
+                                _tensor(n_uploads, np.int32, device),
+                                _tensor(exhausted, np.bool_, device))
+
+
+def fed_result(x, objective, weights, taus, versions, clipped,
+               device=None) -> FedResult:
+    """A ``FedResult`` from the reference result's first six leaves."""
+    return FedResult(x=_tensor(x, np.float32, device),
+                     objective=_tensor(objective, np.float32, device),
+                     weights=_tensor(weights, np.float32, device),
+                     taus=_tensor(taus, np.int32, device),
+                     versions=_tensor(versions, np.int32, device),
+                     clipped=_tensor(clipped, np.int32, device))

@@ -1,36 +1,51 @@
-"""The fused per-event kernel of the PIAG/BCD inner loop (counterpart of
-``repro.kernels.fused_step.fused_policy_prox_step``).
+"""The fused per-event kernels of the solver inner loops (counterpart of
+``repro.kernels.fused_step``).
 
 One solver event is a window-sum gather from the circular cumulative-sum
 buffer, the policy's step-size select, the push of the new cumulative sum,
-and the prox update of the iterate.  On the card these run as ONE launch of
-the hand-written CUDA kernel in ``csrc/fused_step.cu`` for all B cells (one
-thread block per cell, the cell axis taking the place of the reference's
-``vmap``).  On the CPU the wrapper runs :func:`fused_policy_prox_step_ref`,
-the same function in plain PyTorch ops, composed from the real
-``core.stepsize`` functions and the ``core.prox`` operators.
+and the update of the iterate:
+
+* :func:`fused_policy_prox_step` -- PIAG/BCD, ``prox(x - gamma*g, gamma)``;
+* :func:`fused_policy_mix_step` -- FedAsync, ``x + gamma*(xc - x)``;
+* :func:`fused_policy_buff_step` -- FedBuff, ``delta += gamma*(xc - xw)``,
+  ``x += agg*scale*delta``, ``delta *= (1 - agg)``.
+
+On the card each runs as ONE launch of a hand-written CUDA kernel in
+``csrc/fused_step.cu`` for all B cells (one thread block per cell, the cell
+axis taking the place of the reference's ``vmap``).  On the CPU each
+wrapper runs its ``*_ref`` twin, the same function in plain PyTorch ops,
+composed from the real ``core.stepsize`` functions and the ``core.prox``
+operators.
 
 The step-size state is updated IN PLACE on both routes (the kernel touches
 two buffer slots per cell instead of copying the (B, H) buffer); the
-wrappers return ``(gamma, state, x_new)`` as the reference does, with
-``state`` holding the updated tensors.
-
-Not ported yet: the federated twins ``fused_policy_mix_step`` and
-``fused_policy_buff_step`` (see ROADMAP queue B).
+wrappers return ``(gamma, state, ...)`` as the reference does, with
+``state`` holding the updated tensors.  The reference's compiled program
+contracts the federated mix, delta accumulate and buffered apply into
+FMAs; both routes compute them as ``fma32``.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..core.prox import Box, ElasticNet, GroupL2, L1, L2Squared, ProxOp, Zero
-from ..core.stepsize import StepsizeState, _push, fma32, window_sum
+from ..core.stepsize import StepsizeState, _push, f32, fma32, window_sum
 from .dispatch import kernel_route
 
 __all__ = ["select_gamma", "select_gamma_total", "as_policy_params", "fused_leaf",
            "fused_policy_prox_step", "fused_policy_prox_step_ref",
-           "boundary_bytes", "prox_code"]
+           "fused_policy_mix_step", "fused_policy_mix_step_ref",
+           "fused_policy_buff_step", "fused_policy_buff_step_ref",
+           "boundary_bytes", "boundary_bytes_mix", "boundary_bytes_buff",
+           "prox_code"]
+
+# per cell: k, total, clipped read and written; tau; the four policy
+# params; the pushed buffer slot
+_STATE_BYTES = 4 * 3 * 2 + 4 + 4 * 4 + 4
+
 
 def boundary_bytes(horizon: int, n: int, cells: int = 1,
                    reads_slot: int | None = None) -> int:
@@ -43,10 +58,32 @@ def boundary_bytes(horizon: int, n: int, cells: int = 1,
     cells; all cells when not given).  Every element is 4 bytes.
     """
     del horizon  # the in-place kernel never moves the whole buffer
+    return _event_bytes(n, cells, reads_slot, vectors_in=2, vectors_out=1)
+
+
+def boundary_bytes_mix(n: int, cells: int = 1,
+                       reads_slot: int | None = None) -> int:
+    """Bytes one ``fused_policy_mix_step`` launch must move: the state as
+    in :func:`boundary_bytes`, plus ``x`` and ``xc`` read and ``x_new``
+    written (float32, width ``n``) per cell."""
+    return _event_bytes(n, cells, reads_slot, vectors_in=2, vectors_out=1)
+
+
+def boundary_bytes_buff(n: int, cells: int = 1,
+                        reads_slot: int | None = None) -> int:
+    """Bytes one ``fused_policy_buff_step`` launch must move: the state as
+    in :func:`boundary_bytes`, the ``agg`` flag, plus ``x``, ``xc``, ``xw``
+    and ``delta`` read and ``x_new`` and ``delta_new`` written per cell."""
+    return _event_bytes(n, cells, reads_slot, vectors_in=4, vectors_out=2,
+                        scalars_in=1)
+
+
+def _event_bytes(n, cells, reads_slot, vectors_in, vectors_out,
+                 scalars_in=0) -> int:
     reads = cells if reads_slot is None else int(reads_slot)
-    per_cell_in = 4 * 4 + 4 + 4 * 3 + 2 * 4 * n  # params, tau, k/total/clipped, x, g
-    per_cell_out = 4 * 3 + 4 + 4 + 4 * n         # k/total/clipped, slot, gamma, x_new
-    return cells * (per_cell_in + per_cell_out) + 4 * reads
+    per_cell = (_STATE_BYTES + 4 + 4 * scalars_in
+                + 4 * n * (vectors_in + vectors_out))  # + gamma out
+    return cells * per_cell + 4 * reads
 
 
 def select_gamma(policy_id, gamma_prime, c0, c1, ws, tau) -> torch.Tensor:
@@ -140,11 +177,11 @@ def prox_code(prox: ProxOp):
     raise TypeError(f"the fused kernel has no prox op {type(prox).__name__}")
 
 
-def fused_policy_prox_step_ref(params, prox: ProxOp, state: StepsizeState,
-                               tau: torch.Tensor, x: torch.Tensor,
-                               g: torch.Tensor, fma_push: bool = False):
-    """Plain PyTorch version: ``policy.step`` + ``prox(x - gamma*g, gamma)``
-    over (B,) cells, updating ``state`` in place like the kernel."""
+def _policy_update(params, state: StepsizeState, tau: torch.Tensor,
+                   fma_push: bool) -> torch.Tensor:
+    """The prologue all three plain versions share: window sum, policy
+    select and push, written into ``state``'s tensors in place; returns
+    gamma (B,)."""
     ws, clip = window_sum(state, tau)
     gamma, new_total = select_gamma_total(
         params.policy_id, params.gamma_prime, params.c0, params.c1, ws, tau,
@@ -152,31 +189,108 @@ def fused_policy_prox_step_ref(params, prox: ProxOp, state: StepsizeState,
     new = _push(state, gamma, clip, new_total)
     for old, upd in zip(state, new):
         old.copy_(upd)
+    return gamma
+
+
+def fused_policy_prox_step_ref(params, prox: ProxOp, state: StepsizeState,
+                               tau: torch.Tensor, x: torch.Tensor,
+                               g: torch.Tensor, fma_push: bool = False):
+    """Plain PyTorch version: ``policy.step`` + ``prox(x - gamma*g, gamma)``
+    over (B,) cells, updating ``state`` in place like the kernel."""
+    gamma = _policy_update(params, state, tau, fma_push)
     x_new = prox.prox(x - gamma.unsqueeze(-1) * g, gamma)
     return gamma, state, x_new
+
+
+def fused_policy_mix_step_ref(params, state: StepsizeState,
+                              tau: torch.Tensor, x: torch.Tensor,
+                              xc: torch.Tensor, fma_push: bool = False):
+    """Plain PyTorch version: ``policy.step`` + the FedAsync mix
+    ``x + gamma*(xc - x)`` (contracted, as the reference computes it) over
+    (B,) cells, updating ``state`` in place like the kernel."""
+    gamma = _policy_update(params, state, tau, fma_push)
+    return gamma, state, fma32(gamma.unsqueeze(-1), xc - x, x)
+
+
+def fused_policy_buff_step_ref(params, state: StepsizeState,
+                               tau: torch.Tensor, x: torch.Tensor,
+                               xc: torch.Tensor, xw: torch.Tensor,
+                               delta: torch.Tensor, agg: torch.Tensor,
+                               scale, fma_push: bool = False):
+    """Plain PyTorch version of one FedBuff event over (B,) cells:
+    ``delta += gamma*(xc - xw)``; ``x += (agg*scale)*delta``;
+    ``delta *= (1 - agg)``, the first two contracted as the reference
+    computes them.  ``scale`` is rounded to float32 first.  Returns
+    ``(gamma, state, x_new, delta_new)``; ``state`` is updated in place."""
+    gamma = _policy_update(params, state, tau, fma_push)
+    d_acc = fma32(gamma.unsqueeze(-1), xc - xw, delta)
+    step = (agg * f32(scale, agg)).unsqueeze(-1)
+    x_new = fma32(step, d_acc, x)
+    return gamma, state, x_new, (1.0 - agg).unsqueeze(-1) * d_acc
+
+
+_ARGTYPES = {
+    # name: (pointer args, trailing int/float args)
+    "fused_policy_prox_step_launch": (13, "iiiiffi"),
+    "fused_policy_mix_step_launch": (13, "iiii"),
+    "fused_policy_buff_step_launch": (17, "iiifi"),
+}
 
 
 def _lib():
     from .build import load
     built = load("fused_step")
-    fn = built.lib.fused_policy_prox_step_launch
-    if fn.argtypes is None:
-        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 13 + [i, i, i, i, f, f, i, vp]
-        fn.restype = ctypes.c_int
-        err = built.lib.fused_step_error_string
+    lib = built.lib
+    if lib.fused_step_error_string.restype is not ctypes.c_char_p:
+        codes = {"i": ctypes.c_int, "f": ctypes.c_float}
+        for name, (n_ptr, tail) in _ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr
+                           + [codes[c] for c in tail] + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        err = lib.fused_step_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-    return built.lib
+    return lib
 
 
-def _check(name, t, dtype, shape):
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous():
-        raise ValueError(
-            f"fused_policy_prox_step: {name} must be a contiguous {dtype} "
-            f"tensor of shape {tuple(shape)}; got {t.dtype} "
-            f"{tuple(t.shape)} contiguous={t.is_contiguous()}")
+def _check_inputs(kernel: str, params, tau, state, vectors, B, d):
+    """Raise unless every input is the contiguous dtype and shape the kernel
+    reads: (B,) params/tau/state scalars, (B, H) buffer, (B, d) vectors."""
+    H = state.horizon
+    checks = [("policy_id", params.policy_id, torch.int32, (B,)),
+              ("gamma_prime", params.gamma_prime, torch.float32, (B,)),
+              ("c0", params.c0, torch.float32, (B,)),
+              ("c1", params.c1, torch.float32, (B,)),
+              ("tau", tau, torch.int32, (B,)),
+              ("k", state.k, torch.int32, (B,)),
+              ("total", state.total, torch.float32, (B,)),
+              ("cumbuf", state.cumbuf, torch.float32, (B, H)),
+              ("clipped", state.clipped, torch.int32, (B,))]
+    checks += [(name, t, torch.float32, (B, d) if t.ndim == 2 else (B,))
+               for name, t in vectors]
+    for name, t, dtype, shape in checks:
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"{kernel}: {name} must be a contiguous {dtype} tensor of "
+                f"shape {tuple(shape)}; got {t.dtype} {tuple(t.shape)} "
+                f"contiguous={t.is_contiguous()}")
+
+
+def _launch(kernel: str, params, tau, state, ins, outs, tail):
+    """Call ``<kernel>_launch`` on the current stream; raise on its code."""
+    lib = _lib()
+    dev = outs[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = getattr(lib, f"{kernel}_launch")(
+            *(t.data_ptr() for t in (*params, tau, *state, *ins, *outs)),
+            *tail, stream)
+    if code != 0:
+        raise RuntimeError(
+            f"{kernel} launch failed: "
+            f"{lib.fused_step_error_string(code).decode()} ({code})")
 
 
 def fused_policy_prox_step(params, prox: ProxOp, state: StepsizeState,
@@ -191,43 +305,79 @@ def fused_policy_prox_step(params, prox: ProxOp, state: StepsizeState,
     tensors launch the kernel (one block per cell); CPU tensors run
     :func:`fused_policy_prox_step_ref`.
     """
-    tensors = (*params, tau, *state, x, g)
-    if kernel_route(*tensors) == "plain":
+    if kernel_route(*params, tau, *state, x, g) == "plain":
         return fused_policy_prox_step_ref(params, prox, state, tau, x, g,
                                           fma_push)
     B, d = x.shape
-    H = state.horizon
     kind, p0, p1 = prox_code(prox)
-    for name, t, dtype, shape in (
-            ("policy_id", params.policy_id, torch.int32, (B,)),
-            ("gamma_prime", params.gamma_prime, torch.float32, (B,)),
-            ("c0", params.c0, torch.float32, (B,)),
-            ("c1", params.c1, torch.float32, (B,)),
-            ("tau", tau, torch.int32, (B,)),
-            ("k", state.k, torch.int32, (B,)),
-            ("total", state.total, torch.float32, (B,)),
-            ("cumbuf", state.cumbuf, torch.float32, (B, H)),
-            ("clipped", state.clipped, torch.int32, (B,)),
-            ("x", x, torch.float32, (B, d)),
-            ("g", g, torch.float32, (B, d))):
-        _check(name, t, dtype, shape)
+    _check_inputs("fused_policy_prox_step", params, tau, state,
+                  (("x", x), ("g", g)), B, d)
     x_new = torch.empty_like(x)
     gamma = torch.empty((B,), dtype=torch.float32, device=x.device)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.fused_policy_prox_step_launch(
-            *(t.data_ptr() for t in (
-                params.policy_id, params.gamma_prime, params.c0, params.c1,
-                tau, state.k, state.total, state.cumbuf, state.clipped, x, g,
-                x_new, gamma)),
-            B, d, H, kind, p0, p1, int(fma_push), stream)
-    if code != 0:
-        raise RuntimeError(
-            "fused_policy_prox_step launch failed: "
-            f"{lib.fused_step_error_string(code).decode()} ({code})")
+    _launch("fused_policy_prox_step", params, tau, state, (x, g),
+            (x_new, gamma),
+            (B, d, state.horizon, kind, p0, p1, int(fma_push)))
     fused_policy_prox_step.launches += 1
     return gamma, state, x_new
 
 
-fused_policy_prox_step.launches = 0  # kernel launches since the last reset
+def fused_policy_mix_step(params, state: StepsizeState, tau: torch.Tensor,
+                          x: torch.Tensor, xc: torch.Tensor,
+                          fma_push: bool = False):
+    """One fused FedAsync server event for B cells: ``policy.step`` + the
+    mix ``x + gamma*(xc - x)``.
+
+    Arguments as in :func:`fused_policy_prox_step`, with ``xc`` (B, d) the
+    uploaded client models.  Returns ``(gamma (B,), state, x_new (B, d))``.
+    CUDA tensors launch the kernel (one block per cell); CPU tensors run
+    :func:`fused_policy_mix_step_ref`.
+    """
+    if kernel_route(*params, tau, *state, x, xc) == "plain":
+        return fused_policy_mix_step_ref(params, state, tau, x, xc, fma_push)
+    B, d = x.shape
+    _check_inputs("fused_policy_mix_step", params, tau, state,
+                  (("x", x), ("xc", xc)), B, d)
+    x_new = torch.empty_like(x)
+    gamma = torch.empty((B,), dtype=torch.float32, device=x.device)
+    _launch("fused_policy_mix_step", params, tau, state, (x, xc),
+            (x_new, gamma), (B, d, state.horizon, int(fma_push)))
+    fused_policy_mix_step.launches += 1
+    return gamma, state, x_new
+
+
+def fused_policy_buff_step(params, state: StepsizeState, tau: torch.Tensor,
+                           x: torch.Tensor, xc: torch.Tensor,
+                           xw: torch.Tensor, delta: torch.Tensor,
+                           agg: torch.Tensor, scale, fma_push: bool = False):
+    """One fused FedBuff server event for B cells: ``policy.step``, then
+    ``delta += gamma*(xc - xw)``, ``x += agg*scale*delta`` and
+    ``delta *= (1 - agg)``.
+
+    ``xw`` (B, d) are the models the uploading clients read, ``delta``
+    (B, d) the buffered deltas, ``agg`` (B,) float32 the 0/1 aggregation
+    flags and ``scale = eta / buffer_size`` a number, rounded to float32
+    before any use.  Returns ``(gamma (B,), state, x_new, delta_new)``.
+    CUDA tensors launch the kernel (one block per cell); CPU tensors run
+    :func:`fused_policy_buff_step_ref`.
+    """
+    if kernel_route(*params, tau, *state, x, xc, xw, delta, agg) == "plain":
+        return fused_policy_buff_step_ref(params, state, tau, x, xc, xw,
+                                          delta, agg, scale, fma_push)
+    B, d = x.shape
+    _check_inputs("fused_policy_buff_step", params, tau, state,
+                  (("agg", agg), ("x", x), ("xc", xc), ("xw", xw),
+                   ("delta", delta)), B, d)
+    x_new = torch.empty_like(x)
+    delta_new = torch.empty_like(delta)
+    gamma = torch.empty((B,), dtype=torch.float32, device=x.device)
+    _launch("fused_policy_buff_step", params, tau, state,
+            (agg, x, xc, xw, delta), (x_new, delta_new, gamma),
+            (B, d, state.horizon, float(np.float32(scale)), int(fma_push)))
+    fused_policy_buff_step.launches += 1
+    return gamma, state, x_new, delta_new
+
+
+# kernel launches since the last reset (the wrappers count only launches)
+fused_policy_prox_step.launches = 0
+fused_policy_mix_step.launches = 0
+fused_policy_buff_step.launches = 0

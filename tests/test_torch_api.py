@@ -1,12 +1,14 @@
 """The slice end to end: ``repro_torch.api.run`` against ``repro.api.run``,
 plus the port's hygiene (no JAX, no reference imports, no CPU fallback).
 
-One small spec goes through both packages with backends solo and batched
-and engines scan and fused (ragged worker counts in the batched grid).
-Exact: worker ids, taus (= tau_max), clipped and t_wall.  Bitwise: gammas
-of the fixed / naive / adaptive1 / adaptive2 families, which do not depend
-on the iterate.  Hinge / poly gammas within GAMMA_ULPS ulps; the objective
-within OBJ_REL of its starting value.
+One small PIAG spec and one small federated spec (FedAsync and FedBuff
+over edge clients) go through both packages with backends solo and
+batched and engines scan and fused (ragged worker counts in the batched
+grids).  Exact: worker ids, taus (= tau_max), versions, clipped and t_wall.
+Bitwise: gammas of the fixed / naive / adaptive1 / adaptive2 families and
+the federated ``constant`` weights, which do not depend on the iterate.
+Hinge / poly gammas within GAMMA_ULPS ulps; the objective within OBJ_REL of
+its starting value.
 """
 import ast
 import dataclasses
@@ -40,7 +42,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 GAMMA_ULPS = 4
 OBJ_REL = 1e-5
-EXACT = ("adaptive1", "adaptive2", "fixed", "naive")
+EXACT = ("adaptive1", "adaptive2", "fixed", "naive", "constant")
 
 
 def _spec(mod, backend, engine, **ex):
@@ -71,6 +73,11 @@ def _port(backend, engine):
 def _assert_matches(ref, got):
     assert got.labels() == ref.labels()
     assert got.horizon == ref.horizon and got.tau_bar == ref.tau_bar
+    assert sorted(got.extras) == sorted(ref.extras)
+    for f in got.extras:
+        if f == "versions":
+            np.testing.assert_array_equal(got.extras[f].numpy(),
+                                          np.asarray(ref.extras[f]))
     np.testing.assert_array_equal(got.taus.numpy(), np.asarray(ref.taus))
     np.testing.assert_array_equal(got.clipped.numpy(), np.asarray(ref.clipped))
     np.testing.assert_array_equal(got.virtual_time(),
@@ -90,6 +97,70 @@ def _assert_matches(ref, got):
 def test_api_run_matches_reference(backend, engine):
     ref = japi.run(_spec(japi, backend, engine))
     _assert_matches(ref, _port(backend, engine))
+
+
+def _fed_spec(mod, solver, backend, engine, **ex):
+    """FedAsync / FedBuff on edge clients (``TopologySpec.params``), the
+    weights' gamma' left to the auto rule (0.6)."""
+    ragged = backend == "batched"
+    return mod.ExperimentSpec(
+        problem=mod.ProblemSpec(kind="logreg",
+                                params=dict(n_samples=200, dim=30)),
+        solver=mod.SolverSpec(name=solver, horizon="auto", eta=0.4,
+                              buffer_size=3 if solver == "fedbuff" else 1),
+        topology=mod.TopologySpec(kind="edge",
+                                  n_workers=(4, 6) if ragged else (4,),
+                                  seed=1, params=dict(spread=4.0,
+                                                      p_dropout=0.1)),
+        policies=mod.PolicyGridSpec(
+            names=("hinge", "poly", "constant"), seeds=(3,),
+            policy_kwargs={"hinge": dict(a=0.5, b=4.0), "poly": dict(a=0.3)}),
+        execution=mod.ExecutionSpec(backend=backend, engine=engine,
+                                    record_every=4, **ex),
+        n_events=60)
+
+
+@pytest.mark.parametrize("engine", ["scan", "fused"])
+@pytest.mark.parametrize("backend", ["solo", "batched"])
+@pytest.mark.parametrize("solver", ["fedasync", "fedbuff"])
+def test_api_run_federated_matches_reference(solver, backend, engine):
+    ref = japi.run(_fed_spec(japi, solver, backend, engine))
+    got = tapi.run(_fed_spec(tapi, solver, backend, engine, device="cpu"))
+    assert got.tau_bar == 0 and got.cells[0].policy.gamma_prime == 0.6
+    _assert_matches(ref, got)
+
+
+def test_port_federated_batched_rows_equal_port_solo_rows():
+    """The batched rows of a ragged edge grid equal the port's solo runs:
+    taus, versions, clipped exact, weights bitwise (they do not depend on
+    the iterate), objective within OBJ_REL of its start."""
+    for solver in ("fedasync", "fedbuff"):
+        spec = _fed_spec(tapi, solver, "batched", "fused", device="cpu")
+        batched = tapi.run(spec)
+        solo = tapi.run(spec.replace(execution=dataclasses.replace(
+            spec.execution, backend="solo")))
+        for f in ("taus", "clipped", "gammas"):
+            assert torch.equal(getattr(batched, f), getattr(solo, f)), f
+        assert torch.equal(batched.extras["versions"],
+                           solo.extras["versions"])
+        diff = (batched.objective - solo.objective).abs().max()
+        assert float(diff) <= OBJ_REL * float(solo.objective[:, 0].abs().min())
+
+
+def test_federated_reference_hatch_through_api_is_bitwise_twin():
+    """``reference=True`` takes the heapq twin's events: the same events
+    bitwise (taus, versions, clipped, weights).  It runs the ragged grid as
+    one pass at the widest width, not per bucket, so the objective (GEMMs
+    of other shapes) is held to OBJ_REL of its start."""
+    spec = _fed_spec(tapi, "fedbuff", "batched", "fused", device="cpu")
+    fused = tapi.run(spec)
+    hatch = tapi.run(spec.replace(execution=dataclasses.replace(
+        spec.execution, reference=True)))
+    for f in ("taus", "clipped", "gammas"):
+        assert torch.equal(getattr(fused, f), getattr(hatch, f)), f
+    assert torch.equal(fused.extras["versions"], hatch.extras["versions"])
+    diff = float((fused.objective - hatch.objective).abs().max())
+    assert diff <= OBJ_REL * float(fused.objective[:, 0].abs().min()), diff
 
 
 def test_worker_ids_of_every_bucket_match_reference():
@@ -182,7 +253,10 @@ def test_horizon_validation_matches_reference():
 
 @pytest.mark.parametrize("change, item", [
     (dict(solver=tapi.SolverSpec(name="bcd")), 5),
-    (dict(solver=tapi.SolverSpec(name="fedasync")), 8),
+    (dict(solver=tapi.SolverSpec(name="fedbuff"),
+          execution=tapi.ExecutionSpec(backend="sharded", device="cpu")), 12),
+    (dict(solver=tapi.SolverSpec(name="fedasync"), faults=object(),
+          execution=tapi.ExecutionSpec(engine="scan", device="cpu")), 10),
     (dict(execution=tapi.ExecutionSpec(backend="sharded", device="cpu")), 12),
     (dict(execution=tapi.ExecutionSpec(telemetry=True, device="cpu")), 9),
     (dict(faults=object(), execution=tapi.ExecutionSpec(engine="scan",
@@ -265,7 +339,8 @@ def test_port_imports_neither_jax_nor_the_reference(path):
 def test_import_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = "
             "None; import repro_torch.api, repro_torch.interop, "
-            "repro_torch.analysis, repro_torch.configs.paper_logreg; "
+            "repro_torch.analysis, repro_torch.configs.paper_logreg, "
+            "repro_torch.federated; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,

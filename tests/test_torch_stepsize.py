@@ -6,6 +6,7 @@ families are bitwise; hinge and poly gammas (a float32 ``pow`` and an FMA
 the reference's compiler may form) are held to GAMMA_ULPS ulps.
 """
 import warnings
+from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
@@ -187,6 +188,41 @@ def test_adaptive_lipschitz_matches_reference_and_is_rejected_by_fused():
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     with pytest.raises(TypeError, match="AdaptiveLipschitz"):
         as_policy_params(tss.AdaptiveLipschitz(gamma_prime=0.4), CPU)
+
+
+def _fma_oracle(a, b, c):
+    """``a * b + c`` computed exactly, rounded once to float32 (ties to
+    even)."""
+    exact = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    near = np.float32(float(exact))
+    cands = [np.nextafter(near, np.float32(-np.inf)), near,
+             np.nextafter(near, np.float32(np.inf))]
+    return min(cands, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                     int(np.float32(v).view(np.int32)) & 1))
+
+
+@pytest.mark.parametrize("case", ["ties", "random"])
+def test_fma32_is_a_correctly_rounded_fma(case):
+    """fma32 rounds once: exactly the oracle's float32, bitwise, also where
+    a float64 sum lands on a float32 tie and rounding it twice would not."""
+    if case == "ties":
+        one = np.float32(1 + 2.0 ** -12)
+        tiny = [2.0 ** -80, -2.0 ** -80, 2.0 ** -60, -2.0 ** -60, 0.0]
+        a = np.array([one] * 5 + [-one] * 5, np.float32)
+        b = np.array([one] * 10, np.float32)
+        c = np.array(tiny + [-t for t in tiny], np.float32)
+    else:
+        rng = np.random.default_rng(7)
+        a, b, c = (rng.standard_normal(2000).astype(np.float32)
+                   * np.float32(2.0) ** rng.integers(-30, 30, 2000)
+                   .astype(np.float32) for _ in range(3))
+    got = tss.fma32(torch.from_numpy(a), torch.from_numpy(b),
+                    torch.from_numpy(c)).numpy()
+    want = np.array([_fma_oracle(*t) for t in zip(a, b, c)], np.float32)
+    bad = np.flatnonzero(got.view(np.int32) != want.view(np.int32))
+    assert bad.size == 0, (case, bad[:5], got[bad[:5]], want[bad[:5]])
+    if case == "ties":
+        assert got[0] == np.float32(1 + 2.0 ** -11 + 2.0 ** -23)
 
 
 def test_make_policy_rejects_unknown_name():
