@@ -2,20 +2,30 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each against its plain PyTorch version on the card, drives the port's main
-paths (``repro_torch.api.run`` for PIAG, FedAsync and FedBuff, batched,
-default engine) at the paper's MNIST shape, and times the kernels.  Each
-phase prints one line; any failure raises and the script exits non-zero.
-The last three lines are the kernels' JSON, the card's name and power
-limit, and ``{"ok": true, "device": ...}``.  Exits non-zero without a
-result when no CUDA device is present.
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+nvcc per source, all started together), holds each against its plain
+PyTorch version on the card, and drives the port's main paths:
+
+* ``repro_torch.api.run`` for PIAG, FedAsync and FedBuff (batched, default
+  engine) at the paper's MNIST shape, through kernels B1-B3;
+* serving qwen2.5-32b at full width and depth (64 layers, bfloat16,
+  random weights from the port's initializer on the card) through
+  ``launch.serve.generate`` and ``serving.ContinuousBatcher``, whose
+  prefill runs the flash-attention kernel B6.
+
+Each phase prints one line; any failure raises and the script exits
+non-zero.  The last three lines are the kernels' JSON, the card's name and
+power limit, and ``{"ok": true, "device": ...}``.  Exits non-zero without
+a result when no CUDA device is present.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +36,7 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch import api  # noqa: E402
+from repro_torch import api, interop  # noqa: E402
 from repro_torch.analysis import (best_fixed_vs_adaptive,  # noqa: E402
                                   time_to_tolerance)
 from repro_torch.core.engine import simulate_parameter_server  # noqa: E402
@@ -38,22 +48,30 @@ from repro_torch.core.stepsize import (Adaptive1, FixedStepSize,  # noqa: E402
                                        StepsizeState, make_policy)
 from repro_torch.federated import (heterogeneous_clients,  # noqa: E402
                                    run_fedasync_problem, simulate_federated)
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.fused_step import (  # noqa: E402
     boundary_bytes, boundary_bytes_buff, boundary_bytes_mix,
     fused_policy_buff_step, fused_policy_buff_step_ref,
     fused_policy_mix_step, fused_policy_mix_step_ref, fused_policy_prox_step,
     fused_policy_prox_step_ref)
+from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.models import forward, init_params, prefill  # noqa: E402
+from repro_torch.serving import ContinuousBatcher, Request  # noqa: E402
 from repro_torch.sweep.policies import POLICY_IDS, PolicyParams  # noqa: E402
 from repro_torch.sweep.runners import fed_bucket_races  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/fused_step.cu"
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/fused_step.py:209"
 REPLACES_MIX = "src/repro/kernels/fused_step.py:240"
 REPLACES_BUFF = "src/repro/kernels/fused_step.py:279"
+REPLACES_FA = "src/repro/kernels/flash_attention.py:104"
 POLICIES = ("adaptive1", "adaptive2", "fixed", "naive", "hinge", "poly")
 PROXES = (("none", {}), ("l1", dict(lam=1e-2)), ("l2", dict(lam=1e-2)),
           ("elastic_net", dict(lam1=1e-2, lam2=1e-2)),
@@ -64,8 +82,15 @@ GAMMA_ULP_ENVELOPE = 4
 X_REL_ENVELOPE = 1e-5
 OBJ_REL_ENVELOPE = 1e-5        # objective, relative to the initial value
 FED_POLICIES = ("hinge", "poly", "constant")
+# B6 envelopes: float32 within 1e-5 of max|out|; bfloat16 within 2 bf16
+# ulps of the plain output plus that float32 envelope (a value that cancels
+# near zero has ulps finer than the float32 error of either sum)
+FA_REL_ENVELOPE = 1e-5
+FA_BF16_ULPS = 2
+LOGIT_F32_ENVELOPE = 1e-4      # card vs cpu, float32 model logits
+SERVE_ARCH = "qwen2.5-32b"
 COUNTERS = (fused_policy_prox_step, fused_policy_mix_step,
-            fused_policy_buff_step)
+            fused_policy_buff_step, fa.flash_attention_bhsd)
 
 
 def say(tag: str, text: str) -> None:
@@ -139,11 +164,20 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    built = build.load("fused_step")
-    report = " | ".join(line.strip() for line in built.ptxas.splitlines()
-                        if "Used" in line or "spill" in line)
-    say("2 build", f"{built.path.name} built in {built.build_seconds:.3f} s "
-        f"(0 = reused) from {KERNEL_SOURCE}; ptxas: {report}")
+    """Both kernel libraries, one nvcc each, started together."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        fused, flash = pool.map(build.load, ("fused_step", "flash_attention"))
+    wall = time.perf_counter() - t0
+    for built, src in ((fused, KERNEL_SOURCE), (flash, FA_SOURCE)):
+        regs = re.findall(r"Used (\d+) registers", built.ptxas)
+        spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores",
+                                               built.ptxas))
+        say("2 build", f"{built.path.name} built in "
+            f"{built.build_seconds:.3f} s (0 = reused) from {src}; ptxas: "
+            f"{len(regs)} kernels, registers {','.join(regs)}, spill stores "
+            f"{spill} bytes")
+    say("2 build", f"both libraries in {wall:.3f} s wall (parallel nvcc)")
 
 
 def _random_case(B, d, H, pid, gen):
@@ -597,16 +631,26 @@ def _time_launches(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def _reps(fn, seconds: float = 0.5) -> int:
+    """Warm ``fn`` twice; a repetition count that takes about ``seconds``."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return int(max(3, seconds / max(time.perf_counter() - t0, 1e-6)))
+
+
 def _time_kernel(kernel, plain):
     """``(graph_ms, eager_ms, eager_ms_after, plain_ms)`` per call: the
-    kernel replayed from a CUDA graph of 100 launches, eager before and
-    after the graph, and the plain version eager."""
-    for _ in range(20):
-        kernel()
-        plain()
-    torch.cuda.synchronize()
-    eager_ms = _time_launches(kernel, 2000)
-    plain_ms = _time_launches(plain, 200)
+    kernel replayed from a CUDA graph of up to 100 launches, eager before
+    and after the graph, and the plain version eager.  Counts are sized to
+    about half a second per loop (at most 2000 eager launches, 200 plain
+    calls, 20 graph replays)."""
+    n = min(2000, _reps(kernel))
+    n_plain = min(200, _reps(plain))
+    eager_ms = _time_launches(kernel, n)
+    plain_ms = _time_launches(plain, n_plain)
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
@@ -614,14 +658,15 @@ def _time_kernel(kernel, plain):
             kernel()
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
-    per_graph = 100
+    per_graph = min(100, max(1, n // 20))
     with torch.cuda.graph(graph):
         for _ in range(per_graph):
             kernel()
     graph.replay()
     torch.cuda.synchronize()
-    graph_ms = _time_launches(graph.replay, 20) / per_graph
-    eager_ms2 = _time_launches(kernel, 2000)
+    graph_ms = _time_launches(graph.replay,
+                              max(2, min(20, n // per_graph))) / per_graph
+    eager_ms2 = _time_launches(kernel, n)
     return graph_ms, eager_ms, eager_ms2, plain_ms
 
 
@@ -732,15 +777,17 @@ def phase_timing(horizon: int, name: str, max_err: float) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err)
 
 
-def phase_profile(tag: str, spec, what: str) -> None:
+def phase_profile(tag: str, run, what: str) -> None:
+    """Profile one call of ``run`` (after a warm one): wall, device busy
+    and idle share, and the top device ops by time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    api.run(spec)  # warm: problem memo, caching allocator
+    run()  # warm: problem memo, caching allocator
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        api.run(spec)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
@@ -754,46 +801,359 @@ def phase_profile(tag: str, spec, what: str) -> None:
         return
     busy = sum(by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    say(tag, f"api.run {what} (resolve included): wall {wall:.3f} s, device "
+    say(tag, f"{what}: wall {wall:.3f} s, device "
         f"busy {busy:.3f} s ({busy / wall:.3f}), idle share "
-        f"{1 - busy / wall:.3f}; top kernels (s): "
+        f"{1 - busy / wall:.3f}; top device ops (s): "
         + "; ".join(f"{n[:60]} {us / 1e6:.4f}" for n, us in top))
+
+
+# ------------------------------------------------- B6 and serving ----
+
+def _fa_check(got, want) -> float:
+    """Max abs error of the kernel against its plain version; raises
+    outside the envelope (module constants)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    env = FA_REL_ENVELOPE * max(float(w.abs().max()), 1e-30)
+    if want.dtype == torch.bfloat16:
+        _, e = torch.frexp(w.abs())
+        env = env + FA_BF16_ULPS * torch.ldexp(torch.ones_like(w), e - 8)
+    if bool((err > env).any()):
+        raise AssertionError(f"B6 outside its envelope: max err "
+                             f"{float(err.max())}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def phase_fa_vs_plain() -> float:
+    """B6 against its plain version: bf16 and f32; d 48, 64, 128; causal,
+    bidirectional, window 9; G 1 and 5 query heads per KV head folded into
+    rows (positions tiled G times, as ``kernels.ops`` folds them); Sq/Sk
+    from 1, 17, 64, 300, 2048; ring holes (kpos -1) in every third case."""
+    gen = torch.Generator().manual_seed(6)
+    shapes = [(1, 1), (17, 17), (64, 64), (300, 300), (2048, 2048),
+              (1, 2048), (17, 300), (300, 2048), (64, 17)]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = 0
+    before = fa.flash_attention_bhsd.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (48, 64, 128):
+            for causal, window in ((True, None), (False, None), (True, 9)):
+                for G in (1, 5):
+                    for Sq, Sk in shapes:
+                        BH = 2
+                        q = torch.randn(BH, G * Sq, d, generator=gen)
+                        k, v = (torch.randn(BH, Sk, d, generator=gen)
+                                for _ in range(2))
+                        q, k, v = (t.to(dtype).to(DEV) for t in (q, k, v))
+                        qp = (torch.arange(Sq, dtype=torch.int32)
+                              + (Sk - Sq)).repeat(G).to(DEV)
+                        kp = torch.arange(Sk, dtype=torch.int32)
+                        if cases % 3 == 2:
+                            kp = torch.where(torch.arange(Sk) % 3 == 0, -1,
+                                             kp).to(torch.int32)
+                        kp = kp.to(DEV)
+                        kw = dict(causal=causal, window=window,
+                                  scale=d ** -0.5)
+                        got = fa.flash_attention_bhsd(q, k, v, qp, kp, **kw)
+                        want = fa.flash_attention_bhsd_ref(q, k, v, qp, kp,
+                                                           **kw)
+                        torch.cuda.synchronize()
+                        worst[dtype] = max(worst[dtype], _fa_check(got, want))
+                        cases += 1
+    launches = fa.flash_attention_bhsd.launches - before
+    if launches != cases:
+        raise AssertionError(f"B6: {launches} launches for {cases} cases")
+    say("16 B6 kernel", f"{cases} cases (bf16 and f32; d 48, 64, 128; "
+        "causal, bidirectional, window 9; G 1 and 5 heads folded into rows; "
+        f"(Sq, Sk) in {shapes}; ring holes in every third case): max abs err"
+        f" f32 {worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}"
+        f" (envelopes: f32 {FA_REL_ENVELOPE:g} x max|out|; bf16 "
+        f"{FA_BF16_ULPS} bf16 ulps of the plain output + that)")
+    return max(worst.values())
+
+
+def attention_work(BH: int, d: int, qpos, kpos, *, causal: bool,
+                   window: Optional[int], itemsize: int) -> Tuple[int, int]:
+    """``(bytes, flops)`` one call must move and do on these positions:
+    q, k, v and the positions read once and out written once; 4 d flops
+    (QK^T and PV) per visible (query, key) pair -- the pairs this run's
+    positions make visible, not the full Sq x Sk."""
+    qp = np.asarray(qpos.cpu() if torch.is_tensor(qpos) else qpos, np.int64)
+    kp = np.asarray(kpos.cpu() if torch.is_tensor(kpos) else kpos, np.int64)
+    keys = np.sort(kp[kp >= 0])
+    live = qp[qp >= 0]
+    hi = (np.searchsorted(keys, live, side="right") if causal
+          else np.full(live.shape, keys.size))
+    lo = (np.searchsorted(keys, live - window, side="right")
+          if window is not None else np.zeros(live.shape, np.int64))
+    pairs = int(np.clip(hi - lo, 0, None).sum())
+    nbytes = (itemsize * BH * d * (2 * qp.size + 2 * kp.size)
+              + 4 * (qp.size + kp.size))
+    return nbytes, 4 * d * pairs * BH
+
+
+def phase_fa_timing(name: str, B: int, S: int, max_err: float) -> dict:
+    """B6 at a serving shape of qwen2.5-32b (40 heads over 8 KV heads,
+    head dim 128, bf16, causal): kernel vs plain there, then the kernel
+    graph-replayed and eager, the plain version, SDPA (the library call,
+    never used by the port) and the bound."""
+    cfg = get_config(SERVE_ARCH)
+    H, KV, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // KV
+    gen = torch.Generator(device=DEV).manual_seed(S)
+    q = torch.randn(B * KV, G * S, d, generator=gen, device=DEV,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(B * KV, S, d, generator=gen, device=DEV,
+                        dtype=torch.bfloat16) for _ in range(2))
+    pos = torch.arange(S, dtype=torch.int32, device=DEV)
+    qpos = pos.repeat(G)
+    scale = d ** -0.5
+
+    def kernel():
+        return fa.flash_attention_bhsd(q, k, v, qpos, pos, causal=True,
+                                       scale=scale)
+
+    def plain():
+        with torch.no_grad():
+            return fa.flash_attention_bhsd_ref(q, k, v, qpos, pos,
+                                               causal=True, scale=scale)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = _fa_check(got, want)
+    del got, want
+    graph_ms, eager_ms, _, plain_ms = _time_kernel(kernel, plain)
+    torch.cuda.empty_cache()
+    # SDPA on the unfolded layout: (B, H, S, d) queries over (B, KV, S, d)
+    qs = q.reshape(B, KV, G, S, d).reshape(B, H, S, d)
+    ks, vs = k.reshape(B, KV, S, d), v.reshape(B, KV, S, d)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_out = sdpa(qs, ks, vs, is_causal=True, scale=scale, enable_gqa=True)
+    lib_err = float((lib_out.float().reshape(B * KV, G * S, d)
+                     - kernel().float()).abs().max())
+
+    def library():
+        return sdpa(qs, ks, vs, is_causal=True, scale=scale, enable_gqa=True)
+
+    library_ms = _time_launches(library, min(2000, _reps(library)))
+    nbytes, flops = attention_work(B * KV, d, qpos, pos, causal=True,
+                                   window=None, itemsize=2)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    say(f"17 B6 timing S={S}", f"flash_attention_bhsd at q ({B * KV}, "
+        f"{G * S}, {d}), k/v ({B * KV}, {S}, {d}) bf16 causal (batch {B}, "
+        f"prompt {S}; kernel vs plain here max abs err {err:.3g}): "
+        f"{graph_ms * 1e3:.3f} us/launch replayed from a CUDA graph, "
+        f"{eager_ms * 1e3:.3f} us eager; plain version {plain_ms * 1e3:.3f}"
+        f" us; SDPA {library_ms * 1e3:.3f} us (max abs diff to the kernel "
+        f"{lib_err:.3g}); bound {bound_ms * 1e3:.4f} us ({nbytes} bytes at "
+        f"{HBM_BYTES_PER_S / 1e12:g} TB/s, {flops} flops at "
+        f"{BF16_OPS_PER_S / 1e12:g} TFLOP/s: {bound_by}); "
+        f"{flops / (graph_ms * 1e9):.1f} TFLOP/s achieved; card {name}")
+    return dict(ms=graph_ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                max_abs_err=max(max_err, err))
+
+
+def phase_card_vs_cpu() -> None:
+    """qwen2.5-32b.reduced() in float32, the same parameters on both
+    devices through ``interop``: greedy ``generate`` on the card (B6) and
+    on the CPU (its plain version)."""
+    cfg = get_config(SERVE_ARCH).reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = interop.model_params(interop.model_tree(cpu), cfg, device=DEV)
+    toks = torch.randint(0, cfg.vocab, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    reset_counts()
+    lg, _ = prefill(card, cfg, {"tokens": toks.to(DEV)})
+    launches = fa.flash_attention_bhsd.launches
+    lc, _ = prefill(cpu, cfg, {"tokens": toks})
+    fg, _ = forward(card, cfg, {"tokens": toks.to(DEV)})
+    fc, _ = forward(cpu, cfg, {"tokens": toks})
+    diff = max(float((lg.cpu() - lc).abs().max()),
+               float((fg.cpu() - fc).abs().max()))
+    if launches != cfg.n_layers or diff > LOGIT_F32_ENVELOPE:
+        raise AssertionError(f"card vs cpu: {launches} B6 launches, logits "
+                             f"differ by {diff}")
+    og, _ = generate(cfg, card, toks.to(DEV), 16)
+    oc, _ = generate(cfg, cpu, toks, 16)
+    same = torch.equal(og.cpu(), oc)
+    if not same:
+        raise AssertionError("card vs cpu: greedy tokens differ")
+    say("18 card vs cpu", f"{cfg.name} (f32, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, attention_impl {cfg.attention_impl}), params "
+        f"carried by interop: prefill and forward logits max abs diff "
+        f"{diff:.3g} (envelope {LOGIT_F32_ENVELOPE:g}), B6 launches per "
+        f"prefill {launches}; greedy generate 2 x (40 + 16) tokens equal: "
+        f"{same}")
+
+
+def phase_serve_model(name: str):
+    """The full qwen2.5-32b on the card from the port's initializer."""
+    cfg = get_config(SERVE_ARCH)
+    if (cfg.n_layers, cfg.d_model, cfg.param_dtype, cfg.attention_impl) != \
+            (64, 5120, "bfloat16", "pallas"):
+        raise AssertionError(f"unexpected serving config {cfg}")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
+                        device=DEV)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    torch.cuda.empty_cache()
+    say("19 model", f"{cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads,"
+        f" d_ff {cfg.d_ff}, vocab {cfg.vocab}, bf16: {n} params "
+        f"({n * 2 / 1e9:.2f} GB) initialized on the card in "
+        f"{time.perf_counter() - t0:.3f} s; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; card {name}")
+    return cfg, model
+
+
+def phase_generate(tag: str, cfg, model, batch: int, prompt: int,
+                   gen: int) -> int:
+    """``generate`` with every count set to 0 just before and read just
+    after: one B6 launch per layer for the one prefill, no other kernel."""
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt),
+                            generator=torch.Generator(device=DEV)
+                            .manual_seed(prompt), device=DEV,
+                            dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out, stats = generate(cfg, model, prompts, gen)
+    launches = fa.flash_attention_bhsd.launches
+    stray = sum(fn.launches for fn in COUNTERS[:3])
+    if launches != cfg.n_layers or stray:
+        raise AssertionError(f"{tag}: {launches} B6 launches for one "
+                             f"prefill (+{stray} of other kernels)")
+    new = out[:, prompt:]
+    if tuple(out.shape) != (batch, prompt + gen) or \
+            not torch.equal(out[:, :prompt], prompts) or \
+            bool(((new < 0) | (new >= cfg.vocab)).any()):
+        raise AssertionError(f"{tag}: bad output {tuple(out.shape)}")
+    say(tag, f"generate {cfg.name} batch {batch}, prompt {prompt}, gen "
+        f"{gen}: prefill {stats['prefill_s']:.3f} s "
+        f"({batch * prompt / stats['prefill_s']:.1f} tok/s), decode "
+        f"{stats['decode_s']:.3f} s ({stats['tok_per_s']:.2f} tok/s, "
+        f"{stats['decode_s'] / gen * 1e3:.2f} ms/step), B6 launches per "
+        f"prefill {launches}, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def phase_logits_finite(cfg, model) -> None:
+    toks = torch.randint(0, cfg.vocab, (2, 64), device=DEV,
+                         generator=torch.Generator(device=DEV).manual_seed(9))
+    logits, cache = prefill(model, cfg, {"tokens": toks})
+    if tuple(logits.shape) != (2, 1, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()) or \
+            tuple(cache["k"].shape) != (cfg.n_layers, 2, 64, cfg.n_kv_heads,
+                                        cfg.head_dim):
+        raise AssertionError("prefill logits or cache malformed")
+    say("22 logits", f"prefill (2, 64): logits {tuple(logits.shape)} finite, "
+        f"|logit| max {float(logits.float().abs().max()):.3f}, cache k "
+        f"{tuple(cache['k'].shape)}")
+
+
+def phase_batcher(cfg, model) -> None:
+    """8 requests (prompts 32-1024, max_new 8-32) through 4 slots of 2048;
+    each greedy output equals a single-request generate of it."""
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(
+        rng.integers(32, 1025))).astype(np.int32),
+        max_new=int(rng.integers(8, 33))) for i in range(8)]
+    cb = ContinuousBatcher(cfg, model, max_slots=4, max_len=2048)
+    reset_counts()
+    for r in reqs:
+        cb.submit(r)
+    stats = cb.run_until_idle()
+    launches = fa.flash_attention_bhsd.launches
+    if stats["completed"] != 8 or launches != 8 * cfg.n_layers:
+        raise AssertionError(f"batcher: {stats}, B6 launches {launches}")
+    ttft = np.array([r.t_first_token - r.arrived_at for r in reqs])
+    for r in reqs:
+        out, _ = generate(cfg, model, r.prompt[None, :], r.max_new)
+        if not np.array_equal(out[0, len(r.prompt):].cpu().numpy(),
+                              r.output):
+            raise AssertionError(f"batcher request {r.rid} differs from "
+                                 "single-request generate")
+    say("21 batcher", f"ContinuousBatcher {cfg.name}, 4 slots x 2048: "
+        f"completed {stats['completed']}, tokens {stats['tokens']}, ticks "
+        f"{stats['ticks']}, wall {stats['wall_s']:.3f} s, "
+        f"{stats['tok_per_s']:.2f} tok/s; time to first token median "
+        f"{np.median(ttft):.3f} s, max {ttft.max():.3f} s; prompts "
+        f"{sorted(len(r.prompt) for r in reqs)}, max_new "
+        f"{[r.max_new for r in reqs]}; B6 launches {launches} (8 prefills); "
+        "every output equals its single-request generate")
 
 
 def main() -> None:
     t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     name = phase_device()
     phase_build()
+    # the PIAG and federated paths (B1-B3)
     max_err = phase_kernel_vs_plain()
     fed_err = phase_fed_kernels_vs_plain()
     res, launches = phase_main_path()
+    horizon = res.horizon
+    del res
     phase_scan_vs_fused()
     phase_headline()
-    timing = phase_timing(res.horizon, name, max_err)
-    phase_profile("8 profile", main_spec(n_events=200),
-                  "PIAG 200 events x 96 cells")
-    fed = {solver: phase_fed_main_path(solver)
-           for solver in ("fedasync", "fedbuff")}
+    timing = phase_timing(horizon, name, max_err)
+    phase_profile("8 profile", lambda: api.run(main_spec(n_events=200)),
+                  "api.run PIAG 200 events x 96 cells (resolve included)")
+    fed = {}
+    for solver in ("fedasync", "fedbuff"):
+        r, n = phase_fed_main_path(solver)
+        fed[solver] = (r.horizon, n)
+        del r
     phase_fed_scan_vs_fused()
     phase_fig5()
-    t_mix = phase_fed_timing("mix", fed["fedasync"][0].horizon, name,
-                             fed_err)
-    t_buff = phase_fed_timing("buff", fed["fedbuff"][0].horizon, name,
-                              fed_err)
-    phase_profile("14 fed profile", fed_spec("fedasync", n_events=200),
-                  "FedAsync 200 uploads x 24 cells")
-    rows = [("fused_policy_prox_step", REPLACES, launches, timing),
-            ("fused_policy_mix_step", REPLACES_MIX, fed["fedasync"][1],
-             t_mix),
-            ("fused_policy_buff_step", REPLACES_BUFF, fed["fedbuff"][1],
-             t_buff)]
+    t_mix = phase_fed_timing("mix", fed["fedasync"][0], name, fed_err)
+    t_buff = phase_fed_timing("buff", fed["fedbuff"][0], name, fed_err)
+    phase_profile("14 fed profile",
+                  lambda: api.run(fed_spec("fedasync", n_events=200)),
+                  "api.run FedAsync 200 uploads x 24 cells (resolve "
+                  "included)")
+    # the serving path (B6): the kernel alone first, then the full model
+    fa_err = phase_fa_vs_plain()
+    t_fa = phase_fa_timing(name, 4, 64, fa_err)
+    t_fa_long = phase_fa_timing(name, 1, 8192, fa_err)
+    t_fa["max_abs_err"] = max(t_fa["max_abs_err"], t_fa_long["max_abs_err"])
+    phase_card_vs_cpu()
+    torch.cuda.empty_cache()
+    cfg, model = phase_serve_model(name)
+    fa_launches = phase_generate("20 generate a", cfg, model, 4, 64, 32)
+    phase_generate("20 generate b", cfg, model, 1, 8192, 8)
+    phase_batcher(cfg, model)
+    phase_logits_finite(cfg, model)
+    phase_profile("23 serve profile",
+                  lambda: generate(cfg, model, torch.randint(
+                      0, cfg.vocab, (4, 64), device=DEV,
+                      generator=torch.Generator(device=DEV).manual_seed(3)),
+                      32),
+                  f"generate {cfg.name} batch 4, prompt 64, gen 32 (one "
+                  "prefill and 32 decode steps)")
+    rows = [("fused_policy_prox_step", KERNEL_SOURCE, REPLACES, launches,
+             timing),
+            ("fused_policy_mix_step", KERNEL_SOURCE, REPLACES_MIX,
+             fed["fedasync"][1], t_mix),
+            ("fused_policy_buff_step", KERNEL_SOURCE, REPLACES_BUFF,
+             fed["fedbuff"][1], t_buff),
+            ("flash_attention_bhsd", FA_SOURCE, REPLACES_FA, fa_launches,
+             t_fa)]
     kernels = {"kernels": [dict(
-        name=kname, route="cuda", source=KERNEL_SOURCE, replaces=rep,
+        name=kname, route="cuda", source=src, replaces=rep,
         launches=n, max_abs_err=t["max_abs_err"], ms=t["ms"],
         eager_ms=t["eager_ms"], plain_ms=t["plain_ms"],
-        bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None)
-        for kname, rep, n, t in rows]}
-    say("15 kernels", f"smoke finished in {time.perf_counter() - t0:.1f} s")
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=t.get("library_ms"))
+        for kname, src, rep, n, t in rows]}
+    say("24 kernels", f"smoke finished in {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,9 @@ Each function takes arrays from ``repro`` as numpy (``np.asarray`` of a
 JAX array) and returns the port's object with its tensors on ``device``,
 so a test can hand both packages identical state: a problem's data and
 constants, an iterate, a step-size state, policy parameters, an event
-trace, and the federated state -- client models given as plain numbers,
+trace, the federated state -- client models given as plain numbers,
 pre-sampled client rounds, federated traces (host or device columns) and
-a federated result's leaves.
+a federated result's leaves -- and a model's parameters.
 """
 from __future__ import annotations
 
@@ -24,7 +24,8 @@ from .sweep.policies import PolicyParams
 
 __all__ = ["logreg_problem", "iterate", "stepsize_state", "policy_params",
            "event_trace", "client_models", "client_rounds",
-           "federated_trace", "federated_trace_arrays", "fed_result"]
+           "federated_trace", "federated_trace_arrays", "fed_result",
+           "model_params", "model_tree"]
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -136,3 +137,65 @@ def fed_result(x, objective, weights, taus, versions, clipped,
                      taus=_tensor(taus, np.int32, device),
                      versions=_tensor(versions, np.int32, device),
                      clipped=_tensor(clipped, np.int32, device))
+
+
+def model_params(params_np, cfg, device=None):
+    """The port's ``models.Transformer`` holding the reference's
+    parameters.
+
+    ``params_np`` is the reference's parameter tree (``init_params`` of
+    ``repro.models``) with numpy leaves (``np.asarray`` of each JAX
+    array; bfloat16 leaves may stay ``ml_dtypes`` arrays): ``embed``,
+    ``final_norm`` and ``layers`` with every leaf stacked on a leading L
+    axis.  Layer ``i`` takes slice ``i`` of each leaf; layouts are the
+    reference's, so nothing is transposed.  Values pass through float32,
+    which holds bfloat16 and float16 exactly, and land in ``cfg``'s param
+    dtype.  Raises on a missing, extra or misshapen leaf."""
+    from .models.transformer import Transformer
+    dev = resolve_device(device)
+    with torch.no_grad():
+        model = Transformer(cfg, None, dev)
+
+        def put(dst, src, where: str, index=None):
+            if set(dst.keys()) != set(src.keys()):
+                raise ValueError(f"{where}: leaves {sorted(src)} do not match "
+                                 f"the port's {sorted(dst.keys())}")
+            for name, p in dst.items():
+                a = np.asarray(src[name]).astype(np.float32)
+                if index is not None:
+                    a = a[index]
+                if a.shape != tuple(p.shape):
+                    raise ValueError(f"{where}.{name}: shape {a.shape}, the "
+                                     f"port expects {tuple(p.shape)}")
+                p.copy_(torch.from_numpy(np.ascontiguousarray(a)).to(
+                    device=dev, dtype=p.dtype))
+
+        if set(params_np) != {"embed", "layers", "final_norm"}:
+            raise ValueError(f"parameter tree has {sorted(params_np)}; the "
+                             "dense trunk takes embed, layers, final_norm")
+        put(model.embed, params_np["embed"], "embed")
+        put(model.final_norm, params_np["final_norm"], "final_norm")
+        layers = params_np["layers"]
+        if set(layers) != {"ln1", "attn", "ln2", "mlp"}:
+            raise ValueError(f"layers has {sorted(layers)}; a dense layer is "
+                             "ln1, attn, ln2, mlp")
+        for i, layer in enumerate(model.layers):
+            for part in ("ln1", "attn", "ln2", "mlp"):
+                put(getattr(layer, part), layers[part], f"layers.{part}", i)
+    return model
+
+
+def model_tree(model) -> dict:
+    """The inverse of :func:`model_params`: a ``models.Transformer``'s
+    parameters as the reference's tree of float32 numpy leaves (``embed``,
+    ``final_norm``, and ``layers`` stacked on a leading L axis)."""
+    tree = {"embed": {}, "final_norm": {}, "layers": {}}
+    for part in ("embed", "final_norm"):
+        for name, p in getattr(model, part).items():
+            tree[part][name] = p.detach().float().cpu().numpy()
+    for part in ("ln1", "attn", "ln2", "mlp"):
+        tree["layers"][part] = {
+            name: np.stack([getattr(layer, part)[name].detach().float()
+                            .cpu().numpy() for layer in model.layers])
+            for name in getattr(model.layers[0], part)}
+    return tree

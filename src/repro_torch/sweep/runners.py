@@ -36,7 +36,7 @@ from .grid import SweepBucket, SweepGrid
 from .policies import ParamPolicy
 
 __all__ = ["make_sweep_piag", "sweep_piag", "sweep_piag_logreg",
-           "make_sweep_fedasync_fused",
+           "make_sweep_fedasync", "make_sweep_fedasync_fused",
            "make_sweep_fedbuff", "sweep_fedasync", "sweep_fedbuff",
            "sweep_fedasync_problem", "sweep_fedbuff_problem",
            "run_bucketed", "resolve_grid_horizon", "measure_fed_tau_bar",
@@ -242,6 +242,19 @@ def _fedbuff_scan_adapter(client_update, x0, client_data, objective, horizon,
     return server_scan
 
 
+def make_sweep_fedasync(client_update: Callable, x0, client_data,
+                        objective: Optional[Callable] = None,
+                        horizon: int = 4096, record_every: int = 1,
+                        engine: str = "fused") -> Callable:
+    """The events-driven batched FedAsync program: ``fn(events (5 x
+    (B, K)), params (B,)) -> FedResult`` on ``x0``'s device.  The events
+    come stacked from the host, e.g. from the heapq twin
+    ``_stack_fed_events``; the default sweep path races them on the device
+    instead (``make_sweep_fedasync_fused``)."""
+    return _fedasync_scan_adapter(client_update, x0, client_data, objective,
+                                  horizon, record_every, engine)
+
+
 def make_sweep_fedasync_fused(client_update: Callable, x0, client_data,
                               n_uploads: int, buffer_size: int = 1,
                               objective: Optional[Callable] = None,
@@ -401,8 +414,8 @@ def sweep_fedasync(client_update: Callable, x0, client_data, grid: SweepGrid,
                                   reference, dev, bucket_widths, races)
 
     def make_server(cd):
-        return _fedasync_scan_adapter(client_update, x0, cd, objective,
-                                      horizon, record_every, engine)
+        return make_sweep_fedasync(client_update, x0, cd, objective, horizon,
+                                   record_every, engine)
 
     return _sweep_fed(make_server, grid, client_data, buffer_size,
                       reference, n_steps, dev, bucket_widths=bucket_widths,

@@ -26,6 +26,9 @@ except ImportError:
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's hand-written "
+        "kernels); skips with a reason where none is present")
     # informational when pytest-timeout is absent (offline container); the
     # chaos tests ALSO assert wall-clock bounds themselves, and the CI
     # chaos lane wraps the whole invocation in a shell-level timeout
