@@ -8,6 +8,11 @@ PyTorch version on the card, and drives the port's main paths:
 
 * ``repro_torch.api.run`` for PIAG, FedAsync and FedBuff (batched, default
   engine) at the paper's MNIST shape, through kernels B1-B3;
+* ``repro_torch.kernels.ops`` (``prox_step``, ``prox_step_tree``,
+  ``rmsnorm_fused``, ``ssd_scan_pallas``) at ``benchmarks/kernel_bench.py``'s
+  shapes and at full model width (one qwen2.5-32b layer's parameters, a
+  qwen2.5-32b prefill's activations, one mamba2-780m layer's SSD on an
+  8192-token prompt), through kernels B4, B5 and B7;
 * serving qwen2.5-32b at full width and depth (64 layers, bfloat16,
   random weights from the port's initializer on the card) through
   ``launch.serve.generate`` and ``serving.ContinuousBatcher``, whose
@@ -51,6 +56,10 @@ from repro_torch.federated import (heterogeneous_clients,  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import prox_step as px  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels.fused_step import (  # noqa: E402
     boundary_bytes, boundary_bytes_buff, boundary_bytes_mix,
     fused_policy_buff_step, fused_policy_buff_step_ref,
@@ -58,6 +67,8 @@ from repro_torch.kernels.fused_step import (  # noqa: E402
     fused_policy_prox_step_ref)
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import forward, init_params, prefill  # noqa: E402
+from repro_torch.models.ssm import ssd_chunked  # noqa: E402
+from repro_torch.models.transformer import Layer  # noqa: E402
 from repro_torch.serving import ContinuousBatcher, Request  # noqa: E402
 from repro_torch.sweep.policies import POLICY_IDS, PolicyParams  # noqa: E402
 from repro_torch.sweep.runners import fed_bucket_races  # noqa: E402
@@ -72,6 +83,15 @@ REPLACES = "src/repro/kernels/fused_step.py:209"
 REPLACES_MIX = "src/repro/kernels/fused_step.py:240"
 REPLACES_BUFF = "src/repro/kernels/fused_step.py:279"
 REPLACES_FA = "src/repro/kernels/flash_attention.py:104"
+PROX_SOURCE = "src/repro_torch/kernels/csrc/prox_step.cu"
+RMS_SOURCE = "src/repro_torch/kernels/csrc/rmsnorm.cu"
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+REPLACES_PROX = "src/repro/kernels/prox_step.py:60"
+REPLACES_RMS = "src/repro/kernels/rmsnorm.py:46"
+REPLACES_SSD = "src/repro/kernels/ssd_scan.py:66"
+SOURCES = (("fused_step", KERNEL_SOURCE), ("flash_attention", FA_SOURCE),
+           ("prox_step", PROX_SOURCE), ("rmsnorm", RMS_SOURCE),
+           ("ssd_scan", SSD_SOURCE))
 POLICIES = ("adaptive1", "adaptive2", "fixed", "naive", "hinge", "poly")
 PROXES = (("none", {}), ("l1", dict(lam=1e-2)), ("l2", dict(lam=1e-2)),
           ("elastic_net", dict(lam1=1e-2, lam2=1e-2)),
@@ -88,9 +108,20 @@ FED_POLICIES = ("hinge", "poly", "constant")
 FA_REL_ENVELOPE = 1e-5
 FA_BF16_ULPS = 2
 LOGIT_F32_ENVELOPE = 1e-4      # card vs cpu, float32 model logits
+# B4 is bitwise to its plain version.  B5: float32 within 8 ulps of each
+# element (the row sum runs in another order), bfloat16 within one bf16
+# ulp, and bitwise equal on all but 1e-3 of a phase's bfloat16 elements
+# (both round once from float32; the model layer's order, cast and then
+# scale, differs on about a quarter).  B7: within 1e-5 of max|out| (float32
+# sums in other orders), plus one bf16 ulp where the output is bfloat16.
+RMS_F32_ULPS = 8
+RMS_BF16_UNEQUAL = 1e-3
+SSD_REL_ENVELOPE = 1e-5
+PROX_L1_FLOPS = 5              # per element: the FMA, |y| - t, max, sign
 SERVE_ARCH = "qwen2.5-32b"
 COUNTERS = (fused_policy_prox_step, fused_policy_mix_step,
-            fused_policy_buff_step, fa.flash_attention_bhsd)
+            fused_policy_buff_step, fa.flash_attention_bhsd, px.prox_step,
+            rn.rmsnorm, ss.ssd_intra_chunk)
 
 
 def say(tag: str, text: str) -> None:
@@ -164,20 +195,20 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    """Both kernel libraries, one nvcc each, started together."""
+    """Every kernel library, one nvcc each, all started together."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        fused, flash = pool.map(build.load, ("fused_step", "flash_attention"))
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        libs = list(pool.map(build.load, [n for n, _ in SOURCES]))
     wall = time.perf_counter() - t0
-    for built, src in ((fused, KERNEL_SOURCE), (flash, FA_SOURCE)):
+    for built, (_, src) in zip(libs, SOURCES):
         regs = re.findall(r"Used (\d+) registers", built.ptxas)
-        spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores",
-                                               built.ptxas))
+        spill = re.findall(r"(\d+) bytes spill stores", built.ptxas)
         say("2 build", f"{built.path.name} built in "
             f"{built.build_seconds:.3f} s (0 = reused) from {src}; ptxas: "
             f"{len(regs)} kernels, registers {','.join(regs)}, spill stores "
-            f"{spill} bytes")
-    say("2 build", f"both libraries in {wall:.3f} s wall (parallel nvcc)")
+            f"{','.join(spill)} bytes")
+    say("2 build", f"{len(libs)} libraries in {wall:.3f} s wall (parallel "
+        "nvcc)")
 
 
 def _random_case(B, d, H, pid, gen):
@@ -1024,7 +1055,8 @@ def phase_generate(tag: str, cfg, model, batch: int, prompt: int,
     reset_counts()
     out, stats = generate(cfg, model, prompts, gen)
     launches = fa.flash_attention_bhsd.launches
-    stray = sum(fn.launches for fn in COUNTERS[:3])
+    stray = sum(fn.launches for fn in COUNTERS
+                if fn is not fa.flash_attention_bhsd)
     if launches != cfg.n_layers or stray:
         raise AssertionError(f"{tag}: {launches} B6 launches for one "
                              f"prefill (+{stray} of other kernels)")
@@ -1089,6 +1121,411 @@ def phase_batcher(cfg, model) -> None:
         "every output equals its single-request generate")
 
 
+# ------------------------------------------- B4, B5, B7 and kernels.ops ----
+
+def _bf16_ulp(w: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 numbers at |w| (8 significant bits)."""
+    _, e = torch.frexp(w.float().abs())
+    return torch.ldexp(torch.ones_like(w, dtype=torch.float32), e - 8)
+
+
+def _rms_check(got, want, tally: list) -> float:
+    """B5's envelope (module constants); returns the max abs error and adds
+    a bfloat16 output's count of elements not bitwise equal to the plain
+    version's, and its size, to ``tally``."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    env = (RMS_F32_ULPS * torch.finfo(torch.float32).eps * w.abs()
+           if want.dtype == torch.float32 else _bf16_ulp(w))
+    if bool((err > env).any()):
+        raise AssertionError(f"B5 outside its envelope: max err "
+                             f"{float(err.max())}")
+    if want.dtype == torch.bfloat16:
+        tally[0] += int((got != want).sum())
+        tally[1] += want.numel()
+    return float(err.max())
+
+
+def _rms_unequal_share(tally: list) -> float:
+    """The share of B5's bfloat16 elements that are not bitwise equal to
+    the plain version's; raises above ``RMS_BF16_UNEQUAL``."""
+    share = tally[0] / max(tally[1], 1)
+    if share > RMS_BF16_UNEQUAL:
+        raise AssertionError(f"B5 bf16: {tally[0]} of {tally[1]} elements "
+                             "not bitwise equal to the plain version")
+    return share
+
+
+def _ssd_check(got, want, what: str) -> float:
+    """B7's envelope (module constants); returns the max abs error."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    env = SSD_REL_ENVELOPE * max(float(w.abs().max()), 1e-30)
+    if want.dtype == torch.bfloat16:
+        env = env + _bf16_ulp(w)
+    if bool((err > env).any()):
+        raise AssertionError(f"B7 {what} outside its envelope: max err "
+                             f"{float(err.max())}")
+    return float(err.max())
+
+
+def phase_prox_vs_plain() -> float:
+    """B4 against its plain version, bitwise: none, l1, l2, box; float32
+    and bfloat16; the pad-tail sizes and 2^20 + 3, each aligned (the
+    16-byte vector path) and as a view one element in (the scalar path);
+    gamma as a Python float and as a 0-d tensor on the card."""
+    gen = torch.Generator().manual_seed(11)
+    sizes = (1, 127, 128, 1023, 1024, 1025, 4097, (1 << 20) + 3)
+    gam_dev = torch.tensor(0.29687762, device=DEV)
+    before = px.prox_step.launches
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind in px.KINDS:
+            for n in sizes:
+                x, g = (torch.randn(n + 1, generator=gen).to(dtype).to(DEV)
+                        for _ in range(2))
+                for gamma in (0.13, gam_dev):
+                    for xs, gs in ((x[:n], g[:n]), (x[1:], g[1:])):
+                        got = kops.prox_step(xs, gs, gamma, kind=kind,
+                                             lam=0.47437608)
+                        want = px.prox_step_ref(xs, gs, gamma, kind=kind,
+                                                lam=0.47437608)
+                        if got.dtype != dtype or not torch.equal(got, want):
+                            raise AssertionError(f"B4 not bitwise: {dtype} "
+                                                 f"{kind} n={n} {gamma}")
+                        cases += 1
+    launches = px.prox_step.launches - before
+    if launches != cases:
+        raise AssertionError(f"B4: {launches} launches for {cases} cases")
+    say("K1 B4 kernel", f"{cases} cases (f32 and bf16; none, l1, l2, box; n "
+        f"in {sizes}, aligned and one element in; gamma a Python float and "
+        "a 0-d tensor on the card): every output bitwise equal to the plain "
+        "version")
+    return 0.0
+
+
+def phase_rms_vs_plain() -> float:
+    """B5 against its plain version: float32 and bfloat16; D 64, 2048,
+    5120, 8192; rows 1, 7, 257, 300 (not multiples of the reference's
+    256-row block)."""
+    gen = torch.Generator().manual_seed(12)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    tally = [0, 0]
+    before = rn.rmsnorm.launches
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (64, 2048, 5120, 8192):
+            for rows in (1, 7, 257, 300):
+                xs = (torch.randn(rows, D, generator=gen) * 3).to(dtype).to(DEV)
+                sc = (torch.randn(D, generator=gen) + 1).to(dtype).to(DEV)
+                got = kops.rmsnorm_fused(xs, sc)
+                want = rn.rmsnorm_ref(xs, sc)
+                if got.dtype != dtype or got.shape != xs.shape:
+                    raise AssertionError("B5 output malformed")
+                worst[dtype] = max(worst[dtype],
+                                   _rms_check(got, want, tally))
+                cases += 1
+    launches = rn.rmsnorm.launches - before
+    if launches != cases:
+        raise AssertionError(f"B5: {launches} launches for {cases} cases")
+    share = _rms_unequal_share(tally)
+    say("K2 B5 kernel", f"{cases} cases (f32 and bf16; D 64, 2048, 5120, "
+        "8192; rows 1, 7, 257, 300): max abs err "
+        f"f32 {worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}; "
+        f"bf16 not bitwise equal: {tally[0]} of {tally[1]} ({share:.3g}) "
+        f"(envelopes: f32 {RMS_F32_ULPS} ulps of each element, bf16 one bf16"
+        f" ulp and at most {RMS_BF16_UNEQUAL:g} not bitwise)")
+    return max(worst.values())
+
+
+def _ssd_inputs(gen, Bt, S, H, P, G, N, x_dtype, h0=False):
+    """SSD inputs on the card: x in ``x_dtype``; dt = softplus(normal +
+    mamba2's dt_bias spread), A = -linspace(1, 16, H) (mamba2's A_log
+    init); B, C, h0 float32."""
+    bias = torch.log(torch.expm1(torch.linspace(1e-3, 1e-1, H)))
+    out = dict(
+        x=torch.randn(Bt, S, H, P, generator=gen).to(x_dtype),
+        dt=torch.nn.functional.softplus(
+            torch.randn(Bt, S, H, generator=gen) + bias),
+        A=-torch.linspace(1.0, 16.0, H),
+        B=torch.randn(Bt, S, G, N, generator=gen),
+        C=torch.randn(Bt, S, G, N, generator=gen))
+    if h0:
+        out["h0"] = torch.randn(Bt, H, P, N, generator=gen)
+    return {k: v.to(DEV) for k, v in out.items()}
+
+
+def _ssd_kernel_inputs(inp, chunk: int):
+    """The intra-chunk kernel's inputs as ``ssd_scan_pallas`` makes them
+    (S a whole number of chunks): x (BC, Q, H, P) in its dtype, dt and
+    dA = dt * A (BC, Q, H), B and C (BC, Q, G, N), float32."""
+    x, dt, A, B, C = (inp[k] for k in ("x", "dt", "A", "B", "C"))
+    Bt, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    Q = min(chunk, S)
+    BC = Bt * (S // Q)
+    return (x.reshape(BC, Q, H, P), dt.reshape(BC, Q, H).float(),
+            (dt.float() * A.float()).reshape(BC, Q, H),
+            B.reshape(BC, Q, G, N).float(), C.reshape(BC, Q, G, N).float())
+
+
+def ssd_intra_work(BC: int, Q: int, H: int, P: int, G: int, N: int,
+                   x_itemsize: int) -> Tuple[int, int]:
+    """``(bytes, flops)`` one intra-chunk call must move and do: x, dt, dA,
+    B, C read once and y and the state written once (float32); the causal
+    half (diagonal included) of C B^T once per (chunk, group) and of W x
+    per cell, and the Q x N x P state product per cell, 2 flops a
+    multiply-add."""
+    nbytes = (x_itemsize * BC * Q * H * P + 4 * 2 * BC * Q * H
+              + 4 * 2 * BC * Q * G * N + 4 * BC * Q * H * P
+              + 4 * BC * H * N * P)
+    pairs = Q * (Q + 1) // 2
+    flops = 2 * (BC * G * pairs * N + BC * H * pairs * P + BC * H * Q * N * P)
+    return nbytes, flops
+
+
+def phase_ssd_vs_plain() -> float:
+    """B7 against its plain version, and ``ssd_scan_pallas`` (the kernel
+    and the host combine) against the port's ``ssd_chunked`` on the card:
+    the reference test sweep's dims (chunk 16), kernel_bench's (chunk 128),
+    chunk 256 with N 128 and G < H over a ragged sequence with h0, and
+    mamba2-780m's heads; x float32 and bfloat16."""
+    gen = torch.Generator().manual_seed(13)
+    cases = [((2, 40, 4, 8, 2, 16), 16), ((1, 64, 2, 16, 1, 8), 16),
+             ((2, 17, 6, 8, 3, 4), 16), ((2, 512, 8, 64, 1, 64), 128),
+             ((1, 700, 8, 64, 2, 128), 256), ((1, 1024, 48, 64, 1, 128), 256)]
+    worst = 0.0
+    before = ss.ssd_intra_chunk.launches
+    n_calls = 0
+    for dims, chunk in cases:
+        for x_dtype in (torch.float32, torch.bfloat16):
+            inp = _ssd_inputs(gen, *dims, x_dtype, h0=dims[1] == 700)
+            if dims[1] % min(chunk, dims[1]) == 0:
+                kin = _ssd_kernel_inputs(inp, chunk)
+                y, st = ss.ssd_intra_chunk(*kin)
+                y_r, st_r = ss.ssd_intra_chunk_ref(*kin)
+                worst = max(worst, _ssd_check(y, y_r, "y"),
+                            _ssd_check(st, st_r, "state"))
+                n_calls += 1
+            y, h = kops.ssd_scan_pallas(**inp, chunk=chunk)
+            y2, h2 = ssd_chunked(**inp, chunk=chunk)
+            if y.dtype != x_dtype or h.dtype != torch.float32:
+                raise AssertionError("ssd_scan_pallas output dtypes")
+            worst = max(worst, _ssd_check(y, y2, "scan y"),
+                        _ssd_check(h, h2, "scan state"))
+            n_calls += 1
+    torch.cuda.synchronize()
+    launches = ss.ssd_intra_chunk.launches - before
+    if launches != n_calls:
+        raise AssertionError(f"B7: {launches} launches for {n_calls} calls")
+    say("K3 B7 kernel", f"{n_calls} calls ((Bt, S, H, P, G, N), chunk in "
+        f"{cases}; x f32 and bf16; h0 on the ragged case): kernel vs plain "
+        "and ssd_scan_pallas vs ssd_chunked, y and state max abs err "
+        f"{worst:.3g} (envelope {SSD_REL_ENVELOPE:g} x max|out|, + one bf16"
+        " ulp for a bf16 y)")
+    return worst
+
+
+def _ops_inputs():
+    """The inputs of ``kernels.ops`` at the two shapes of each kernel: (a)
+    ``benchmarks/kernel_bench.py``'s, (b) full model width."""
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    qwen = get_config(SERVE_ARCH)
+    mamba = get_config("mamba2-780m")
+    layer = Layer(qwen, torch.Generator(device=DEV).manual_seed(15), DEV)
+    params = {name: {k: p.detach() for k, p in getattr(layer, name).items()}
+              for name in ("ln1", "attn", "ln2", "mlp")}
+    grads = {name: {k: torch.randn(p.shape, generator=gen, device=DEV,
+                                   dtype=p.dtype) * 1e-2
+                    for k, p in leaves.items()}
+             for name, leaves in params.items()}
+    n = 1 << 20
+    return dict(
+        prox_a=(torch.randn(n, generator=gen, device=DEV),
+                torch.randn(n, generator=gen, device=DEV), 0.1),
+        prox_b=(params, grads, torch.tensor(0.05, device=DEV)),
+        rms_a=(torch.randn(4096, 2048, generator=gen, device=DEV),
+               torch.ones(2048, device=DEV)),
+        rms_b=(torch.randn(8192, qwen.d_model, generator=gen, device=DEV,
+                           dtype=torch.bfloat16),
+               (torch.randn(qwen.d_model, generator=gen, device=DEV) + 1
+                ).to(torch.bfloat16)),
+        ssd_a=(_ssd_inputs(torch.Generator().manual_seed(16), 2, 512, 8, 64,
+                           1, 64, torch.float32), 128),
+        ssd_b=(_ssd_inputs(torch.Generator().manual_seed(17), 1, 8192,
+                           mamba.ssm_heads, mamba.ssm_head_dim,
+                           mamba.ssm_n_groups, mamba.ssm_state,
+                           torch.bfloat16), mamba.ssm_chunk))
+
+
+def _leaves(tree):
+    return ([t for v in tree.values() for t in _leaves(v)]
+            if isinstance(tree, dict) else [tree])
+
+
+def phase_kernels_ops(inp) -> dict:
+    """``repro_torch.kernels.ops`` at shapes (a) and (b), every count set
+    to 0 just before and read just after: one B4 launch for (a) and one
+    per leaf of the layer for (b), one B5 and one B7 launch per call, no
+    other kernel.  Then each output against its plain version (B4, B5) or
+    the model oracle ``ssd_chunked`` (B7) on the same inputs."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = dict(
+        prox_a=kops.prox_step(*inp["prox_a"], kind="l1", lam=1e-3),
+        prox_b=kops.prox_step_tree(*inp["prox_b"], kind="l1", lam=1e-4),
+        rms_a=kops.rmsnorm_fused(*inp["rms_a"]),
+        rms_b=kops.rmsnorm_fused(*inp["rms_b"]),
+        ssd_a=kops.ssd_scan_pallas(**inp["ssd_a"][0], chunk=inp["ssd_a"][1]),
+        ssd_b=kops.ssd_scan_pallas(**inp["ssd_b"][0], chunk=inp["ssd_b"][1]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_leaves = len(_leaves(inp["prox_b"][0]))
+    launches = {"B4": px.prox_step.launches, "B5": rn.rmsnorm.launches,
+                "B7": ss.ssd_intra_chunk.launches}
+    stray = sum(fn.launches for fn in COUNTERS[:4])
+    if launches != {"B4": 1 + n_leaves, "B5": 2, "B7": 2} or stray:
+        raise AssertionError(f"kernels.ops: launches {launches} (+{stray} "
+                             "of other kernels)")
+    err = {"B4": 0.0}
+    want = px.prox_step_ref(*inp["prox_a"], kind="l1", lam=1e-3)
+    if not torch.equal(out["prox_a"], want):
+        raise AssertionError("kernels.ops prox_step (a) not bitwise")
+    params, grads, gamma = inp["prox_b"]
+    for name, leaves in params.items():
+        for k, p in leaves.items():
+            want = px.prox_step_ref(p, grads[name][k], gamma, kind="l1",
+                                    lam=1e-4)
+            got = out["prox_b"][name][k]
+            if got.dtype != p.dtype or not torch.equal(got, want):
+                raise AssertionError(f"prox_step_tree (b) leaf {name}.{k} "
+                                     "not bitwise")
+            del want
+    tally = [0, 0]
+    err["B5"] = max(_rms_check(out[k], rn.rmsnorm_ref(*inp[k]), tally)
+                    for k in ("rms_a", "rms_b"))
+    share = _rms_unequal_share(tally)
+    err["B7"] = 0.0
+    for k in ("ssd_a", "ssd_b"):
+        y, h = out[k]
+        args, chunk = inp[k]
+        if not (bool(torch.isfinite(y).all()) and bool(
+                torch.isfinite(h).all())):
+            raise AssertionError(f"ssd_scan_pallas {k}: not finite")
+        y2, h2 = ssd_chunked(**args, chunk=chunk)
+        err["B7"] = max(err["B7"], _ssd_check(y, y2, f"{k} y"),
+                        _ssd_check(h, h2, f"{k} state"))
+        del y2, h2
+    B, S, H, P = inp["ssd_b"][0]["x"].shape
+    G, N = inp["ssd_b"][0]["B"].shape[2:]
+    say("K4 kernels.ops", f"prox_step (a) n=2^20 f32 l1; prox_step_tree (b) "
+        f"over one qwen2.5-32b layer ({n_leaves} bf16 leaves, "
+        f"{sum(t.numel() for t in _leaves(params))} params, gamma a 0-d "
+        f"tensor on the card) l1; rmsnorm_fused (a) "
+        f"{tuple(inp['rms_a'][0].shape)} f32, (b) "
+        f"{tuple(inp['rms_b'][0].shape)} bf16; ssd_scan_pallas (a) (2, 512, "
+        f"8, 64; G 1, N 64; chunk 128) f32, (b) mamba2-780m ({B}, {S}, {H}, "
+        f"{P}; G {G}, N {N}; chunk {inp['ssd_b'][1]}) bf16 x: "
+        f"wall {wall:.3f} s; launches {launches}, others 0; B4 bitwise, "
+        f"max abs err B5 {err['B5']:.3g} (bf16 not bitwise equal: "
+        f"{share:.3g}), B7 {err['B7']:.3g} (vs ssd_chunked)")
+    return dict(launches=launches, err=err)
+
+
+def _time_row(tag: str, what: str, kernel, plain, nbytes: int, flops: int,
+              name: str, library=None, max_err: float = 0.0) -> dict:
+    """Time ``kernel`` (graph-replayed and eager), ``plain`` and, where
+    given, ``library``; the bound from ``nbytes`` and float32 ``flops``."""
+    graph_ms, eager_ms, _, plain_ms = _time_kernel(kernel, plain)
+    library_ms = (None if library is None else
+                  _time_launches(library, min(2000, _reps(library))))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    say(tag, f"{what}: {graph_ms * 1e3:.3f} us replayed from a CUDA graph, "
+        f"{eager_ms * 1e3:.3f} us eager; plain version "
+        f"{plain_ms * 1e3:.3f} us; "
+        + ("" if library_ms is None else
+           f"library {library_ms * 1e3:.3f} us; ")
+        + f"bound {bound_ms * 1e3:.4f} us ({nbytes} bytes at "
+        f"{HBM_BYTES_PER_S / 1e12:g} TB/s, {flops} flops at "
+        f"{F32_OPS_PER_S / 1e12:g} TFLOP/s: {bound_by}); card {name}")
+    torch.cuda.empty_cache()
+    return dict(ms=graph_ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                max_abs_err=max_err)
+
+
+def phase_ops_timing(inp, name: str, errs: dict) -> dict:
+    """Each kernel at shapes (a) and (b) against its plain version and
+    bound; B5 also against ``F.rms_norm`` (the library call, never used by
+    the port); ``ssd_scan_pallas`` whole at (b) against ``ssd_chunked``, so
+    that the host combine's share is on record.  Returns the (b) rows."""
+    rows = {}
+    x, g, gam = inp["prox_a"]
+    _time_row("K5 B4 timing a", f"prox_step n={x.numel()} f32 l1",
+              lambda: kops.prox_step(x, g, gam, kind="l1", lam=1e-3),
+              lambda: px.prox_step_ref(x, g, gam, kind="l1", lam=1e-3),
+              3 * 4 * x.numel(), PROX_L1_FLOPS * x.numel(), name)
+    params, grads, gam = inp["prox_b"]
+    n = sum(t.numel() for t in _leaves(params))
+    n_leaves = len(_leaves(params))
+    rows["B4"] = _time_row(
+        "K5 B4 timing b", f"prox_step_tree over one qwen2.5-32b layer "
+        f"({n_leaves} bf16 leaves, {n} params; {n_leaves} launches a call)",
+        lambda: kops.prox_step_tree(params, grads, gam, kind="l1", lam=1e-4),
+        lambda: {k: {j: px.prox_step_ref(p, grads[k][j], gam, kind="l1",
+                                         lam=1e-4) for j, p in v.items()}
+                 for k, v in params.items()},
+        3 * 2 * n + 4 * n_leaves, PROX_L1_FLOPS * n, name,
+        max_err=errs["B4"])
+    for key, label in (("rms_a", "a"), ("rms_b", "b")):
+        x, sc = inp[key]
+        rows_, D = x.shape
+        lib_out = torch.nn.functional.rms_norm(x, (D,), weight=sc, eps=1e-6)
+        lib_diff = float((lib_out.float() - kops.rmsnorm_fused(x, sc).float()
+                          ).abs().max())
+        del lib_out
+        row = _time_row(
+            f"K6 B5 timing {label}", f"rmsnorm_fused ({rows_}, {D}) "
+            f"{str(x.dtype)[6:]} (F.rms_norm differs from the kernel by at "
+            f"most {lib_diff:.3g})",
+            lambda: kops.rmsnorm_fused(x, sc),
+            lambda: rn.rmsnorm_ref(x, sc),
+            2 * x.element_size() * x.numel() + sc.element_size() * D,
+            4 * x.numel() + 4 * rows_, name,
+            library=lambda: torch.nn.functional.rms_norm(
+                x, (D,), weight=sc, eps=1e-6), max_err=errs["B5"])
+    rows["B5"] = row
+    for key, label in (("ssd_a", "a"), ("ssd_b", "b")):
+        args, chunk = inp[key]
+        kin = _ssd_kernel_inputs(args, chunk)
+        BC, Q, H, P = kin[0].shape
+        G, N = kin[3].shape[2], kin[3].shape[3]
+        nbytes, flops = ssd_intra_work(BC, Q, H, P, G, N,
+                                       kin[0].element_size())
+        row = _time_row(
+            f"K7 B7 timing {label}", f"ssd_intra_chunk BC {BC}, Q {Q}, H "
+            f"{H}, P {P}, G {G}, N {N}, x {str(kin[0].dtype)[6:]} "
+            f"({BC * H} cells)",
+            lambda: ss.ssd_intra_chunk(*kin),
+            lambda: ss.ssd_intra_chunk_ref(*kin), nbytes, flops, name,
+            max_err=errs["B7"])
+    rows["B7"] = row
+    args, chunk = inp["ssd_b"]
+    whole = _time_launches(lambda: kops.ssd_scan_pallas(**args, chunk=chunk),
+                           5)
+    oracle = _time_launches(lambda: ssd_chunked(**args, chunk=chunk), 5)
+    say("K8 ssd_scan_pallas b", f"whole scan at (b): {whole * 1e3:.3f} us "
+        f"(the kernel {row['eager_ms'] * 1e3:.3f} us eager, so the host "
+        f"combine takes {1 - row['eager_ms'] / whole:.3f} of it); "
+        f"ssd_chunked (composed torch ops) {oracle * 1e3:.3f} us; card "
+        f"{name}")
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1125,6 +1562,17 @@ def main() -> None:
     t_fa_long = phase_fa_timing(name, 1, 8192, fa_err)
     t_fa["max_abs_err"] = max(t_fa["max_abs_err"], t_fa_long["max_abs_err"])
     phase_card_vs_cpu()
+    # kernels.ops (B4, B5, B7): the kernels alone, then the entry points at
+    # kernel_bench's shapes and full model width, before the model is built
+    prox_err = phase_prox_vs_plain()
+    rms_err = phase_rms_vs_plain()
+    ssd_err = phase_ssd_vs_plain()
+    ops_inp = _ops_inputs()
+    ops_run = phase_kernels_ops(ops_inp)
+    errs = {"B4": prox_err, "B5": max(rms_err, ops_run["err"]["B5"]),
+            "B7": max(ssd_err, ops_run["err"]["B7"])}
+    t_ops = phase_ops_timing(ops_inp, name, errs)
+    del ops_inp
     torch.cuda.empty_cache()
     cfg, model = phase_serve_model(name)
     fa_launches = phase_generate("20 generate a", cfg, model, 4, 64, 32)
@@ -1145,7 +1593,13 @@ def main() -> None:
             ("fused_policy_buff_step", KERNEL_SOURCE, REPLACES_BUFF,
              fed["fedbuff"][1], t_buff),
             ("flash_attention_bhsd", FA_SOURCE, REPLACES_FA, fa_launches,
-             t_fa)]
+             t_fa),
+            ("prox_step", PROX_SOURCE, REPLACES_PROX,
+             ops_run["launches"]["B4"], t_ops["B4"]),
+            ("rmsnorm", RMS_SOURCE, REPLACES_RMS, ops_run["launches"]["B5"],
+             t_ops["B5"]),
+            ("ssd_intra_chunk", SSD_SOURCE, REPLACES_SSD,
+             ops_run["launches"]["B7"], t_ops["B7"])]
     kernels = {"kernels": [dict(
         name=kname, route="cuda", source=src, replaces=rep,
         launches=n, max_abs_err=t["max_abs_err"], ms=t["ms"],

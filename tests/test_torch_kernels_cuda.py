@@ -8,16 +8,32 @@ tests/test_torch_kernels_cuda.py``) they build the kernels from
 ``src/repro_torch/kernels/csrc`` and compare.  This file imports no JAX,
 so it runs on a machine that has only PyTorch.
 
-Envelopes (B6, flash attention): float32 within 1e-5 of max|out|;
-bfloat16 within 2 bf16 ulps of the plain output plus that float32
-envelope (the two sum in other orders, and a value that cancels near zero
-has ulps finer than the float32 error).
+Envelopes:
+
+* B6 (flash attention): float32 within 1e-5 of max|out|; bfloat16 within
+  2 bf16 ulps of the plain output plus that float32 envelope (the two sum
+  in other orders, and a value that cancels near zero has ulps finer than
+  the float32 error).
+* B4 (prox_step): bitwise, float32 and bfloat16 (the same FMA forms and
+  one rounding on both routes).
+* B5 (rmsnorm): float32 within 8 ulps of each element (the row sum runs
+  in another order; ``1 / sqrt`` is correctly rounded on both routes);
+  bfloat16 within one bf16 ulp, and bitwise equal on all but 1e-3 of a
+  test's elements (both round once from float32; the model layer's
+  order, cast and then scale, differs on about a quarter).
+* B7 (SSD intra-chunk, and ``ssd_scan_pallas`` against ``ssd_chunked``):
+  within 1e-5 of the largest |output|.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.kernels import prox_step as px
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels.ops import flash_attention
+from repro_torch.models.ssm import ssd_chunked
 
 pytestmark = pytest.mark.cuda
 
@@ -148,3 +164,148 @@ def test_model_prefill_on_the_card_matches_the_cpu(cuda):
     oc, _ = generate(cfg, cpu, toks, 12)
     og, _ = generate(cfg, card, toks.to(cuda), 12)
     assert torch.equal(og.cpu(), oc)
+
+
+# ------------------------------------------------------- B4, B5, B7 ----
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["none", "l1", "l2", "box"])
+def test_b4_kernel_matches_plain(cuda, dtype, kind):
+    """Bitwise on the pad-tail sizes (vector and scalar paths), gamma as a
+    Python float and as a 0-d tensor on the card, and on an unaligned
+    view (the scalar path alone)."""
+    gen = torch.Generator().manual_seed(len(kind))
+    for n in (1, 7, 127, 128, 1023, 1024, 1025, 4097, 65536 + 3):
+        x, g = (torch.randn(n, generator=gen).to(dtype).to(cuda)
+                for _ in range(2))
+        for gamma in (0.13, torch.tensor(0.29687762, device=cuda)):
+            before = px.prox_step.launches
+            got = ops.prox_step(x, g, gamma, kind=kind, lam=0.47437608)
+            assert px.prox_step.launches == before + 1
+            want = px.prox_step_ref(x, g, gamma, kind=kind, lam=0.47437608)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == x.shape
+            assert torch.equal(got, want), (n, gamma)
+    got = ops.prox_step(x[1:], g[1:], 0.2, kind=kind, lam=0.03)
+    assert torch.equal(got, px.prox_step_ref(x[1:], g[1:], 0.2, kind=kind,
+                                             lam=0.03))
+
+
+def test_b4_tree_and_refusals(cuda):
+    gen = torch.Generator().manual_seed(4)
+    p = {"w": torch.randn(33, 17, generator=gen).to(cuda),
+         "b": [torch.randn(17, generator=gen).to(cuda)]}
+    q = {"w": torch.randn(33, 17, generator=gen).to(cuda),
+         "b": [torch.randn(17, generator=gen).to(cuda)]}
+    before = px.prox_step.launches
+    got = ops.prox_step_tree(p, q, 0.07, kind="l1", lam=0.03)
+    assert px.prox_step.launches == before + 2
+    assert torch.equal(got["w"], px.prox_step_ref(p["w"], q["w"], 0.07,
+                                                  lam=0.03))
+    assert torch.equal(got["b"][0], px.prox_step_ref(p["b"][0], q["b"][0],
+                                                     0.07, lam=0.03))
+    h = torch.zeros(4, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or both bfloat16"):
+        ops.prox_step(h, h, 0.1)
+    x = torch.zeros(4, device=cuda)
+    with pytest.raises(ValueError, match="0-d float32"):
+        ops.prox_step(x, x, torch.zeros(1, device=cuda))
+    with pytest.raises(ValueError, match="span devices"):
+        ops.prox_step(x, x, torch.tensor(0.1))
+
+
+def _rms_check(got, want, tally):
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if want.dtype == torch.float32:
+        env = 8 * torch.finfo(torch.float32).eps * w.abs()
+    else:
+        env = bf16_ulp(w)
+        tally[0] += int((got != want).sum())
+        tally[1] += want.numel()
+    assert bool((err <= env).all()), float(err.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b5_kernel_matches_plain(cuda, dtype):
+    gen = torch.Generator().manual_seed(5)
+    tally = [0, 0]
+    for rows, D in ((1, 64), (7, 64), (300, 256), (33, 2048), (5, 5120),
+                    (3, 8192), (2, 1000)):
+        x = (torch.randn(rows, D, generator=gen) * 3).to(dtype).to(cuda)
+        s = (torch.randn(D, generator=gen) + 1).to(dtype).to(cuda)
+        before = rn.rmsnorm.launches
+        got = ops.rmsnorm_fused(x, s)
+        assert rn.rmsnorm.launches == before + 1
+        want = rn.rmsnorm_ref(x, s)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == x.shape
+        _rms_check(got, want, tally)
+    x3 = torch.randn(2, 3, 96, generator=gen).to(dtype).to(cuda)
+    s3 = torch.full((96,), 1.3, device=cuda, dtype=dtype)
+    _rms_check(ops.rmsnorm_fused(x3, s3), rn.rmsnorm_ref(x3, s3), tally)
+    assert tally[0] <= 1e-3 * tally[1], tally
+    with pytest.raises(ValueError, match="both float32 or both bfloat16"):
+        ops.rmsnorm_fused(x3.to(torch.bfloat16), s3.float())
+
+
+def _ssd_case(gen, dev, BC, Q, H, P, G, N, x_dtype=torch.float32):
+    x = torch.randn(BC, Q, H, P, generator=gen).to(x_dtype)
+    dt = torch.nn.functional.softplus(torch.randn(BC, Q, H, generator=gen))
+    dA = -torch.nn.functional.softplus(torch.randn(BC, Q, H, generator=gen))
+    B, C = (torch.randn(BC, Q, G, N, generator=gen) for _ in range(2))
+    return tuple(t.to(dev) for t in (x, dt, dA, B, C))
+
+
+def _ssd_close(got, want):
+    env = 1e-5 * max(float(want.abs().max()), 1e-30)
+    assert float((got.float() - want.float()).abs().max()) <= env
+
+
+@pytest.mark.parametrize("dims", [(1, 16, 1, 8, 1, 4), (3, 16, 4, 8, 2, 4),
+                                  (2, 17, 6, 8, 3, 4), (2, 64, 2, 16, 1, 8),
+                                  (2, 100, 3, 64, 1, 64),
+                                  (2, 256, 4, 64, 1, 128),
+                                  (1, 256, 4, 128, 2, 128)])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_b7_kernel_matches_plain(cuda, dims, x_dtype):
+    gen = torch.Generator().manual_seed(sum(dims))
+    args = _ssd_case(gen, cuda, *dims, x_dtype=x_dtype)
+    before = ss.ssd_intra_chunk.launches
+    y, st = ss.ssd_intra_chunk(*args)
+    assert ss.ssd_intra_chunk.launches == before + 1
+    y_r, st_r = ss.ssd_intra_chunk_ref(*args)
+    torch.cuda.synchronize()
+    _ssd_close(y, y_r)
+    _ssd_close(st, st_r)
+
+
+def test_b7_scan_pallas_matches_ssd_chunked(cuda):
+    """The whole scan with the kernel against the port's oracle on the
+    card, h0 included, chunk 256 over a ragged sequence."""
+    gen = torch.Generator().manual_seed(7)
+    Bt, S, H, P, G, N = 2, 700, 4, 64, 1, 128
+    x = torch.randn(Bt, S, H, P, generator=gen).to(cuda)
+    dt = torch.nn.functional.softplus(
+        torch.randn(Bt, S, H, generator=gen)).to(cuda)
+    A = -torch.exp(torch.randn(H, generator=gen)).to(cuda)
+    B, C = (torch.randn(Bt, S, G, N, generator=gen).to(cuda)
+            for _ in range(2))
+    h0 = torch.randn(Bt, H, P, N, generator=gen).to(cuda)
+    before = ss.ssd_intra_chunk.launches
+    y, h = ops.ssd_scan_pallas(x, dt, A, B, C, chunk=256, h0=h0)
+    assert ss.ssd_intra_chunk.launches == before + 1
+    y2, h2 = ssd_chunked(x, dt, A, B, C, chunk=256, h0=h0)
+    torch.cuda.synchronize()
+    _ssd_close(y, y2)
+    _ssd_close(h, h2)
+
+
+def test_b7_refuses_what_it_has_no_kernel_for(cuda):
+    gen = torch.Generator().manual_seed(0)
+    x, dt, dA, B, C = _ssd_case(gen, cuda, 1, 16, 2, 160, 1, 4)
+    with pytest.raises(ValueError, match="P=160"):
+        ss.ssd_intra_chunk(x, dt, dA, B, C)
+    x, dt, dA, B, C = _ssd_case(gen, cuda, 1, 16, 2, 8, 1, 4)
+    with pytest.raises(ValueError, match="dt must be float32"):
+        ss.ssd_intra_chunk(x, dt.double(), dA, B, C)

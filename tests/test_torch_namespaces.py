@@ -2,9 +2,10 @@
 registry.
 
 Every name in the ``__all__`` of the reference's ``core``, ``sweep``,
-``federated``, ``api``, ``models``, ``serving`` and ``configs`` either
-resolves in the port's package of the same name or is listed in
-``UNPORTED`` under the numbered ROADMAP queue A item that will bring it.
+``federated``, ``api``, ``models``, ``serving``, ``configs`` and
+``kernels`` either resolves in the port's package of the same name or is
+listed in ``UNPORTED`` under the numbered ROADMAP queue A item that will
+bring it, or with the reason it has no counterpart.
 A name that resolves must not also be listed.  ``get_config`` matches the
 reference field by field for every architecture, except the port's
 deliberate ``attention_impl`` default; and importing every module of the
@@ -33,7 +34,7 @@ from repro_torch.sweep import runners as trun
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGES = ("core", "sweep", "federated", "api", "models", "serving",
-            "configs")
+            "configs", "kernels")
 
 # name -> the ROADMAP queue A item that ports it
 _ITEMS = {
@@ -63,6 +64,9 @@ _ITEMS = {
     "item 15 (XLA/TPU tooling: dry-run)": [
         "models.param_specs", "configs.SHAPES", "configs.InputShape",
         "configs.applicable", "configs.input_specs"],
+    "no counterpart (the port has no interpreter; kernels.dispatch "
+    "resolve_device and kernel_route route by device)": [
+        "kernels.default_interpret", "kernels.resolve_interpret"],
 }
 UNPORTED = {name: item for item, names in _ITEMS.items() for name in names}
 
@@ -118,9 +122,11 @@ def fresh_import():
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
         " 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
+        "import repro_torch.kernels as k\n"
+        "names = [getattr(k, n) for n in k.__all__]\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
-        "print(json.dumps({'queue_c': queue_c, 'mods': len(mods), "
+        "print(json.dumps({'queue_c': queue_c, 'mods': mods, "
         "'bad': bad}))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
@@ -134,10 +140,39 @@ def test_queue_c_fault_is_repaired(fresh_import):
     assert fresh_import["queue_c"] == "ok", fresh_import["queue_c"]
 
 
+NEW_MODULES = ("repro_torch.kernels.ops", "repro_torch.kernels.ref",
+               "repro_torch.kernels.prox_step", "repro_torch.kernels.rmsnorm",
+               "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm")
+
+
 def test_every_port_module_imports_without_jax_or_the_reference(
         fresh_import):
-    assert fresh_import["bad"] == [] and fresh_import["mods"] >= 40, \
-        fresh_import
+    """Every module, the kernel slice's (``NEW_MODULES``) among them, and
+    every lazy name of ``repro_torch.kernels``."""
+    mods = fresh_import["mods"]
+    assert fresh_import["bad"] == [] and len(mods) >= 45, fresh_import
+    assert set(NEW_MODULES) <= set(mods), sorted(set(NEW_MODULES) - set(mods))
+
+
+@pytest.mark.parametrize("first", ["lazy name", "kernels.ops"])
+def test_kernels_module_names_are_modules_in_any_import_order(first):
+    """``repro_torch.kernels.prox_step`` and ``.flash_attention`` are the B4
+    and B6 modules whether the package's lazy ``__getattr__`` or an import
+    of ``kernels.ops`` binds them first, and stay so: a lazily bound
+    function of a submodule's name would give the one or the other
+    depending on import order."""
+    probe = ("kinds += [inspect.ismodule(k.prox_step), "
+             "inspect.ismodule(k.flash_attention)]\n")
+    ops = "import repro_torch.kernels.ops\n"
+    code = ("import inspect, json\nimport repro_torch.kernels as k\n"
+            "kinds = []\n" + (probe + ops if first == "lazy name"
+                               else ops + probe) + probe
+            + "print(json.dumps(kinds))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [True] * 4
 
 
 @pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
