@@ -16,7 +16,8 @@ PyTorch version on the card, and drives the port's main paths:
 * serving qwen2.5-32b at full width and depth (64 layers, bfloat16,
   random weights from the port's initializer on the card) through
   ``launch.serve.generate`` and ``serving.ContinuousBatcher``, whose
-  prefill runs the flash-attention kernel B6.
+  prefill runs the flash-attention kernel B6 on its tensor-core route
+  (float32 and bf16 at d 48 take its SIMT route, swept in phase 16).
 
 Each phase prints one line; any failure raises and the script exits
 non-zero.  The last three lines are the kernels' JSON, the card's name and
@@ -179,6 +180,18 @@ def fed_spec(solver: str, **over):
 def reset_counts() -> None:
     for fn in COUNTERS:
         fn.launches = 0
+    fa.flash_attention_bhsd.launches_tc = 0
+
+
+def _fa_routes(tag: str, launches: int) -> str:
+    """Raise unless every B6 launch since the last reset took the
+    tensor-core route (the bf16 d 128 model); the counts as text."""
+    f = fa.flash_attention_bhsd
+    if f.launches != launches or f.launches_tc != launches:
+        raise AssertionError(f"{tag}: {launches} B6 launches expected, "
+                             f"{f.launches} made, {f.launches_tc} of them "
+                             "on the tensor-core route")
+    return f"B6 launches {launches}, all on the tensor-core route"
 
 
 # ------------------------------------------------------------ phases ----
@@ -209,6 +222,11 @@ def phase_build() -> None:
             f"{','.join(spill)} bytes")
     say("2 build", f"{len(libs)} libraries in {wall:.3f} s wall (parallel "
         "nvcc)")
+    # the wrapper's own guard: it refuses a B6 build whose tensor-core
+    # kernel uses local memory (spills)
+    say("2 build", "B6 tensor-core local memory, bytes per thread by head "
+        f"dim: {fa._tc_local_bytes(fa._lib())} (the wrapper refuses a build "
+        "where any is not 0)")
 
 
 def _random_case(B, d, H, pid, gen):
@@ -808,9 +826,9 @@ def phase_timing(horizon: int, name: str, max_err: float) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err)
 
 
-def phase_profile(tag: str, run, what: str) -> None:
-    """Profile one call of ``run`` (after a warm one): wall, device busy
-    and idle share, and the top device ops by time."""
+def _profile(run) -> Tuple[float, dict]:
+    """One profiled call of ``run`` (after a warm one): its wall seconds
+    and the device time of each kernel name, in us."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     run()  # warm: problem memo, caching allocator
@@ -826,6 +844,13 @@ def phase_profile(tag: str, run, what: str) -> None:
         if ev.device_type == DeviceType.CUDA:
             us = ev.time_range.end - ev.time_range.start
             by_name[ev.name] = by_name.get(ev.name, 0.0) + us
+    return wall, by_name
+
+
+def phase_profile(tag: str, run, what: str) -> None:
+    """Profile one call of ``run`` (after a warm one): wall, device busy
+    and idle share, and the top device ops by time."""
+    wall, by_name = _profile(run)
     if not by_name:
         say(tag, f"{what}: wall {wall:.3f} s; the profiler recorded no "
             "device events, device busy share not measured")
@@ -849,23 +874,24 @@ def _fa_check(got, want) -> float:
     if want.dtype == torch.bfloat16:
         _, e = torch.frexp(w.abs())
         env = env + FA_BF16_ULPS * torch.ldexp(torch.ones_like(w), e - 8)
-    if bool((err > env).any()):
+    if bool((~(err <= env)).any()):  # NaN fails too
         raise AssertionError(f"B6 outside its envelope: max err "
                              f"{float(err.max())}")
     return float(err.max()) if err.numel() else 0.0
 
 
 def phase_fa_vs_plain() -> float:
-    """B6 against its plain version: bf16 and f32; d 48, 64, 128; causal,
+    """B6 against its plain version over both routes (bf16 d 64 and 128 on
+    the tensor cores, f32 and bf16 d 48 on the SIMT kernel): causal,
     bidirectional, window 9; G 1 and 5 query heads per KV head folded into
     rows (positions tiled G times, as ``kernels.ops`` folds them); Sq/Sk
     from 1, 17, 64, 300, 2048; ring holes (kpos -1) in every third case."""
     gen = torch.Generator().manual_seed(6)
     shapes = [(1, 1), (17, 17), (64, 64), (300, 300), (2048, 2048),
               (1, 2048), (17, 300), (300, 2048), (64, 17)]
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    cases = 0
-    before = fa.flash_attention_bhsd.launches
+    worst = {"tc": 0.0, "simt": 0.0}
+    cases, per_route = 0, {"tc": 0, "simt": 0}
+    reset_counts()
     for dtype in (torch.float32, torch.bfloat16):
         for d in (48, 64, 128):
             for causal, window in ((True, None), (False, None), (True, 9)):
@@ -889,17 +915,24 @@ def phase_fa_vs_plain() -> float:
                         want = fa.flash_attention_bhsd_ref(q, k, v, qp, kp,
                                                            **kw)
                         torch.cuda.synchronize()
-                        worst[dtype] = max(worst[dtype], _fa_check(got, want))
+                        route = fa.card_route(dtype, d)
+                        worst[route] = max(worst[route], _fa_check(got, want))
+                        per_route[route] += 1
                         cases += 1
-    launches = fa.flash_attention_bhsd.launches - before
-    if launches != cases:
-        raise AssertionError(f"B6: {launches} launches for {cases} cases")
+    f = fa.flash_attention_bhsd
+    if (f.launches, f.launches_tc) != (cases, per_route["tc"]):
+        raise AssertionError(f"B6: {f.launches} launches (tensor-core "
+                             f"{f.launches_tc}) for {cases} cases "
+                             f"{per_route}")
     say("16 B6 kernel", f"{cases} cases (bf16 and f32; d 48, 64, 128; "
         "causal, bidirectional, window 9; G 1 and 5 heads folded into rows; "
-        f"(Sq, Sk) in {shapes}; ring holes in every third case): max abs err"
-        f" f32 {worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}"
-        f" (envelopes: f32 {FA_REL_ENVELOPE:g} x max|out|; bf16 "
-        f"{FA_BF16_ULPS} bf16 ulps of the plain output + that)")
+        f"(Sq, Sk) in {shapes}; ring holes in every third case): launches "
+        f"tensor-core route {f.launches_tc} (bf16 d 64, 128), SIMT route "
+        f"{f.launches - f.launches_tc} (f32; bf16 d 48); max abs err "
+        "tensor-core "
+        f"{worst['tc']:.3g}, SIMT {worst['simt']:.3g} (envelopes: f32 "
+        f"{FA_REL_ENVELOPE:g} x max|out|; bf16 {FA_BF16_ULPS} bf16 ulps of "
+        "the plain output + that)")
     return max(worst.values())
 
 
@@ -926,8 +959,8 @@ def attention_work(BH: int, d: int, qpos, kpos, *, causal: bool,
 def phase_fa_timing(name: str, B: int, S: int, max_err: float) -> dict:
     """B6 at a serving shape of qwen2.5-32b (40 heads over 8 KV heads,
     head dim 128, bf16, causal): kernel vs plain there, then the kernel
-    graph-replayed and eager, the plain version, SDPA (the library call,
-    never used by the port) and the bound."""
+    (the tensor-core route) graph-replayed and eager, the plain version,
+    SDPA (the library call, never used by the port) and the bound."""
     cfg = get_config(SERVE_ARCH)
     H, KV, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
@@ -949,8 +982,10 @@ def phase_fa_timing(name: str, B: int, S: int, max_err: float) -> dict:
             return fa.flash_attention_bhsd_ref(q, k, v, qpos, pos,
                                                causal=True, scale=scale)
 
+    reset_counts()
     got, want = kernel(), plain()
     torch.cuda.synchronize()
+    _fa_routes(f"17 B6 timing S={S}", 1)
     err = _fa_check(got, want)
     del got, want
     graph_ms, eager_ms, _, plain_ms = _time_kernel(kernel, plain)
@@ -972,16 +1007,20 @@ def phase_fa_timing(name: str, B: int, S: int, max_err: float) -> dict:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
     bound_ms = max(t_bytes, t_ops) * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    # the split P does a third product: 6 d flops per visible pair
+    split_ms = max(t_bytes, 1.5 * t_ops) * 1e3
     say(f"17 B6 timing S={S}", f"flash_attention_bhsd at q ({B * KV}, "
         f"{G * S}, {d}), k/v ({B * KV}, {S}, {d}) bf16 causal (batch {B}, "
-        f"prompt {S}; kernel vs plain here max abs err {err:.3g}): "
-        f"{graph_ms * 1e3:.3f} us/launch replayed from a CUDA graph, "
-        f"{eager_ms * 1e3:.3f} us eager; plain version {plain_ms * 1e3:.3f}"
-        f" us; SDPA {library_ms * 1e3:.3f} us (max abs diff to the kernel "
-        f"{lib_err:.3g}); bound {bound_ms * 1e3:.4f} us ({nbytes} bytes at "
-        f"{HBM_BYTES_PER_S / 1e12:g} TB/s, {flops} flops at "
-        f"{BF16_OPS_PER_S / 1e12:g} TFLOP/s: {bound_by}); "
-        f"{flops / (graph_ms * 1e9):.1f} TFLOP/s achieved; card {name}")
+        f"prompt {S}; tensor-core kernel vs plain here max abs err "
+        f"{err:.3g}): {graph_ms * 1e3:.3f} us/launch replayed from a CUDA "
+        f"graph, {eager_ms * 1e3:.3f} us eager; plain version "
+        f"{plain_ms * 1e3:.3f} us; SDPA {library_ms * 1e3:.3f} us (max abs "
+        f"diff to the kernel {lib_err:.3g}); bound {bound_ms * 1e3:.4f} us "
+        f"({nbytes} bytes at {HBM_BYTES_PER_S / 1e12:g} TB/s, {flops} flops "
+        f"at {BF16_OPS_PER_S / 1e12:g} TFLOP/s: {bound_by}), with the split "
+        f"P's third product {split_ms * 1e3:.4f} us; "
+        f"{flops / (graph_ms * 1e9):.1f} TFLOP/s achieved ("
+        f"{t_ops * 1e3 / graph_ms:.3f} of the bf16 peak); card {name}")
     return dict(ms=graph_ms, eager_ms=eager_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                 max_abs_err=max(max_err, err))
@@ -999,6 +1038,9 @@ def phase_card_vs_cpu() -> None:
     reset_counts()
     lg, _ = prefill(card, cfg, {"tokens": toks.to(DEV)})
     launches = fa.flash_attention_bhsd.launches
+    if fa.flash_attention_bhsd.launches_tc:
+        raise AssertionError("card vs cpu: a float32 prefill left the SIMT "
+                             "route")
     lc, _ = prefill(cpu, cfg, {"tokens": toks})
     fg, _ = forward(card, cfg, {"tokens": toks.to(DEV)})
     fc, _ = forward(cpu, cfg, {"tokens": toks})
@@ -1016,7 +1058,8 @@ def phase_card_vs_cpu() -> None:
         f"{cfg.d_model}, attention_impl {cfg.attention_impl}), params "
         f"carried by interop: prefill and forward logits max abs diff "
         f"{diff:.3g} (envelope {LOGIT_F32_ENVELOPE:g}), B6 launches per "
-        f"prefill {launches}; greedy generate 2 x (40 + 16) tokens equal: "
+        f"prefill {launches} (float32: the SIMT route); greedy generate "
+        "2 x (40 + 16) tokens equal: "
         f"{same}")
 
 
@@ -1044,9 +1087,13 @@ def phase_serve_model(name: str):
 
 
 def phase_generate(tag: str, cfg, model, batch: int, prompt: int,
-                   gen: int) -> int:
+                   gen: int, b6_share: bool = False) -> int:
     """``generate`` with every count set to 0 just before and read just
-    after: one B6 launch per layer for the one prefill, no other kernel."""
+    after: one B6 launch per layer for the one prefill, each on the
+    tensor-core route, no other kernel.  With ``b6_share`` the same prompts'
+    ``prefill`` runs once more under the profiler (after a warm call), and
+    the line gives B6's device time in it and its share of that prefill's
+    wall."""
     prompts = torch.randint(0, cfg.vocab, (batch, prompt),
                             generator=torch.Generator(device=DEV)
                             .manual_seed(prompt), device=DEV,
@@ -1060,17 +1107,28 @@ def phase_generate(tag: str, cfg, model, batch: int, prompt: int,
     if launches != cfg.n_layers or stray:
         raise AssertionError(f"{tag}: {launches} B6 launches for one "
                              f"prefill (+{stray} of other kernels)")
+    routes = _fa_routes(tag, launches)
     new = out[:, prompt:]
     if tuple(out.shape) != (batch, prompt + gen) or \
             not torch.equal(out[:, :prompt], prompts) or \
             bool(((new < 0) | (new >= cfg.vocab)).any()):
         raise AssertionError(f"{tag}: bad output {tuple(out.shape)}")
+    share = ""
+    if b6_share:
+        wall, by_name = _profile(
+            lambda: prefill(model, cfg, {"tokens": prompts}))
+        b6 = [us for n, us in by_name.items() if "fa_tc_kernel" in n]
+        share = (f", profiled prefill: wall {wall:.3f} s, B6 device time "
+                 f"{sum(b6) / 1e6:.4f} s ({len(b6)} kernel names), a share "
+                 f"of {sum(b6) / 1e6 / wall:.3f}" if b6 else
+                 ", profiled prefill: no B6 device events recorded, its "
+                 "share not measured")
     say(tag, f"generate {cfg.name} batch {batch}, prompt {prompt}, gen "
         f"{gen}: prefill {stats['prefill_s']:.3f} s "
         f"({batch * prompt / stats['prefill_s']:.1f} tok/s), decode "
         f"{stats['decode_s']:.3f} s ({stats['tok_per_s']:.2f} tok/s, "
-        f"{stats['decode_s'] / gen * 1e3:.2f} ms/step), B6 launches per "
-        f"prefill {launches}, peak "
+        f"{stats['decode_s'] / gen * 1e3:.2f} ms/step); per prefill: "
+        f"{routes}{share}; peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches
 
@@ -1104,6 +1162,7 @@ def phase_batcher(cfg, model) -> None:
     launches = fa.flash_attention_bhsd.launches
     if stats["completed"] != 8 or launches != 8 * cfg.n_layers:
         raise AssertionError(f"batcher: {stats}, B6 launches {launches}")
+    routes = _fa_routes("21 batcher", launches)
     ttft = np.array([r.t_first_token - r.arrived_at for r in reqs])
     for r in reqs:
         out, _ = generate(cfg, model, r.prompt[None, :], r.max_new)
@@ -1117,8 +1176,8 @@ def phase_batcher(cfg, model) -> None:
         f"{stats['tok_per_s']:.2f} tok/s; time to first token median "
         f"{np.median(ttft):.3f} s, max {ttft.max():.3f} s; prompts "
         f"{sorted(len(r.prompt) for r in reqs)}, max_new "
-        f"{[r.max_new for r in reqs]}; B6 launches {launches} (8 prefills); "
-        "every output equals its single-request generate")
+        f"{[r.max_new for r in reqs]}; {routes} (8 prefills); every output "
+        "equals its single-request generate")
 
 
 # ------------------------------------------- B4, B5, B7 and kernels.ops ----
@@ -1137,7 +1196,7 @@ def _rms_check(got, want, tally: list) -> float:
     err = (g - w).abs()
     env = (RMS_F32_ULPS * torch.finfo(torch.float32).eps * w.abs()
            if want.dtype == torch.float32 else _bf16_ulp(w))
-    if bool((err > env).any()):
+    if bool((~(err <= env)).any()):  # NaN fails too
         raise AssertionError(f"B5 outside its envelope: max err "
                              f"{float(err.max())}")
     if want.dtype == torch.bfloat16:
@@ -1163,7 +1222,7 @@ def _ssd_check(got, want, what: str) -> float:
     env = SSD_REL_ENVELOPE * max(float(w.abs().max()), 1e-30)
     if want.dtype == torch.bfloat16:
         env = env + _bf16_ulp(w)
-    if bool((err > env).any()):
+    if bool((~(err <= env)).any()):  # NaN fails too
         raise AssertionError(f"B7 {what} outside its envelope: max err "
                              f"{float(err.max())}")
     return float(err.max())
@@ -1576,7 +1635,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     cfg, model = phase_serve_model(name)
     fa_launches = phase_generate("20 generate a", cfg, model, 4, 64, 32)
-    phase_generate("20 generate b", cfg, model, 1, 8192, 8)
+    phase_generate("20 generate b", cfg, model, 1, 8192, 8, b6_share=True)
     phase_batcher(cfg, model)
     phase_logits_finite(cfg, model)
     phase_profile("23 serve profile",

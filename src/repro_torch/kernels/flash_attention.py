@@ -8,33 +8,39 @@ a query row when both positions are ``>= 0``, and (causal) ``kpos <=
 qpos``, and (window) ``kpos > qpos - window``.  Fully masked rows return
 zeros.
 
-On the card it launches the hand-written CUDA kernel of
-``csrc/flash_attention.cu`` (one block per (bh, 64-row query tile),
-float32 online softmax; see the source for the design).  On the CPU it
-runs :func:`flash_attention_bhsd_ref`, the same function in plain PyTorch
-ops: the port of ``repro.kernels.ref.flash_attention_ref`` with the
-kernel's ``qpos >= 0`` mask added (the reference oracle omits it; the two
-differ only for negative query positions, which neither the model nor
-the reference's tests produce).  The kernel takes bfloat16 and float32 and
-head dims 48, 64 and 128 (those of the dense configs and presets); other
-inputs on the card raise -- they are never sent to the plain version.
+On the card it launches one of the two hand-written CUDA kernels of
+``csrc/flash_attention.cu`` (see the source for both designs), chosen by
+dtype and head dim alone (:func:`card_route`): bfloat16 at d 64 and 128
+takes the tensor-core kernel (``wgmma`` fed by TMA, P split into bf16 hi
++ lo), float32 and bfloat16 at d 48 the SIMT kernel (float32 FMAs on the
+CUDA cores).  On the CPU it runs :func:`flash_attention_bhsd_ref`, the
+same function in plain PyTorch ops: the port of
+``repro.kernels.ref.flash_attention_ref`` with the kernel's ``qpos >= 0``
+mask added (the reference oracle omits it; the two differ only for
+negative query positions, which neither the model nor the reference's
+tests produce).  The kernels take bfloat16 and float32 and head dims 48,
+64 and 128 (those of the dense configs and presets); other inputs on the
+card raise -- they are never sent to the plain version, and a failed
+build or launch raises, never falls back to the other route.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from .dispatch import kernel_route
 
-__all__ = ["NEG_INF", "SUPPORTED_HEAD_DIMS", "flash_attention_bhsd",
-           "flash_attention_bhsd_ref"]
+__all__ = ["NEG_INF", "SUPPORTED_HEAD_DIMS", "TC_HEAD_DIMS", "card_route",
+           "flash_attention_bhsd", "flash_attention_bhsd_ref"]
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (48, 64, 128)
+TC_HEAD_DIMS = (64, 128)   # bfloat16 head dims of the tensor-core kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_Y = 65535   # BH is the grid's y dimension
+_MAX_GRID_Y = 65535   # BH is the y dimension of the SIMT kernel's grid
 
 
 def _visible(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
@@ -63,18 +69,56 @@ def flash_attention_bhsd_ref(q, k, v, qpos, kpos, *, causal: bool = True,
     return (out / torch.clamp(l, min=1e-30)).to(v.dtype)
 
 
+def card_route(dtype: torch.dtype, d: int) -> str:
+    """The kernel a CUDA call takes: ``"tc"`` (tensor cores) for bfloat16
+    at a head dim of :data:`TC_HEAD_DIMS`, else ``"simt"``."""
+    return "tc" if dtype == torch.bfloat16 and d in TC_HEAD_DIMS else "simt"
+
+
+def _tc_local_bytes(lib) -> dict:
+    """Local memory per thread (spills and stack) of each tensor-core
+    instance, by head dim, as the runtime reports it; -1 where it could
+    not say."""
+    return {d: lib.flash_attention_tc_local_bytes(d) for d in TC_HEAD_DIMS}
+
+
+def _bind(lib):
+    """Set the C signatures of a loaded ``flash_attention`` library."""
+    fn = lib.flash_attention_bhsd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    tc = lib.flash_attention_bhsd_tc_launch
+    tc.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    tc.restype = ctypes.c_int
+    err = lib.flash_attention_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    local = lib.flash_attention_tc_local_bytes
+    local.argtypes = [ctypes.c_int]
+    local.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
 def _lib():
+    """The built library with its C signatures bound.  Raises when a
+    tensor-core instance uses local memory: spilling builds of an earlier
+    form of its design gave wrong outputs on the card, for a cause not
+    found, so such a build never launches (the check reruns on every call
+    until a build passes)."""
     from .build import load
-    lib = load("flash_attention").lib
-    if lib.flash_attention_error_string.restype is not ctypes.c_char_p:
-        fn = lib.flash_attention_bhsd_launch
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                       + [ctypes.c_float] + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        err = lib.flash_attention_error_string
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
+    lib = _bind(load("flash_attention").lib)
+    used = _tc_local_bytes(lib)
+    if any(used.values()):
+        raise RuntimeError(
+            "flash_attention_bhsd: the tensor-core kernel of this build uses "
+            f"local memory (bytes per thread by head dim: {used}, -1 = "
+            "unknown); spilling builds of this design gave wrong outputs on "
+            "the card, so it is refused")
     return lib
 
 
@@ -116,30 +160,41 @@ def flash_attention_bhsd(q, k, v, qpos, kpos, *, causal: bool = True,
                          window: Optional[int] = None,
                          scale: float = 1.0) -> torch.Tensor:
     """q (BH, Sq, d), k/v (BH, Sk, d), qpos (Sq,), kpos (Sk,) int32 ->
-    (BH, Sq, d) in ``v``'s dtype.  CUDA tensors launch the kernel (one
-    launch); CPU tensors run :func:`flash_attention_bhsd_ref`."""
+    (BH, Sq, d) in ``v``'s dtype.  CUDA tensors launch the kernel of
+    :func:`card_route` (one launch); CPU tensors run
+    :func:`flash_attention_bhsd_ref`."""
     if kernel_route(q, k, v, qpos, kpos) == "plain":
         return flash_attention_bhsd_ref(q, k, v, qpos, kpos, causal=causal,
                                         window=window, scale=scale)
     _check_inputs(q, k, v, qpos, kpos)
     BH, Sq, d = q.shape
+    route = card_route(q.dtype, d)
     out = torch.empty_like(q)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.flash_attention_bhsd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
-            kpos.data_ptr(), out.data_ptr(), BH, Sq, k.shape[1], d,
-            _DTYPE_CODES[q.dtype], float(scale), int(causal),
-            int(window is not None), int(window or 0), stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
+                kpos.data_ptr(), out.data_ptr(), BH, Sq, k.shape[1], d)
+        tail = (float(scale), int(causal), int(window is not None),
+                int(window or 0), stream)
+        if route == "tc":
+            code = lib.flash_attention_bhsd_tc_launch(*ptrs, *tail)
+        else:
+            code = lib.flash_attention_bhsd_launch(
+                *ptrs, _DTYPE_CODES[q.dtype], *tail)
     if code != 0:
         raise RuntimeError(
-            "flash_attention_bhsd launch failed: "
+            f"flash_attention_bhsd launch failed ({route} kernel): "
             f"{lib.flash_attention_error_string(code).decode()} ({code})")
     flash_attention_bhsd.launches += 1
+    if route == "tc":
+        flash_attention_bhsd.launches_tc += 1
     return out
 
 
-# kernel launches since the last reset (the wrapper counts only launches)
+# kernel launches since the last reset (the wrapper counts only launches):
+# all of them, and those of the tensor-core route (the SIMT route has the
+# rest)
 flash_attention_bhsd.launches = 0
+flash_attention_bhsd.launches_tc = 0
 

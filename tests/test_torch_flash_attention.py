@@ -210,6 +210,119 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert fa.flash_attention_bhsd.launches == before
 
 
+# ----------------------------------------- the tensor-core kernel's arithmetic
+
+EMULATED_KEY_TILE = 64      # keys per tile of the tensor-core kernel (tc::kBK)
+LOG2E = np.float32(1.4426950408889634)
+EX2_ULPS = 2                # ex2.approx.ftz.f32: at most 2 ulps of the result
+
+
+def _bf16_envelope_outside(got, want) -> int:
+    """Elements of ``got`` outside B6's bf16 envelope around ``want`` (the
+    smoke's and the card tests': 2 bf16 ulps of the plain output plus 1e-5
+    of its largest magnitude)."""
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(w.abs())
+    env = 1e-5 * float(w.abs().max()) + 2 * torch.ldexp(torch.ones_like(w),
+                                                        e - 8)
+    return int(((g - w).abs() > env).sum())
+
+
+def _emulate_tc(q, k, v, qpos, kpos, *, causal, window, scale, p_mode,
+                exp_mode, seed=0):
+    """The tensor-core kernel's arithmetic in float32 torch ops: key tiles
+    of EMULATED_KEY_TILE, scores in float32 (bf16 products are exact),
+    scale, mask by position, the online softmax with the kernel's NEG_INF
+    tests, and O += P V in float32 with P as the kernel feeds it:
+    ``p_mode`` "split" (bf16 hi = bf16(p) plus lo = bf16(p - hi)) or
+    "bf16" (one rounding); ``exp_mode`` "exp" (as the plain version) or
+    "exp2" (exp2((s - m) log2 e) as ex2.approx.ftz gives it: each result
+    moved by its 2-ulp error bound, the sign drawn from ``seed``, and
+    results below 2^-126 flushed to zero)."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def ex(x):
+        if exp_mode == "exp":
+            return torch.exp(x)
+        y = torch.exp2(x * torch.tensor(LOG2E))
+        sign = torch.randint(0, 2, y.shape, generator=gen) * 2 - 1
+        y = y * (1 + sign * EX2_ULPS * 2.0 ** -23)
+        return torch.where(y < 2.0 ** -126, 0.0, y)
+
+    qf, kf, vf = q.float(), k.float(), v.float()
+    BH, Sq, d = q.shape
+    m = torch.full((BH, Sq, 1), fa.NEG_INF)
+    l = torch.zeros(BH, Sq, 1)
+    o = torch.zeros(BH, Sq, d)
+    for k0 in range(0, k.shape[1], EMULATED_KEY_TILE):
+        kt = kf[:, k0:k0 + EMULATED_KEY_TILE]
+        vt = vf[:, k0:k0 + EMULATED_KEY_TILE]
+        s = torch.einsum("bqd,bkd->bqk", qf, kt) * scale
+        vis = fa._visible(qpos, kpos[k0:k0 + EMULATED_KEY_TILE], causal,
+                          window)
+        s = torch.where(vis[None], s, fa.NEG_INF)
+        mn = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.where(m > fa.NEG_INF / 2, ex(m - mn), 0.0)
+        p = torch.where(s > fa.NEG_INF / 2, ex(s - mn), 0.0)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        o = alpha * o
+        hi = p.bfloat16().float()
+        o = o + hi @ vt
+        if p_mode == "split":
+            o = o + (p - hi).bfloat16().float() @ vt
+        m = mn
+    return (o / torch.clamp(l, min=1e-30)).to(v.dtype)
+
+
+def _folded_case(G, S, holes, seed):
+    """One KV head's folded prompt: q (1, G S, 128), k/v (1, S, 128) bf16
+    from numpy N(0, 1), query positions tile(arange(S), G); ring holes put
+    -1 in every third key."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, n, 128)).astype(
+        np.float32)).bfloat16() for n in (G * S, S, S))
+    pos = torch.arange(S, dtype=torch.int32)
+    kpos = (torch.where(torch.arange(S) % 3 == 0, -1, pos).to(torch.int32)
+            if holes else pos)
+    return q, k, v, pos.repeat(G), kpos
+
+
+EMULATION_CASES = [  # (G, S, causal, window, ring holes)
+    (1, 300, True, None, False), (5, 300, True, 9, False),
+    (5, 300, False, None, False), (1, 2048, True, None, True),
+    (5, 2048, True, None, False)]
+
+
+@pytest.mark.parametrize("exp_mode", ["exp", "exp2"])
+@pytest.mark.parametrize("G,S,causal,window,holes", EMULATION_CASES)
+def test_split_p_emulation_stays_inside_the_bf16_envelope(G, S, causal,
+                                                           window, holes,
+                                                           exp_mode):
+    """The tensor-core kernel's design, P split into bf16 hi + lo, against
+    the plain version: no element outside B6's bf16 envelope, with the
+    plain version's expf and with the kernel's ex2.approx.ftz of the
+    folded argument."""
+    q, k, v, qpos, kpos = _folded_case(G, S, holes, seed=G * S)
+    kw = dict(causal=causal, window=window, scale=128 ** -0.5)
+    want = fa.flash_attention_bhsd_ref(q, k, v, qpos, kpos, **kw)
+    got = _emulate_tc(q, k, v, qpos, kpos, p_mode="split",
+                      exp_mode=exp_mode, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _bf16_envelope_outside(got, want) == 0
+
+
+@pytest.mark.parametrize("G,S", [(1, 300), (5, 2048)])
+def test_single_bf16_p_leaves_the_bf16_envelope(G, S):
+    """Why P is split: rounded once to bf16 (the usual flash-attention
+    shortcut), P moves outputs of a causal prompt out of the envelope."""
+    q, k, v, qpos, kpos = _folded_case(G, S, False, seed=G * S)
+    kw = dict(causal=True, window=None, scale=128 ** -0.5)
+    want = fa.flash_attention_bhsd_ref(q, k, v, qpos, kpos, **kw)
+    got = _emulate_tc(q, k, v, qpos, kpos, p_mode="bf16", exp_mode="exp",
+                      **kw)
+    assert _bf16_envelope_outside(got, want) > 1e-3 * want.numel()
+
+
 def _chip_smoke(monkeypatch):
     """``chip_smoke.py`` as a module, without running it: the script
     leaves at once without a card, so the check is switched off for the
@@ -241,18 +354,73 @@ def test_attention_work_counts_visible_pairs(causal, window, monkeypatch):
     assert nbytes == 2 * 6 * 64 * (2 * 22 + 2 * 30) + 4 * 52
 
 
+class _FakeLib:
+    """Stands in for the built library: each C function is a callable
+    that takes argtypes and restype as the wrapper binds them."""
+
+    def __init__(self, local_bytes):
+        def fn(result):
+            return type("CFunc", (), {"__call__": lambda self, *a: result(
+                *a)})()
+        self.flash_attention_bhsd_launch = fn(lambda *a: 0)
+        self.flash_attention_bhsd_tc_launch = fn(lambda *a: 0)
+        self.flash_attention_error_string = fn(lambda code: b"")
+        self.flash_attention_tc_local_bytes = fn(local_bytes.__getitem__)
+
+
+@pytest.mark.parametrize("local_bytes,refused", [
+    ({64: 0, 128: 0}, False), ({64: 0, 128: 64}, True),
+    ({64: -1, 128: 0}, True)])
+def test_lib_refuses_a_tensor_core_build_with_local_memory(
+        local_bytes, refused, monkeypatch):
+    """The wrapper's guard on the serving path: a build whose tensor-core
+    kernel uses local memory (spills), or whose use the runtime cannot
+    report, never launches; the check reruns until a build passes."""
+    fake = _FakeLib(local_bytes)
+    monkeypatch.setattr(build, "load", lambda name: type(
+        "Built", (), {"lib": fake})())
+    fa._lib.cache_clear()
+    try:
+        if refused:
+            with pytest.raises(RuntimeError, match="uses local memory"):
+                fa._lib()
+            with pytest.raises(RuntimeError, match="uses local memory"):
+                fa._lib()
+        else:
+            assert fa._lib() is fake
+            assert fa._tc_local_bytes(fake) == local_bytes
+    finally:
+        fa._lib.cache_clear()
+
+
 def test_kernel_source_matches_its_wrapper():
     """The CUDA source builds for sm_90a, has an instance for every head
     dim the wrapper accepts, returns cudaGetLastError() after the launch,
-    and the wrapper raises on a nonzero code and on unsupported inputs."""
+    and the wrapper raises on a nonzero code and on unsupported inputs;
+    bf16 at d 128 takes the tensor-core kernel (wgmma fed by TMA)."""
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     src = (build.CSRC_DIR / "flash_attention.cu").read_text()
     dims = tuple(int(x) for x in re.findall(r"FA_CASE\((\d+)\)", src))
     assert dims == fa.SUPPORTED_HEAD_DIMS
     assert "return static_cast<int>(cudaGetLastError());" in src
     assert "repro/kernels/flash_attention.py" in src
+    # the tensor-core route: wgmma fed by TMA, a bf16 instance for each of
+    # TC_HEAD_DIMS (d 128 among them), the key tile the emulation assumes
+    assert "wgmma.mma_async" in src and "cp.async.bulk.tensor" in src
+    tc_dims = tuple(int(x) for x in re.findall(r"TC_CASE\((\d+)\)", src))
+    assert tc_dims == fa.TC_HEAD_DIMS and 128 in tc_dims
+    tile = re.search(r"constexpr int kBK = (\d+);",
+                     src.split("namespace tc {")[1])
+    assert int(tile.group(1)) == EMULATED_KEY_TILE
+    assert fa.card_route(torch.bfloat16, 128) == "tc"
+    assert fa.card_route(torch.float32, 128) == "simt"
+    assert fa.card_route(torch.bfloat16, 48) == "simt"
     tree = ast.parse(open(fa.__file__).read())
     raises = [ast.unparse(n) for n in ast.walk(tree)
               if isinstance(n, ast.Raise)]
     assert any("launch failed" in r for r in raises)
     assert any("no kernel for head dim" in r for r in raises)
+    # the guard against spilling tensor-core builds reads the runtime
+    assert "int flash_attention_tc_local_bytes(int d)" in src
+    assert "localSizeBytes" in src
+    assert any("uses local memory" in r for r in raises)

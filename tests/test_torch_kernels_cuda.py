@@ -10,10 +10,12 @@ so it runs on a machine that has only PyTorch.
 
 Envelopes:
 
-* B6 (flash attention): float32 within 1e-5 of max|out|; bfloat16 within
-  2 bf16 ulps of the plain output plus that float32 envelope (the two sum
-  in other orders, and a value that cancels near zero has ulps finer than
-  the float32 error).
+* B6 (flash attention), both routes (bf16 at d 64 and 128 on the
+  tensor-core kernel, float32 and bf16 at d 48 on the SIMT kernel):
+  float32 within 1e-5 of max|out|; bfloat16 within 2 bf16 ulps of the
+  plain output plus that float32 envelope (the two sum in other orders,
+  and a value that cancels near zero has ulps finer than the float32
+  error).
 * B4 (prox_step): bitwise, float32 and bfloat16 (the same FMA forms and
   one rounding on both routes).
 * B5 (rmsnorm): float32 within 8 ulps of each element (the row sum runs
@@ -24,6 +26,7 @@ Envelopes:
 * B7 (SSD intra-chunk, and ``ssd_scan_pallas`` against ``ssd_chunked``):
   within 1e-5 of the largest |output|.
 """
+
 import pytest
 import torch
 
@@ -58,7 +61,7 @@ def check(got, want):
     env = 1e-5 * max(float(want_f.abs().max()), 1e-30)
     if want.dtype == torch.bfloat16:
         env = env + 2 * bf16_ulp(want_f)
-    bad = err > env
+    bad = ~(err <= env)  # NaN fails too
     assert not bool(bad.any()), (float(err.max()), int(bad.sum()))
     return float(err.max()) if err.numel() else 0.0
 
@@ -136,6 +139,97 @@ def test_b6_fully_masked_rows_are_zero(cuda):
     kp = torch.full((70,), -1, dtype=torch.int32).to(cuda)
     got = fa.flash_attention_bhsd(q, k, v, qp, kp, causal=True, scale=0.1)
     assert bool((got == 0).all())
+
+
+def _counts():
+    """(tensor-core, SIMT) launches so far."""
+    f = fa.flash_attention_bhsd
+    return f.launches_tc, f.launches - f.launches_tc
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"),
+    (torch.bfloat16, 48, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 64, "simt")])
+def test_b6_route_by_dtype_and_head_dim(cuda, dtype, d, route):
+    """bf16 at d 64 and 128 launches the tensor-core kernel; float32 (and
+    bf16 at d 48) the SIMT kernel: one launch, counted on its route."""
+    gen = torch.Generator().manual_seed(d)
+    q, k, v = _case(gen, 2, 300, 300, d, dtype, cuda)
+    pos = torch.arange(300, dtype=torch.int32).to(cuda)
+    before = _counts()
+    got = fa.flash_attention_bhsd(q, k, v, pos, pos, causal=True,
+                                  scale=d ** -0.5)
+    after = _counts()
+    assert fa.card_route(dtype, d) == route
+    assert (after[0] - before[0], after[1] - before[1]) == \
+        ((1, 0) if route == "tc" else (0, 1))
+    want = fa.flash_attention_bhsd_ref(q, k, v, pos, pos, causal=True,
+                                       scale=d ** -0.5)
+    torch.cuda.synchronize()
+    check(got, want)
+
+
+def _folded(gen, G, S, d, dev, holes=False):
+    """A folded prompt of one batch row and 2 KV heads: q (2, G S, d) with
+    positions tile(pos, G); ring holes put -1 in every third key."""
+    q = torch.randn(2, G * S, d, generator=gen).to(torch.bfloat16).to(dev)
+    k, v = (torch.randn(2, S, d, generator=gen).to(torch.bfloat16).to(dev)
+            for _ in range(2))
+    pos = torch.arange(S, dtype=torch.int32)
+    kpos = torch.where(torch.arange(S) % 3 == 0, -1, pos).to(torch.int32) \
+        if holes else pos
+    return q, k, v, pos.repeat(G).to(dev), kpos.to(dev)
+
+
+@pytest.mark.parametrize("G,S", [(5, 4096), (5, 77), (5, 200), (1, 333)])
+@pytest.mark.parametrize("window,holes", [(None, False), (9, False),
+                                          (None, True)])
+def test_b6_tc_folded_prompt_matches_plain(cuda, G, S, window, holes):
+    """The tensor-core kernel at a folded long prompt (G 5, S 4096) and at
+    Sq not a multiple of 128 (G S = 385, 1000, 333), where a query tile
+    holds rows of two heads; window 9 and ring holes; unchanged envelope."""
+    gen = torch.Generator().manual_seed(G * S)
+    q, k, v, qpos, kpos = _folded(gen, G, S, 128, cuda, holes)
+    before = _counts()
+    got = fa.flash_attention_bhsd(q, k, v, qpos, kpos, causal=True,
+                                  window=window, scale=128 ** -0.5)
+    assert _counts()[0] - before[0] == 1
+    want = fa.flash_attention_bhsd_ref(q, k, v, qpos, kpos, causal=True,
+                                       window=window, scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    check(got, want)
+
+
+def test_b6_tc_fully_masked_rows_are_zero(cuda):
+    """bf16 d 128: rows with qpos -1, rows that see no key, and a call
+    whose keys are all holes come out as zeros; the other rows do not."""
+    gen = torch.Generator().manual_seed(1)
+    q, k, v = _case(gen, 2, 300, 300, 128, torch.bfloat16, cuda)
+    qp = torch.arange(300, dtype=torch.int32)
+    qp[::7] = -1
+    kp = torch.arange(300, dtype=torch.int32) + 150   # rows < 150 see none
+    got = fa.flash_attention_bhsd(q, k, v, qp.to(cuda), kp.to(cuda),
+                                  causal=True, scale=0.1)
+    torch.cuda.synchronize()
+    dead = (qp < 0) | (qp < 150)
+    assert bool((got[:, dead.to(cuda)] == 0).all())
+    assert bool((got[:, (~dead).to(cuda)] != 0).any())
+    check(got, fa.flash_attention_bhsd_ref(q, k, v, qp.to(cuda), kp.to(cuda),
+                                           causal=True, scale=0.1))
+    holes = torch.full((300,), -1, dtype=torch.int32, device=cuda)
+    none = fa.flash_attention_bhsd(q, k, v, qp.to(cuda), holes, causal=False,
+                                   scale=0.1)
+    assert bool((none == 0).all())
+
+
+def test_b6_tensor_core_kernels_do_not_spill(cuda):
+    """Both tensor-core instances (d 64, 128) use no local memory, as the
+    runtime reports it for the loaded build: the wrapper's own guard
+    (``_lib`` refuses such a build) passes.  The builds of this design that
+    spilled (S, the split P and O of 96- and 128-key tiles) ran slower,
+    and some gave wrong outputs on the card."""
+    assert fa._tc_local_bytes(fa._lib()) == {64: 0, 128: 0}
 
 
 def test_model_prefill_on_the_card_matches_the_cpu(cuda):
