@@ -65,7 +65,7 @@ from repro_torch.kernels.fused_step import (  # noqa: E402
     boundary_bytes, boundary_bytes_buff, boundary_bytes_mix,
     fused_policy_buff_step, fused_policy_buff_step_ref,
     fused_policy_mix_step, fused_policy_mix_step_ref, fused_policy_prox_step,
-    fused_policy_prox_step_ref)
+    fused_policy_prox_step_ref, _launch_floor)
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import forward, init_params, prefill  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
@@ -257,41 +257,55 @@ def _to(t):
     return t.to(DEV)
 
 
+def _to_offset(t, offset: int):
+    """``t`` on the card as a contiguous view that starts ``offset`` floats
+    into its storage: with an odd offset no row is 16-byte aligned, and the
+    kernels take their scalar path."""
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=DEV)
+    flat[offset:].copy_(t.reshape(-1))
+    return flat[offset:].view(t.shape)
+
+
 def phase_kernel_vs_plain() -> float:
     """Every (B, d, H) x prox x policy id, three consecutive events from a
-    state whose k and tau sit on the window edges.  Exact: k, clipped.
-    Bitwise: gamma, total, cumbuf for ids 0-3 and x_new for ids 0-3 under
-    every prox but group_l2.  Envelopes elsewhere (module constants)."""
+    state whose k and tau sit on the window edges, plus unaligned rows (an
+    offset view, the kernel's scalar path) at the main path's width.
+    Exact: k, clipped.  Bitwise: gamma, total, cumbuf for ids 0-3 and x_new
+    for ids 0-3 under every prox but group_l2.  Envelopes elsewhere
+    (module constants)."""
     gen = torch.Generator().manual_seed(0)
     worst = {"bitwise": 0.0, "hinge/poly gamma": 0.0, "hinge/poly x": 0.0,
              "group_l2 x": 0.0}
     cases = 0
-    for B in (1, 96):
-        for d in (1, 784, 1000, 4097):
-            for H in (2, 512, 4096):
-                for name, kw in PROXES:
-                    prox = make_prox(name, **kw)
-                    pid_sets = ([torch.tensor([p]) for p in range(6)]
-                                if B == 1 else [torch.arange(B) % 6])
-                    for pid in pid_sets:
-                        fma_push = bool(cases % 2)
-                        params, st, tau, x, g = _random_case(B, d, H, pid, gen)
-                        p1 = PolicyParams(*map(_to, params))
-                        s1 = StepsizeState(*map(_to, st))
-                        s2 = StepsizeState(*(t.clone() for t in s1))
-                        tau1, x1, g1 = _to(tau), _to(x), _to(g)
-                        x2 = x1
-                        for _ in range(3):
-                            ga, s1, x1 = fused_policy_prox_step(
-                                p1, prox, s1, tau1, x1, g1, fma_push)
-                            gb, s2, x2 = fused_policy_prox_step_ref(
-                                p1, prox, s2, tau1, x2, g1, fma_push)
-                        torch.cuda.synchronize()
-                        cases += 1
-                        _compare(name, pid.to(DEV), ga, gb, s1, s2, x1, x2,
-                                 worst, (B, d, H, name))
-    say("3 kernel", f"{cases} cases (B in 1,96; d in 1,784,1000,4097; H in "
-        f"2,512,4096; 6 prox ops; policy ids 0-5; k/tau on the window "
+    shapes = [(B, d, H, 0) for B in (1, 96) for d in (1, 127, 784, 1000, 4097)
+              for H in (2, 512, 4096)]
+    shapes += [(96, 784, 512, 1), (96, 784, 4096, 1)]
+    for B, d, H, offset in shapes:
+        for name, kw in PROXES:
+            prox = make_prox(name, **kw)
+            pid_sets = ([torch.tensor([p]) for p in range(6)]
+                        if B == 1 else [torch.arange(B) % 6])
+            for pid in pid_sets:
+                fma_push = bool(cases % 2)
+                params, st, tau, x, g = _random_case(B, d, H, pid, gen)
+                p1 = PolicyParams(*map(_to, params))
+                s1 = StepsizeState(*map(_to, st))
+                s2 = StepsizeState(*(t.clone() for t in s1))
+                tau1 = _to(tau)
+                x1, g1 = _to_offset(x, offset), _to_offset(g, offset)
+                x2 = x1
+                for _ in range(3):
+                    ga, s1, x1 = fused_policy_prox_step(
+                        p1, prox, s1, tau1, x1, g1, fma_push)
+                    gb, s2, x2 = fused_policy_prox_step_ref(
+                        p1, prox, s2, tau1, x2, g1, fma_push)
+                torch.cuda.synchronize()
+                cases += 1
+                _compare(name, pid.to(DEV), ga, gb, s1, s2, x1, x2, worst,
+                         (B, d, H, offset, name))
+    say("3 kernel", f"{cases} cases (B in 1,96; d in 1,127,784,1000,4097; H "
+        f"in 2,512,4096; and (96, 784) rows one float off 16-byte alignment "
+        f"at H 512, 4096; 6 prox ops; policy ids 0-5; k/tau on the window "
         f"edges; 3 events each): k, clipped exact; max abs err "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
         + f" (envelopes: gamma {GAMMA_ULP_ENVELOPE} ulp, x "
@@ -376,15 +390,17 @@ def _check_fed(kind, pid, outs_k, outs_p, worst, where):
 
 def phase_fed_kernels_vs_plain(main_shape=(24, 784, 256)) -> float:
     """B2 and B3 against their plain versions: B in 1, 24; d in 1, 127,
-    784, 4097 and the main path's (B, d, H); H in 2, 64, 4096; k/tau on the
+    784, 4097 and the main path's (B, d, H); H in 2, 64, 4096; unaligned
+    rows (an offset view, the scalar path) at (24, 784); k/tau on the
     window edges; all six policy ids; agg at 0 and 1; fma_push both ways;
     three consecutive events each."""
     gen = torch.Generator().manual_seed(2)
     worst = {"hinge/poly gamma": 0.0, "hinge/poly x": 0.0}
-    shapes = [(B, d, H) for B in (1, 24) for d in (1, 127, 784, 4097)
-              for H in (2, 64, 4096)] + [tuple(main_shape)]
+    shapes = [(B, d, H, 0) for B in (1, 24) for d in (1, 127, 784, 4097)
+              for H in (2, 64, 4096)] + [(*main_shape, 0), (24, 784, 64, 1),
+                                         (24, 784, 4096, 1)]
     cases = 0
-    for B, d, H in shapes:
+    for B, d, H, offset in shapes:
         pid_sets = ([torch.tensor([p]) for p in range(6)] if B == 1
                     else [torch.arange(B) % 6])
         for pid in pid_sets:
@@ -395,8 +411,9 @@ def phase_fed_kernels_vs_plain(main_shape=(24, 784, 256)) -> float:
                 p1 = PolicyParams(*map(_to, params))
                 s1 = StepsizeState(*map(_to, st))
                 s2 = StepsizeState(*(t.clone() for t in s1))
-                tau, x, xc, xw, delta, agg = map(
-                    _to, (tau, x, xc, xw, delta, agg))
+                tau, agg = _to(tau), _to(agg)
+                x, xc, xw, delta = (_to_offset(v, offset)
+                                    for v in (x, xc, xw, delta))
                 xa = xb = x
                 da = db = delta
                 for _ in range(3):
@@ -416,9 +433,11 @@ def phase_fed_kernels_vs_plain(main_shape=(24, 784, 256)) -> float:
                     s1, s2 = ka[1], kb[1]
                 torch.cuda.synchronize()
                 cases += 1
-                _check_fed(kind, pid.to(DEV), ka, kb, worst, (kind, B, d, H))
+                _check_fed(kind, pid.to(DEV), ka, kb, worst,
+                           (kind, B, d, H, offset))
     say("3b fed kernels", f"{cases} cases of B2 (mix) and B3 (buff) (B in "
         f"1,24; d in 1,127,784,4097 and {tuple(main_shape)}; H in 2,64,4096; "
+        "(24, 784) rows one float off 16-byte alignment at H 64, 4096; "
         "policy ids 0-5; agg 0/1; k/tau on the window edges; 3 events "
         "each): k, clipped exact; gamma, total, cumbuf, x_new, delta_new "
         "bitwise for ids 0-3; max abs err "
@@ -690,16 +709,16 @@ def _reps(fn, seconds: float = 0.5) -> int:
     return int(max(3, seconds / max(time.perf_counter() - t0, 1e-6)))
 
 
-def _time_kernel(kernel, plain):
+def _time_kernel(kernel, plain=None):
     """``(graph_ms, eager_ms, eager_ms_after, plain_ms)`` per call: the
     kernel replayed from a CUDA graph of up to 100 launches, eager before
-    and after the graph, and the plain version eager.  Counts are sized to
-    about half a second per loop (at most 2000 eager launches, 200 plain
-    calls, 20 graph replays)."""
+    and after the graph, and the plain version eager (None without one).
+    Counts are sized to about half a second per loop (at most 2000 eager
+    launches, 200 plain calls, 20 graph replays)."""
     n = min(2000, _reps(kernel))
-    n_plain = min(200, _reps(plain))
     eager_ms = _time_launches(kernel, n)
-    plain_ms = _time_launches(plain, n_plain)
+    plain_ms = None if plain is None else _time_launches(
+        plain, min(200, _reps(plain)))
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
@@ -717,6 +736,20 @@ def _time_kernel(kernel, plain):
                               max(2, min(20, n // per_graph))) / per_graph
     eager_ms2 = _time_launches(kernel, n)
     return graph_ms, eager_ms, eager_ms2, plain_ms
+
+
+def _floor(B: int) -> dict:
+    """The empty kernel of ``fused_step.cu`` with ``B`` blocks of 256 (the
+    event kernels' grid), timed as they are: the launch floor."""
+    graph_ms, eager_ms, _, _ = _time_kernel(lambda: _launch_floor(B))
+    return dict(floor_ms=graph_ms, floor_eager_ms=eager_ms)
+
+
+def _floor_text(t: dict) -> str:
+    return (f"launch floor (empty kernel, same grid) "
+            f"{t['floor_ms'] * 1e3:.3f} us replayed, "
+            f"{t['floor_eager_ms'] * 1e3:.3f} eager; above it "
+            f"{(t['ms'] - t['floor_ms']) * 1e3:.3f} us replayed")
 
 
 def phase_fed_timing(kind: str, horizon: int, name: str,
@@ -759,18 +792,20 @@ def phase_fed_timing(kind: str, horizon: int, name: str,
         lambda: fn(params, state, *args), lambda: ref(params, state, *args))
     label = {"mix": "fused_policy_mix_step (B2)",
              "buff": "fused_policy_buff_step (B3)"}[kind]
+    t = dict(ms=graph_ms, eager_ms=eager_ms, plain_ms=plain_ms,
+             bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
+             **_floor(B))
     say(f"13 timing {kind}", f"{label} at ({B}, {d}), H={horizon} (kernel "
         f"vs plain here: ids 0-3 bitwise, max abs err "
         f"{max(worst.values()):.3g}): {graph_ms * 1e3:.3f} us/launch "
         f"replayed from a CUDA graph, {eager_ms * 1e3:.3f} / "
         f"{eager_ms2 * 1e3:.3f} us/launch eager (before / after the graph); "
-        f"plain version {plain_ms * 1e3:.3f} us; bound "
+        f"{_floor_text(t)}; plain version {plain_ms * 1e3:.3f} us; bound "
         f"{bound_ms * 1e3:.4f} us ({nbytes} bytes at "
         f"{HBM_BYTES_PER_S / 1e12:g} TB/s, {ops} ops at "
         f"{F32_OPS_PER_S / 1e12:g} TFLOP/s: {bound_by}); no single PyTorch "
         f"call computes this function; card {name}")
-    return dict(ms=graph_ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err)
+    return t
 
 
 def phase_timing(horizon: int, name: str, max_err: float) -> dict:
@@ -812,18 +847,20 @@ def phase_timing(horizon: int, name: str, max_err: float) -> dict:
         fused_policy_prox_step_ref(params, prox, state, tau, x, g)
 
     graph_ms, eager_ms, eager_ms2, plain_ms = _time_kernel(kernel, plain)
+    t = dict(ms=graph_ms, eager_ms=eager_ms, plain_ms=plain_ms,
+             bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
+             **_floor(B))
     say("7 timing", f"fused_policy_prox_step at ({B}, {d}), H={horizon}, "
         f"l1 (kernel vs plain here: ids 0-3 bitwise, max abs err "
         f"{max(worst.values()):.3g}): {graph_ms * 1e3:.3f} us/launch "
         f"replayed from a CUDA graph, "
         f"{eager_ms * 1e3:.3f} / {eager_ms2 * 1e3:.3f} us/launch eager "
-        f"(before / after the graph); plain version {plain_ms * 1e3:.3f} us;"
-        f" bound {bound_ms * 1e3:.4f} us ({nbytes} bytes at "
-        f"{HBM_BYTES_PER_S / 1e12:g} TB/s, {ops} ops at "
+        f"(before / after the graph); {_floor_text(t)}; plain version "
+        f"{plain_ms * 1e3:.3f} us; bound {bound_ms * 1e3:.4f} us ({nbytes} "
+        f"bytes at {HBM_BYTES_PER_S / 1e12:g} TB/s, {ops} ops at "
         f"{F32_OPS_PER_S / 1e12:g} TFLOP/s: {bound_by}); no single PyTorch "
         f"call computes this function; card {name}")
-    return dict(ms=graph_ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err)
+    return t
 
 
 def _profile(run) -> Tuple[float, dict]:
@@ -1664,7 +1701,7 @@ def main() -> None:
         launches=n, max_abs_err=t["max_abs_err"], ms=t["ms"],
         eager_ms=t["eager_ms"], plain_ms=t["plain_ms"],
         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-        library_ms=t.get("library_ms"))
+        library_ms=t.get("library_ms"), floor_ms=t.get("floor_ms"))
         for kname, src, rep, n, t in rows]}
     say("24 kernels", f"smoke finished in {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernels), flush=True)

@@ -12,12 +12,16 @@ The rule is therefore about devices, and it has no override:
   version, CUDA tensors take the kernel, anything else raises.  A kernel
   that fails to build or launch raises; nothing switches the card's path
   back to the plain version.
+
+Every wrapper calls :func:`kernel_route` on every call, so its common
+case (all tensors on the first one's card) is one ``get_device`` per
+tensor.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "kernel_route"]
+__all__ = ["resolve_device", "kernel_route", "current_stream_handle"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -37,12 +41,21 @@ def resolve_device(device=None) -> torch.device:
 def kernel_route(*tensors: torch.Tensor) -> str:
     """``"cuda"`` (launch the kernel) or ``"plain"`` (CPU reference) for a
     kernel call on ``tensors``; they must all share one device."""
+    first = tensors[0]
+    if first.is_cuda:
+        dev = first.get_device()
+        if all(t.get_device() == dev for t in tensors):
+            return "cuda"
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"kernel inputs span devices {sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type == "cuda":
-        return "cuda"
     if dev.type == "cpu":
         return "plain"
     raise ValueError(f"no kernel or plain version for device {dev}")
+
+
+def current_stream_handle(dev: int) -> int:
+    """The raw ``cudaStream_t`` of card ``dev``'s current stream, as a
+    launcher takes it, without building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(dev)

@@ -28,12 +28,11 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from ..core.prox import Box, ElasticNet, GroupL2, L1, L2Squared, ProxOp, Zero
 from ..core.stepsize import StepsizeState, _push, f32, fma32, window_sum
-from .dispatch import kernel_route
+from .dispatch import current_stream_handle, kernel_route
 
 __all__ = ["select_gamma", "select_gamma_total", "as_policy_params", "fused_leaf",
            "fused_policy_prox_step", "fused_policy_prox_step_ref",
@@ -234,63 +233,78 @@ _ARGTYPES = {
     "fused_policy_prox_step_launch": (13, "iiiiffi"),
     "fused_policy_mix_step_launch": (13, "iiii"),
     "fused_policy_buff_step_launch": (17, "iiifi"),
+    "fused_step_floor_launch": (0, "i"),
 }
 
+_I32, _F32 = torch.int32, torch.float32
+# what each launch reads, in the launcher's order: (name, dtype, shape),
+# shape 0 = (B,), 1 = (B, H), 2 = (B, d)
+_STATE_SPEC = (("policy_id", _I32, 0), ("gamma_prime", _F32, 0),
+               ("c0", _F32, 0), ("c1", _F32, 0), ("tau", _I32, 0),
+               ("k", _I32, 0), ("total", _F32, 0), ("cumbuf", _F32, 1),
+               ("clipped", _I32, 0))
+_PROX_SPEC = _STATE_SPEC + (("x", _F32, 2), ("g", _F32, 2))
+_MIX_SPEC = _STATE_SPEC + (("x", _F32, 2), ("xc", _F32, 2))
+_BUFF_SPEC = _STATE_SPEC + (("agg", _F32, 0), ("x", _F32, 2),
+                            ("xc", _F32, 2), ("xw", _F32, 2),
+                            ("delta", _F32, 2))
 
-def _lib():
-    from .build import load
-    built = load("fused_step")
-    lib = built.lib
-    if lib.fused_step_error_string.restype is not ctypes.c_char_p:
+_FNS: dict = {}
+
+
+def _fns() -> dict:
+    """The launchers of the built library, by name, with their C types
+    (built and bound at the first launch)."""
+    if not _FNS:
+        from .build import load
+        lib = load("fused_step").lib
         codes = {"i": ctypes.c_int, "f": ctypes.c_float}
+        fns = {}
         for name, (n_ptr, tail) in _ARGTYPES.items():
-            fn = getattr(lib, name)
+            fn = fns[name] = getattr(lib, name)
             fn.argtypes = ([ctypes.c_void_p] * n_ptr
                            + [codes[c] for c in tail] + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
-        err = lib.fused_step_error_string
+        err = fns["error_string"] = lib.fused_step_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-    return lib
+        _FNS.update(fns)
+    return _FNS
 
 
-def _check_inputs(kernel: str, params, tau, state, vectors, B, d):
-    """Raise unless every input is the contiguous dtype and shape the kernel
-    reads: (B,) params/tau/state scalars, (B, H) buffer, (B, d) vectors."""
-    H = state.horizon
-    checks = [("policy_id", params.policy_id, torch.int32, (B,)),
-              ("gamma_prime", params.gamma_prime, torch.float32, (B,)),
-              ("c0", params.c0, torch.float32, (B,)),
-              ("c1", params.c1, torch.float32, (B,)),
-              ("tau", tau, torch.int32, (B,)),
-              ("k", state.k, torch.int32, (B,)),
-              ("total", state.total, torch.float32, (B,)),
-              ("cumbuf", state.cumbuf, torch.float32, (B, H)),
-              ("clipped", state.clipped, torch.int32, (B,))]
-    checks += [(name, t, torch.float32, (B, d) if t.ndim == 2 else (B,))
-               for name, t in vectors]
-    for name, t, dtype, shape in checks:
-        if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-                or not t.is_contiguous():
+def _card_pointers(kernel: str, spec, tensors, B: int, d: int,
+                   H: int) -> list:
+    """Raise unless each of a launch's tensors (on one card, as
+    ``kernel_route`` found) is the contiguous dtype and shape the kernel
+    reads (``spec``: (B,) params, tau and state scalars, (B, H) buffer,
+    (B, d) vectors); return their data pointers in order."""
+    shapes = ((B,), (B, H), (B, d))
+    ptrs = []
+    for (name, dtype, s), t in zip(spec, tensors):
+        shape = shapes[s]
+        if t.dtype is not dtype or t.shape != shape or not t.is_contiguous():
             raise ValueError(
                 f"{kernel}: {name} must be a contiguous {dtype} tensor of "
-                f"shape {tuple(shape)}; got {t.dtype} {tuple(t.shape)} "
+                f"shape {shape}; got {t.dtype} {tuple(t.shape)} "
                 f"contiguous={t.is_contiguous()}")
+        ptrs.append(t.data_ptr())
+    return ptrs
 
 
-def _launch(kernel: str, params, tau, state, ins, outs, tail):
-    """Call ``<kernel>_launch`` on the current stream; raise on its code."""
-    lib = _lib()
-    dev = outs[0].device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = getattr(lib, f"{kernel}_launch")(
-            *(t.data_ptr() for t in (*params, tau, *state, *ins, *outs)),
-            *tail, stream)
+def _launch(kernel: str, dev: int, *args) -> None:
+    """Call ``<kernel>_launch`` on device ``dev``'s current stream; raise on
+    its code."""
+    fns = _fns()
+    fn = fns[f"{kernel}_launch"]
+    if dev == torch.cuda.current_device():
+        code = fn(*args, current_stream_handle(dev))
+    else:
+        with torch.cuda.device(dev):
+            code = fn(*args, current_stream_handle(dev))
     if code != 0:
         raise RuntimeError(
             f"{kernel} launch failed: "
-            f"{lib.fused_step_error_string(code).decode()} ({code})")
+            f"{fns['error_string'](code).decode()} ({code})")
 
 
 def fused_policy_prox_step(params, prox: ProxOp, state: StepsizeState,
@@ -305,18 +319,20 @@ def fused_policy_prox_step(params, prox: ProxOp, state: StepsizeState,
     tensors launch the kernel (one block per cell); CPU tensors run
     :func:`fused_policy_prox_step_ref`.
     """
-    if kernel_route(*params, tau, *state, x, g) == "plain":
+    tensors = (*params, tau, *state, x, g)
+    if kernel_route(*tensors) == "plain":
         return fused_policy_prox_step_ref(params, prox, state, tau, x, g,
                                           fma_push)
     B, d = x.shape
+    H = state.horizon
     kind, p0, p1 = prox_code(prox)
-    _check_inputs("fused_policy_prox_step", params, tau, state,
-                  (("x", x), ("g", g)), B, d)
+    ptrs = _card_pointers("fused_policy_prox_step", _PROX_SPEC, tensors, B,
+                          d, H)
     x_new = torch.empty_like(x)
-    gamma = torch.empty((B,), dtype=torch.float32, device=x.device)
-    _launch("fused_policy_prox_step", params, tau, state, (x, g),
-            (x_new, gamma),
-            (B, d, state.horizon, kind, p0, p1, int(fma_push)))
+    gamma = torch.empty((B,), dtype=_F32, device=x.device)
+    _launch("fused_policy_prox_step", x.get_device(), *ptrs,
+            x_new.data_ptr(), gamma.data_ptr(), B, d, H, kind, p0, p1,
+            int(fma_push))
     fused_policy_prox_step.launches += 1
     return gamma, state, x_new
 
@@ -332,15 +348,17 @@ def fused_policy_mix_step(params, state: StepsizeState, tau: torch.Tensor,
     CUDA tensors launch the kernel (one block per cell); CPU tensors run
     :func:`fused_policy_mix_step_ref`.
     """
-    if kernel_route(*params, tau, *state, x, xc) == "plain":
+    tensors = (*params, tau, *state, x, xc)
+    if kernel_route(*tensors) == "plain":
         return fused_policy_mix_step_ref(params, state, tau, x, xc, fma_push)
     B, d = x.shape
-    _check_inputs("fused_policy_mix_step", params, tau, state,
-                  (("x", x), ("xc", xc)), B, d)
+    H = state.horizon
+    ptrs = _card_pointers("fused_policy_mix_step", _MIX_SPEC, tensors, B, d,
+                          H)
     x_new = torch.empty_like(x)
-    gamma = torch.empty((B,), dtype=torch.float32, device=x.device)
-    _launch("fused_policy_mix_step", params, tau, state, (x, xc),
-            (x_new, gamma), (B, d, state.horizon, int(fma_push)))
+    gamma = torch.empty((B,), dtype=_F32, device=x.device)
+    _launch("fused_policy_mix_step", x.get_device(), *ptrs, x_new.data_ptr(),
+            gamma.data_ptr(), B, d, H, int(fma_push))
     fused_policy_mix_step.launches += 1
     return gamma, state, x_new
 
@@ -360,21 +378,31 @@ def fused_policy_buff_step(params, state: StepsizeState, tau: torch.Tensor,
     CUDA tensors launch the kernel (one block per cell); CPU tensors run
     :func:`fused_policy_buff_step_ref`.
     """
-    if kernel_route(*params, tau, *state, x, xc, xw, delta, agg) == "plain":
+    tensors = (*params, tau, *state, agg, x, xc, xw, delta)
+    if kernel_route(*tensors) == "plain":
         return fused_policy_buff_step_ref(params, state, tau, x, xc, xw,
                                           delta, agg, scale, fma_push)
     B, d = x.shape
-    _check_inputs("fused_policy_buff_step", params, tau, state,
-                  (("agg", agg), ("x", x), ("xc", xc), ("xw", xw),
-                   ("delta", delta)), B, d)
+    H = state.horizon
+    ptrs = _card_pointers("fused_policy_buff_step", _BUFF_SPEC, tensors, B,
+                          d, H)
     x_new = torch.empty_like(x)
     delta_new = torch.empty_like(delta)
-    gamma = torch.empty((B,), dtype=torch.float32, device=x.device)
-    _launch("fused_policy_buff_step", params, tau, state,
-            (agg, x, xc, xw, delta), (x_new, delta_new, gamma),
-            (B, d, state.horizon, float(np.float32(scale)), int(fma_push)))
+    gamma = torch.empty((B,), dtype=_F32, device=x.device)
+    # the c_float argument rounds scale to float32, as np.float32 would
+    _launch("fused_policy_buff_step", x.get_device(), *ptrs,
+            x_new.data_ptr(), delta_new.data_ptr(), gamma.data_ptr(), B, d,
+            H, float(scale), int(fma_push))
     fused_policy_buff_step.launches += 1
     return gamma, state, x_new, delta_new
+
+
+def _launch_floor(B: int) -> None:
+    """Launch the empty kernel with B1's grid (``B`` blocks of 256 threads)
+    on the current card's current stream: the launch floor the event
+    kernels are timed against (measurement code only; it counts
+    nothing)."""
+    _launch("fused_step_floor", torch.cuda.current_device(), B)
 
 
 # kernel launches since the last reset (the wrappers count only launches)

@@ -16,7 +16,11 @@ bitwise for ids 0-3 (both sides contract the mix, the accumulate and the
 apply), within X_REL for ids 4-5 (their gamma may differ by an ulp).
 """
 import ast
+import ctypes
 import functools
+import hashlib
+import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +41,8 @@ from repro_torch.kernels import build, dispatch
 from repro_torch.kernels import fused_step as fs
 
 GAMMA_ULPS = 4
+# the first 16 hex digits of the sha256 of B2's kernel text, first design
+_B2_SHA256 = "91180a201b566b5e"
 X_REL = 1e-6
 OPS = {
     "none": {}, "l1": dict(lam=0.05), "l2": dict(lam=0.3),
@@ -368,16 +374,108 @@ def test_wrappers_refuse_inputs_the_kernels_cannot_read():
     c = _fed_case(B=4, d=5)
     params = interop.policy_params(*c["params"], device="cpu")
     state = interop.stepsize_state(*c["state"], device="cpu")
+    tau = torch.from_numpy(c["tau"])
     x = torch.zeros(4, 5)
     with pytest.raises(ValueError, match="fused_policy_buff_step: agg"):
-        fs._check_inputs("fused_policy_buff_step", params,
-                         torch.from_numpy(c["tau"]), state,
-                         (("agg", torch.zeros(4, dtype=torch.int32)),
-                          ("x", x)), 4, 5)
+        fs._card_pointers("fused_policy_buff_step", fs._BUFF_SPEC,
+                          (*params, tau, *state,
+                           torch.zeros(4, dtype=torch.int32), x, x, x, x),
+                          4, 5, 8)
     with pytest.raises(ValueError, match="fused_policy_mix_step: xc"):
-        fs._check_inputs("fused_policy_mix_step", params,
-                         torch.from_numpy(c["tau"]), state,
-                         (("x", x), ("xc", x.T)), 4, 5)
+        fs._card_pointers("fused_policy_mix_step", fs._MIX_SPEC,
+                          (*params, tau, *state, x, x.T), 4, 5, 8)
+
+
+def _two_pass_message(kernel, name, t, dtype, shape):
+    """The message the two-pass check (``_check_inputs``, replaced by
+    ``_card_pointers``) gave for a bad input."""
+    return (f"{kernel}: {name} must be a contiguous {dtype} tensor of "
+            f"shape {tuple(shape)}; got {t.dtype} {tuple(t.shape)} "
+            f"contiguous={t.is_contiguous()}")
+
+
+def _bad_inputs(t):
+    """A wrong dtype, a wrong shape and a non-contiguous tensor in place of
+    ``t``."""
+    other = torch.float64 if t.dtype == torch.float32 else torch.int64
+    wrong_shape = torch.zeros(t.shape[0] + 1, *t.shape[1:], dtype=t.dtype)
+    strided = torch.zeros(*t.shape[:-1], 2 * t.shape[-1],
+                          dtype=t.dtype)[..., ::2]
+    return t.to(other), wrong_shape, strided
+
+
+@pytest.mark.parametrize("kind", ["prox", "mix", "buff"])
+def test_one_pass_check_gives_the_two_pass_messages(kind):
+    """Each bad input of each launch raises what ``_check_inputs`` raised,
+    word for word; good inputs give their data pointers in the launcher's
+    order; a tensor on another device raises ``kernel_route``'s message
+    (the wrappers route through it before ``_card_pointers``)."""
+    B, d, H = 4, 5, 8
+    c = _fed_case(B=B, d=d, H=H)
+    params = interop.policy_params(*c["params"], device="cpu")
+    state = interop.stepsize_state(*c["state"], device="cpu")
+    vec = {k: torch.from_numpy(c[k]) for k in
+           ("x", "g", "xc", "xw", "delta", "agg")}
+    spec = {"prox": fs._PROX_SPEC, "mix": fs._MIX_SPEC,
+            "buff": fs._BUFF_SPEC}[kind]
+    kernel = f"fused_policy_{kind}_step"
+    good = (*params, torch.from_numpy(c["tau"]), *state,
+            *(vec[name] for name, _, _ in spec[9:]))
+    assert fs._card_pointers(kernel, spec, good, B, d, H) == \
+        [t.data_ptr() for t in good]
+    assert dispatch.kernel_route(*good) == "plain"
+    shapes = ((B,), (B, H), (B, d))
+    for i, (name, dtype, s) in enumerate(spec):
+        assert good[i].dtype == dtype and tuple(good[i].shape) == shapes[s]
+        for bad in _bad_inputs(good[i]):
+            tensors = good[:i] + (bad,) + good[i + 1:]
+            msg = _two_pass_message(kernel, name, bad, dtype, shapes[s])
+            with pytest.raises(ValueError, match=f"^{re.escape(msg)}$"):
+                fs._card_pointers(kernel, spec, tensors, B, d, H)
+        meta = good[:i] + (good[i].to("meta"),) + good[i + 1:]
+        with pytest.raises(ValueError, match=re.escape(
+                "kernel inputs span devices ['cpu', 'meta']")):
+            dispatch.kernel_route(*meta)
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        dispatch.kernel_route(*(t.to("meta") for t in good))
+
+
+_C_TYPES = {"const int*": ctypes.c_void_p, "int*": ctypes.c_void_p,
+            "const float*": ctypes.c_void_p, "float*": ctypes.c_void_p,
+            "void*": ctypes.c_void_p, "int": ctypes.c_int,
+            "float": ctypes.c_float}
+
+
+class _Lib:
+    """Stands in for the loaded library: every symbol is a settable
+    object."""
+
+    def __getattr__(self, name):
+        fn = types.SimpleNamespace(argtypes=None, restype=None)
+        setattr(self, name, fn)
+        return fn
+
+
+def test_ctypes_bindings_match_the_c_signatures(monkeypatch):
+    """Every ``extern "C"`` launcher of ``fused_step.cu`` takes exactly the
+    ctypes ``_ARGTYPES`` declares (a wrong count or width would pass
+    garbage to the card); the library is faked."""
+    lib = _Lib()
+    monkeypatch.setattr(build, "load", lambda name: types.SimpleNamespace(
+        lib=lib) if name == "fused_step" else None)
+    monkeypatch.setattr(fs, "_FNS", {})
+    fns = fs._fns()
+    src = (build.CSRC_DIR / "fused_step.cu").read_text()
+    c_api = src[src.index('extern "C" {'):]
+    launchers = re.findall(r"^int (\w+_launch)\(([^)]*)\)", c_api, re.M)
+    assert {name for name, _ in launchers} == set(fs._ARGTYPES)
+    for name, params in launchers:
+        types_ = [_C_TYPES[re.sub(r"\s*\w+$", "", p.strip())]
+                  for p in params.split(",")]
+        assert fns[name] is getattr(lib, name)
+        assert getattr(lib, name).argtypes == types_, name
+        assert getattr(lib, name).restype is ctypes.c_int
+    assert lib.fused_step_error_string.restype is ctypes.c_char_p
 
 
 def test_fed_kernels_are_in_the_source_with_their_launchers():
@@ -386,7 +484,33 @@ def test_fed_kernels_are_in_the_source_with_their_launchers():
                  "fused_policy_mix_step_launch",
                  "fused_policy_buff_step_launch", "policy_prologue"):
         assert name in src
-    assert src.count("return static_cast<int>(cudaGetLastError());") == 3
+    assert src.count("return static_cast<int>(cudaGetLastError());") == 4
     assert set(fs._ARGTYPES) == {"fused_policy_prox_step_launch",
                                  "fused_policy_mix_step_launch",
-                                 "fused_policy_buff_step_launch"}
+                                 "fused_policy_buff_step_launch",
+                                 "fused_step_floor_launch"}
+
+
+def _kernel_text(src: str, name: str) -> str:
+    """The text of ``__global__`` kernel ``name``, signature to closing
+    brace."""
+    start = src.index(f"{name}(", src.index("__global__ void"))
+    start = src.rindex("__global__", 0, start)
+    return src[start:src.index("\n}\n", start) + 3]
+
+
+def test_b1_b3_stage_the_row_and_b2_keeps_its_first_design():
+    """B1 and B3 run ``block_prologue`` (the cumbuf row staged in shared
+    memory up to kRowCap) and have a float4 and a scalar instance; B2's
+    kernel is byte for byte its first design, on ``policy_prologue``."""
+    src = (build.CSRC_DIR / "fused_step.cu").read_text()
+    assert "constexpr int kRowCap = 1024;" in src
+    assert "if (H <= kRowCap)" in src
+    for name in ("fused_policy_prox_kernel", "fused_policy_buff_kernel"):
+        body = _kernel_text(src, name)
+        assert "block_prologue(" in body and "policy_prologue(" not in body
+        assert "template <bool kVec4>" in src[:src.index(body)][-60:]
+        assert f"&{name}<true>" in src and f"&{name}<false>" in src
+    mix = _kernel_text(src, "fused_policy_mix_kernel")
+    assert "policy_prologue(" in mix and "block_prologue(" not in mix
+    assert hashlib.sha256(mix.encode()).hexdigest()[:16] == _B2_SHA256

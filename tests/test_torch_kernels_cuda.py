@@ -25,8 +25,14 @@ Envelopes:
   order, cast and then scale, differs on about a quarter).
 * B7 (SSD intra-chunk, and ``ssd_scan_pallas`` against ``ssd_chunked``):
   within 1e-5 of the largest |output|.
+* B1-B3 (the fused event steps): k and clipped exact; policy ids 0-3
+  bitwise; hinge/poly and group_l2 within the envelopes stated above
+  their tests.
 """
 
+import re
+
+import numpy as np
 import pytest
 import torch
 
@@ -403,3 +409,291 @@ def test_b7_refuses_what_it_has_no_kernel_for(cuda):
     x, dt, dA, B, C = _ssd_case(gen, cuda, 1, 16, 2, 8, 1, 4)
     with pytest.raises(ValueError, match="dt must be float32"):
         ss.ssd_intra_chunk(x, dt.double(), dA, B, C)
+
+
+# ----------------------------------------- B1-B3 (the fused event steps) ----
+#
+# Each test runs three consecutive events of a kernel and of its plain
+# version from one state whose k and tau sit on the window edges.  Exact:
+# k, clipped.  Bitwise for policy ids 0-3: gamma, total, cumbuf, and the
+# vectors (B1's x_new under every prox but group_l2; B2's x_new; B3's x_new
+# and delta_new).  Envelopes: hinge/poly gamma within GAMMA_ULPS ulps
+# (powf against torch.pow); the vectors of ids 4-5 and group_l2 within
+# X_REL of max|x| (a gamma an ulp away; the norm summed in another order).
+# H 2, 64 and 256 stage the cumbuf row in shared memory, 4096 takes the
+# slot alone (kRowCap = 1024); d 1, 127 and 4097 take the scalar path, 784
+# the float4 one, and an offset view of a row the scalar one.
+
+GAMMA_ULPS = 4
+X_REL = 1e-5
+FUSED_PROXES = (("none", {}), ("l1", dict(lam=1e-2)), ("l2", dict(lam=1e-2)),
+                ("elastic_net", dict(lam1=1e-2, lam2=1e-2)),
+                ("box", dict(lo=-0.5, hi=0.5)), ("group_l2", dict(lam=1.0)))
+
+
+def _event_case(seed, B, d, H, dev, offset=0):
+    """Policy ids cycling 0-5, k and tau on the window edges, four (B, d)
+    vectors (x, g or xc, xw, delta) and agg alternating 0/1, on the card.
+    With ``offset`` the vectors are views that start ``offset`` floats into
+    their storage (contiguous, not 16-byte aligned)."""
+    from repro_torch.core.stepsize import StepsizeState
+    from repro_torch.sweep.policies import PolicyParams
+    rng = np.random.default_rng(seed)
+    k = np.array([0, 1, H - 1, H, H + 5, 3 * H + 7])[rng.integers(0, 6, B)]
+    tau = np.where(rng.random(B) < 0.5,
+                   np.array([0, 1, H - 1, H, H + 5, 2 * H + 3])[
+                       rng.integers(0, 6, B)],
+                   rng.integers(0, H + 6, B))
+    cum = np.cumsum(rng.random((B, H)), axis=1)
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    params = PolicyParams(torch.tensor(np.arange(B) % 6, **i32),
+                          torch.tensor(rng.random(B) + 0.5, **f32),
+                          torch.tensor(rng.random(B) * 0.9 + 0.05, **f32),
+                          torch.tensor(rng.random(B) * 5, **f32))
+    state = StepsizeState(torch.tensor(k, **i32),
+                          torch.tensor(cum[:, -1] + 1.0, **f32),
+                          torch.tensor(cum, **f32),
+                          torch.tensor(rng.integers(0, 3, B), **i32))
+
+    def vector():
+        flat = torch.tensor(rng.normal(size=B * d + offset), **f32)
+        return flat[offset:].view(B, d)
+
+    agg = torch.tensor(np.arange(B) % 2, **f32)
+    return params, state, torch.tensor(tau, **i32), \
+        [vector() for _ in range(4)], agg
+
+
+def _clone(state):
+    return type(state)(*(t.clone() for t in state))
+
+
+def _check_event(pid, got, want, bitwise_vectors=True):
+    (ga, sa, *va), (gb, sb, *vb) = got, want
+    assert torch.equal(sa.k, sb.k) and torch.equal(sa.clipped, sb.clipped)
+    exact = pid <= 3
+    for a, b in ((ga, gb), (sa.total, sb.total), (sa.cumbuf, sb.cumbuf)):
+        assert torch.equal(a[exact], b[exact])
+    dg = (ga - gb).abs()[~exact]
+    ulp = torch.finfo(torch.float32).eps * gb.abs()[~exact]
+    assert not bool((~(dg <= GAMMA_ULPS * ulp)).any()), float(dg.max())
+    for a, b in zip(va, vb):
+        if bitwise_vectors:
+            assert torch.equal(a[exact], b[exact])
+        err = (a - b).abs()
+        env = X_REL * max(1.0, float(b.abs().max()))
+        assert not bool((~(err <= env)).any()), float(err.max())
+
+
+def _b1_events(params, state, tau, x, g, prox, dev):
+    from repro_torch.kernels import fused_step as fs
+    before = fs.fused_policy_prox_step.launches
+    s1, s2 = _clone(state), _clone(state)
+    x1 = x2 = x
+    for e in range(3):
+        ga, s1, x1 = fs.fused_policy_prox_step(params, prox, s1, tau, x1, g,
+                                               bool(e % 2))
+        gb, s2, x2 = fs.fused_policy_prox_step_ref(params, prox, s2, tau, x2,
+                                                   g, bool(e % 2))
+    torch.cuda.synchronize()
+    assert fs.fused_policy_prox_step.launches == before + 3
+    assert x1.is_cuda and x1.data_ptr() % 16 == 0
+    return (ga, s1, x1), (gb, s2, x2)
+
+
+def _b1_check(dev, B, d, H, seed, offset=0):
+    from repro_torch.core.prox import make_prox
+    for name, kw in FUSED_PROXES:
+        params, state, tau, (x, g, _, _), _ = _event_case(seed, B, d, H, dev,
+                                                          offset)
+        got, want = _b1_events(params, state, tau, x, g,
+                               make_prox(name, **kw), dev)
+        _check_event(params.policy_id, got, want, name != "group_l2")
+
+
+@pytest.mark.parametrize("H", [2, 64, 256, 4096])
+@pytest.mark.parametrize("d", [1, 127, 784, 4097])
+def test_b1_kernel_matches_plain(cuda, d, H):
+    """Every prox kind, 12 cells (ids 0-5 twice)."""
+    _b1_check(cuda, 12, d, H, seed=d * 7 + H)
+
+
+def test_b1_kernel_matches_plain_at_the_main_path_shape(cuda):
+    """96 cells x 784, H = 256 (mnist-96's PIAG path), every prox kind."""
+    _b1_check(cuda, 96, 784, 256, seed=1)
+
+
+def test_b1_scalar_path_on_unaligned_rows(cuda):
+    """Rows that start off a 16-byte boundary take the kernel's scalar
+    path, never the plain version: a column slice at an odd offset (one
+    cell) and an offset view of 24 cells, at d = 784."""
+    from repro_torch.core.prox import make_prox
+    _b1_check(cuda, 24, 784, 256, seed=2, offset=1)
+    params, state, tau, (x, g, _, _), _ = _event_case(3, 1, 784, 64, cuda)
+    wide = torch.randn(1, 785, generator=torch.Generator().manual_seed(3))
+    x = wide.to(cuda)[:, 1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    got, want = _b1_events(params, state, tau, x, g,
+                           make_prox("l1", lam=1e-2), cuda)
+    _check_event(params.policy_id, got, want)
+
+
+def _fed_events(kind, params, state, tau, vecs, agg, scale=0.1):
+    from repro_torch.kernels import fused_step as fs
+    fn = getattr(fs, f"fused_policy_{kind}_step")
+    ref = getattr(fs, f"fused_policy_{kind}_step_ref")
+    x, xc, xw, delta = vecs
+    before = fn.launches
+    s1, s2 = _clone(state), _clone(state)
+    xa = xb = x
+    da = db = delta
+    for e in range(3):
+        if kind == "mix":
+            got = fn(params, s1, tau, xa, xc, bool(e % 2))
+            want = ref(params, s2, tau, xb, xc, bool(e % 2))
+        else:
+            got = fn(params, s1, tau, xa, xc, xw, da, agg, scale,
+                     bool(e % 2))
+            want = ref(params, s2, tau, xb, xc, xw, db, agg, scale,
+                       bool(e % 2))
+            da, db = got[3], want[3]
+        s1, s2, xa, xb = got[1], want[1], got[2], want[2]
+    torch.cuda.synchronize()
+    assert fn.launches == before + 3
+    _check_event(params.policy_id, got, want)
+
+
+@pytest.mark.parametrize("H", [2, 64, 256, 4096])
+@pytest.mark.parametrize("d", [1, 127, 784, 4097])
+def test_b3_kernel_matches_plain(cuda, d, H):
+    """12 cells, agg 0 on half and 1 on the other half."""
+    params, state, tau, vecs, agg = _event_case(d * 5 + H, 12, d, H, cuda)
+    assert set(agg.tolist()) == {0.0, 1.0}
+    _fed_events("buff", params, state, tau, vecs, agg)
+
+
+@pytest.mark.parametrize("agg_value", [None, 0.0, 1.0])
+def test_b3_kernel_matches_plain_at_the_main_path_shape(cuda, agg_value):
+    """24 cells x 784, H = 64 (mnist-fed-24's FedBuff path), agg mixed,
+    all 0 and all 1; eta / |R| = 0.4 / 4."""
+    params, state, tau, vecs, agg = _event_case(4, 24, 784, 64, cuda)
+    if agg_value is not None:
+        agg = torch.full_like(agg, agg_value)
+    _fed_events("buff", params, state, tau, vecs, agg, scale=0.4 / 4)
+
+
+def test_b3_scalar_path_on_unaligned_rows(cuda):
+    """An offset view of 24 cells at d = 784, and a column slice at an odd
+    offset of one cell: the kernel's scalar path."""
+    params, state, tau, vecs, agg = _event_case(5, 24, 784, 64, cuda,
+                                                offset=3)
+    _fed_events("buff", params, state, tau, vecs, agg)
+    params, state, tau, vecs, agg = _event_case(6, 1, 784, 64, cuda)
+    wide = torch.randn(1, 785, generator=torch.Generator().manual_seed(6))
+    vecs[3] = wide.to(cuda)[:, 1:]
+    _fed_events("buff", params, state, tau, vecs, torch.ones_like(agg))
+
+
+@pytest.mark.parametrize("H", [2, 64, 256, 4096])
+@pytest.mark.parametrize("d", [1, 127, 784, 4097])
+def test_b2_kernel_matches_plain(cuda, d, H):
+    """B2 keeps its first design; it shares the wrappers' launch path."""
+    params, state, tau, vecs, agg = _event_case(d * 3 + H, 12, d, H, cuda)
+    _fed_events("mix", params, state, tau, vecs, agg)
+
+
+def test_b2_kernel_matches_plain_at_the_main_path_shape(cuda):
+    """24 cells x 784, H = 256 (mnist-fed-24's FedAsync path)."""
+    params, state, tau, vecs, agg = _event_case(7, 24, 784, 256, cuda)
+    _fed_events("mix", params, state, tau, vecs, agg)
+
+
+def test_b1_b2_b3_count_launches_and_refuse_bad_inputs(cuda):
+    """Each wrapper counts one launch per call on the card and none on the
+    CPU; the floor kernel counts nothing; a bad input raises before any
+    launch, and CPU tensors beside card ones raise."""
+    from repro_torch.core.prox import make_prox
+    from repro_torch.kernels import fused_step as fs
+    params, state, tau, (x, g, xw, delta), agg = _event_case(8, 6, 33, 8,
+                                                             cuda)
+    wrappers = (fs.fused_policy_prox_step, fs.fused_policy_mix_step,
+                fs.fused_policy_buff_step)
+    prox = make_prox("l1", lam=1e-2)
+    calls = (lambda p, s, t, a, b: fs.fused_policy_prox_step(
+                 p, prox, s, t, a, b),
+             lambda p, s, t, a, b: fs.fused_policy_mix_step(p, s, t, a, b),
+             lambda p, s, t, a, b: fs.fused_policy_buff_step(
+                 p, s, t, a, b, xw.to(a.device), delta.to(a.device),
+                 agg.to(a.device), 0.1))
+    for fn, call in zip(wrappers, calls):
+        before = [w.launches for w in wrappers]
+        call(params, _clone(state), tau, x, g)
+        cpu = type(params)(*(t.cpu() for t in params))
+        call(cpu, type(state)(*(t.cpu() for t in state)), tau.cpu(),
+             x.cpu(), g.cpu())
+        fs._launch_floor(6)
+        torch.cuda.synchronize()
+        assert [w.launches for w in wrappers] == [
+            n + (w is fn) for n, w in zip(before, wrappers)]
+        with pytest.raises(ValueError, match="must be a contiguous"):
+            call(params, _clone(state), tau, x.t().contiguous().t(), g)
+        with pytest.raises(ValueError, match="span devices"):
+            call(params, _clone(state), tau.cpu(), x, g)
+        assert [w.launches for w in wrappers] == [
+            n + (w is fn) for n, w in zip(before, wrappers)]
+
+
+def _sass_functions(path):
+    """``{function name: [instruction lines]}`` of a built library, as
+    ``cuobjdump -sass`` prints them (cuobjdump beside nvcc)."""
+    import os
+    import subprocess
+    from repro_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name and re.search(r"/\*[0-9a-f]{4}\*/", line):
+            funcs[name].append(line)
+    return funcs
+
+
+def _loads_before_the_first_barrier(funcs, kernel, vec4):
+    """The global loads (``LDG``) of B1's or B3's ``vec4`` instance that
+    come before its first ``BAR.SYNC``."""
+    tag = f"fused_policy_{kernel}_kernelILb{int(vec4)}E"
+    names = [n for n in funcs if tag in n]
+    assert len(names) == 1, (tag, sorted(funcs))
+    code = funcs[names[0]]
+    first_bar = next(i for i, ln in enumerate(code) if "BAR.SYNC" in ln)
+    return [ln for ln in code[:first_bar] if re.search(r"\bLDG\.", ln)]
+
+
+@pytest.mark.parametrize("kernel,vectors", [("prox", 2), ("buff", 4)])
+@pytest.mark.parametrize("vec4", [True, False])
+def test_b1_b3_load_every_vector_before_the_first_barrier(
+        cuda, kernel, vectors, vec4):
+    """The compiled redesign makes one memory trip: in the instance's SASS
+    every load of the first chunk of each vector (4 float4 or 16 floats a
+    thread) comes before the first barrier.  The float4 instance's vector
+    loads are its 128-bit ones; its other loads (the cell's scalars, the
+    far slot, the row staged in shared memory, B3's agg) are the same code
+    in the scalar instance, which must hold them and all 16 floats of each
+    vector before its barrier, so one vector load moved past it fails."""
+    from repro_torch.kernels import build
+    funcs = _sass_functions(build.load("fused_step").path)
+    wide_build = _loads_before_the_first_barrier(funcs, kernel, True)
+    wide = [ln for ln in wide_build if ".128" in ln]
+    others = len(wide_build) - len(wide)
+    if vec4:
+        assert len(wide) >= vectors * 4, (len(wide), others)
+    else:
+        loads = _loads_before_the_first_barrier(funcs, kernel, False)
+        assert not [ln for ln in loads if ".128" in ln]
+        assert len(loads) >= vectors * 16 + others, (len(loads), others)
