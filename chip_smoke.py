@@ -77,6 +77,7 @@ from repro_torch.sweep.runners import fed_bucket_races  # noqa: E402
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM TF32 dense tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/fused_step.cu"
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -227,6 +228,12 @@ def phase_build() -> None:
     say("2 build", "B6 tensor-core local memory, bytes per thread by head "
         f"dim: {fa._tc_local_bytes(fa._lib())} (the wrapper refuses a build "
         "where any is not 0)")
+    b7 = ss.local_bytes(build.load("ssd_scan").ptxas)
+    if len(b7) != 7 or any(b7.values()):
+        raise AssertionError(f"B7 instances with local memory: {b7}")
+    say("2 build", f"B7: {len(b7)} instances, stack and spill bytes "
+        f"{sorted(set(b7.values()))} (the wrapper refuses a build where any "
+        "is not 0)")
 
 
 def _random_case(B, d, H, pid, gen):
@@ -1367,16 +1374,20 @@ def _ssd_kernel_inputs(inp, chunk: int):
 
 def ssd_intra_work(BC: int, Q: int, H: int, P: int, G: int, N: int,
                    x_itemsize: int) -> Tuple[int, int]:
-    """``(bytes, flops)`` one intra-chunk call must move and do: x, dt, dA,
-    B, C read once and y and the state written once (float32); the causal
-    half (diagonal included) of C B^T once per (chunk, group) and of W x
-    per cell, and the Q x N x P state product per cell, 2 flops a
-    multiply-add."""
+    """``(bytes, flops)`` one intra-chunk call must move and do at float32
+    accuracy on the tensor cores: x, dt, dA, B, C read once and y and the
+    state written once (float32); the products in split TF32, each float32
+    product three TF32 ones, two where x is bfloat16 (exact in TF32): the
+    causal half (diagonal included) of C B^T once per (chunk, group) at
+    three, W x per cell and the Q x N x P state product per cell at two or
+    three; 2 flops a multiply-add."""
     nbytes = (x_itemsize * BC * Q * H * P + 4 * 2 * BC * Q * H
               + 4 * 2 * BC * Q * G * N + 4 * BC * Q * H * P
               + 4 * BC * H * N * P)
     pairs = Q * (Q + 1) // 2
-    flops = 2 * (BC * G * pairs * N + BC * H * pairs * P + BC * H * Q * N * P)
+    by_x = 2 if x_itemsize == 2 else 3
+    flops = 2 * (3 * BC * G * pairs * N
+                 + by_x * (BC * H * pairs * P + BC * H * Q * N * P))
     return nbytes, flops
 
 
@@ -1530,13 +1541,15 @@ def phase_kernels_ops(inp) -> dict:
 
 
 def _time_row(tag: str, what: str, kernel, plain, nbytes: int, flops: int,
-              name: str, library=None, max_err: float = 0.0) -> dict:
+              name: str, library=None, max_err: float = 0.0,
+              ops_per_s: float = F32_OPS_PER_S) -> dict:
     """Time ``kernel`` (graph-replayed and eager), ``plain`` and, where
-    given, ``library``; the bound from ``nbytes`` and float32 ``flops``."""
+    given, ``library``; the bound from ``nbytes`` and ``flops`` at
+    ``ops_per_s`` (float32 outside the tensor cores unless given)."""
     graph_ms, eager_ms, _, plain_ms = _time_kernel(kernel, plain)
     library_ms = (None if library is None else
                   _time_launches(library, min(2000, _reps(library))))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / ops_per_s
     bound_ms = max(t_bytes, t_ops) * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     say(tag, f"{what}: {graph_ms * 1e3:.3f} us replayed from a CUDA graph, "
@@ -1546,7 +1559,7 @@ def _time_row(tag: str, what: str, kernel, plain, nbytes: int, flops: int,
            f"library {library_ms * 1e3:.3f} us; ")
         + f"bound {bound_ms * 1e3:.4f} us ({nbytes} bytes at "
         f"{HBM_BYTES_PER_S / 1e12:g} TB/s, {flops} flops at "
-        f"{F32_OPS_PER_S / 1e12:g} TFLOP/s: {bound_by}); card {name}")
+        f"{ops_per_s / 1e12:g} TFLOP/s: {bound_by}); card {name}")
     torch.cuda.empty_cache()
     return dict(ms=graph_ms, eager_ms=eager_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
@@ -1604,10 +1617,10 @@ def phase_ops_timing(inp, name: str, errs: dict) -> dict:
         row = _time_row(
             f"K7 B7 timing {label}", f"ssd_intra_chunk BC {BC}, Q {Q}, H "
             f"{H}, P {P}, G {G}, N {N}, x {str(kin[0].dtype)[6:]} "
-            f"({BC * H} cells)",
+            f"({BC * H} cells; split-TF32 products on the tensor cores)",
             lambda: ss.ssd_intra_chunk(*kin),
             lambda: ss.ssd_intra_chunk_ref(*kin), nbytes, flops, name,
-            max_err=errs["B7"])
+            max_err=errs["B7"], ops_per_s=TF32_OPS_PER_S)
     rows["B7"] = row
     args, chunk = inp["ssd_b"]
     whole = _time_launches(lambda: kops.ssd_scan_pallas(**args, chunk=chunk),

@@ -25,12 +25,12 @@
 // and far less than a launch.  A launch costs the launch itself plus the
 // chain of dependent memory trips inside it, so the design counts trips.
 //
-// B1 and B3 (fused_policy_prox_kernel, fused_policy_buff_kernel) make ONE
-// trip:
-//   phase A  every thread starts its loads of the vectors at once (x, g; or
-//            x, xc, xw, delta, and agg), as 16-byte float4 loads where
-//            d % 4 == 0 and every row pointer is 16-byte aligned (the
-//            launcher picks the instance), 4-byte loads otherwise.  A
+// All three kernels make ONE trip:
+//   phase A  every thread starts its loads of the vectors at once (B1 x,
+//            g; B2 x, xc; B3 x, xc, xw, delta and agg), as 16-byte float4
+//            loads where d % 4 == 0 and every row pointer is 16-byte
+//            aligned (the launcher picks the instance), 4-byte loads
+//            otherwise.  A
 //            thread holds kPer floats of each vector in registers, so one
 //            pass holds a row of up to kChunk = 4096; wider rows loop in
 //            chunks of load-all, then compute.  Meanwhile thread 0 loads
@@ -48,9 +48,7 @@
 //   phase C  the elementwise update from registers, 16-byte stores on the
 //            float4 path; group_l2 first reduces ||x - gamma g||^2 from the
 //            registers through warp shuffles and shared memory.
-// B2 (fused_policy_mix_kernel) keeps its first design: thread 0 runs
-// policy_prologue (two dependent trips: k and tau, then the slot) while the
-// block waits, then a 4-byte loop over d.
+//            B2's update is the mix x + gamma (xc - x).
 // fused_step_floor_kernel is empty: launched with B1's grid and block, it
 // times the launch floor the kernels are measured against.
 //
@@ -73,9 +71,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-// B1/B3: the largest H whose cumbuf row phase A stages in shared memory
+// the largest H whose cumbuf row phase A stages in shared memory
 constexpr int kRowCap = 1024;
-// B1/B3: floats of one vector a thread holds in registers, and the row
+// floats of one vector a thread holds in registers, and the row
 // chunk one pass covers
 constexpr int kPer = 16;
 constexpr int kChunk = kPer * kThreads;
@@ -144,46 +142,11 @@ __device__ float select_gamma(int pid, float gp, float c0, float c1, float ws,
   return gamma;
 }
 
-// B2's prologue on thread 0 of block b (the reference's _policy_update):
-// window sum with the H-1 cap, the six-way select, the in-place push of
-// S_{k+1} into cumbuf[k % H], k += 1 and the clip count.  Writes
-// gamma_out[b] and returns gamma.
-__device__ float policy_prologue(int b, const int* __restrict__ pid,
-                                 const float* __restrict__ gp,
-                                 const float* __restrict__ c0,
-                                 const float* __restrict__ c1,
-                                 const int* __restrict__ tau,
-                                 int* __restrict__ k,
-                                 float* __restrict__ total,
-                                 float* __restrict__ cumbuf,
-                                 int* __restrict__ clipped,
-                                 float* __restrict__ gamma_out, int H,
-                                 bool fma_push) {
-  const int kk = k[b];
-  const int tt = tau[b];
-  const int cap = min(kk, H - 1);
-  const int tc = min(max(tt, 0), cap);
-  const int j = kk - tc;  // we need S_j
-  float* buf = cumbuf + static_cast<size_t>(b) * H;
-  const float tot = total[b];
-  const float s_j = j <= 0 ? 0.f : buf[(j - 1) % H];
-  float new_total;
-  const float gamma = select_gamma(pid[b], gp[b], c0[b], c1[b],
-                                   __fsub_rn(tot, s_j), tt, tot, fma_push,
-                                   &new_total);
-  buf[kk % H] = new_total;
-  total[b] = new_total;
-  k[b] = kk + 1;
-  clipped[b] += tt > cap ? 1 : 0;
-  gamma_out[b] = gamma;
-  return gamma;
-}
-
 __device__ __forceinline__ float soft(float v, float t) {
   return __fmul_rn(sign(v), max0(__fsub_rn(fabsf(v), t)));
 }
 
-// ---- B1 and B3: one memory trip (phases A-C of the note above) ----
+// ---- one memory trip (phases A-C of the note above) ----
 
 // The cell's scalars, loaded by thread 0 in phase A.
 struct Cell {
@@ -440,6 +403,21 @@ __global__ void __launch_bounds__(kThreads) fused_policy_prox_kernel(
   }
 }
 
+// B2's phase C for one chunk: x + gamma (xc - x), contracted as the
+// reference contracts it.
+template <bool kVec4>
+__device__ __forceinline__ void mix_chunk(const float (&xr)[kPer],
+                                          const float (&cr)[kPer],
+                                          float* __restrict__ xo, int base,
+                                          int d, float gamma) {
+  float xn[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j)
+    xn[j] = fma32(gamma, __fsub_rn(cr[j], xr[j]), xr[j]);
+  store_chunk<kVec4>(xo, base, d, xn);
+}
+
+template <bool kVec4>
 __global__ void __launch_bounds__(kThreads) fused_policy_mix_kernel(
     const int* __restrict__ pid, const float* __restrict__ gp,
     const float* __restrict__ c0, const float* __restrict__ c1,
@@ -448,19 +426,25 @@ __global__ void __launch_bounds__(kThreads) fused_policy_mix_kernel(
     int* __restrict__ clipped, const float* __restrict__ x,
     const float* __restrict__ xc, float* __restrict__ x_out,
     float* __restrict__ gamma_out, int d, int H, int fma_push) {
+  __shared__ float s_row[kRowCap];
   __shared__ float s_gamma;
   const int b = blockIdx.x;
-  if (threadIdx.x == 0)
-    s_gamma = policy_prologue(b, pid, gp, c0, c1, tau, k, total, cumbuf,
-                              clipped, gamma_out, H, fma_push != 0);
-  __syncthreads();
-
-  // x_new = x + gamma (xc - x), contracted as the reference contracts it
-  const float gamma = s_gamma;
   const size_t off = static_cast<size_t>(b) * d;
-  for (int i = threadIdx.x; i < d; i += kThreads) {
-    const float a = x[off + i];
-    x_out[off + i] = fma32(gamma, __fsub_rn(xc[off + i], a), a);
+
+  // phase A: the two vectors' first chunk ...
+  float xr[kPer], cr[kPer];
+  load_chunk<kVec4>(x + off, 0, d, xr);
+  load_chunk<kVec4>(xc + off, 0, d, cr);
+  // ... the cell's scalars and row beside them; phase B
+  const float gamma = block_prologue(b, pid, gp, c0, c1, tau, k, total,
+                                     cumbuf, clipped, gamma_out, H,
+                                     fma_push != 0, s_row, &s_gamma);
+  // phase C
+  mix_chunk<kVec4>(xr, cr, x_out + off, 0, d, gamma);
+  for (int base = kChunk; base < d; base += kChunk) {
+    load_chunk<kVec4>(x + off, base, d, xr);
+    load_chunk<kVec4>(xc + off, base, d, cr);
+    mix_chunk<kVec4>(xr, cr, x_out + off, base, d, gamma);
   }
 }
 
@@ -530,7 +514,7 @@ __global__ void __launch_bounds__(kThreads) fused_policy_buff_kernel(
 // Empty: launched with B1's grid and block, it times the launch floor.
 __global__ void __launch_bounds__(kThreads) fused_step_floor_kernel() {}
 
-// The float4 instance of B1/B3 takes rows with d % 4 == 0 whose pointers
+// The float4 instance of each kernel takes rows with d % 4 == 0 whose pointers
 // are all 16-byte aligned (then every row is).
 bool vec4_rows(int d, std::initializer_list<const float*> rows) {
   if (d % 4 != 0) return false;
@@ -575,8 +559,10 @@ int fused_policy_mix_step_launch(const int* pid, const float* gp,
                                  float* gamma_out, int B, int d, int H,
                                  int fma_push, void* stream) {
   if (B <= 0) return 0;
-  fused_policy_mix_kernel<<<B, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+  auto* kernel = vec4_rows(d, {x, xc, x_out})
+                     ? &fused_policy_mix_kernel<true>
+                     : &fused_policy_mix_kernel<false>;
+  kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       pid, gp, c0, c1, tau, k, total, cumbuf, clipped, x, xc, x_out,
       gamma_out, d, H, fma_push);
   return static_cast<int>(cudaGetLastError());

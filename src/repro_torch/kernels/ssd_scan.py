@@ -10,29 +10,38 @@ every (chunk, head) cell:
     state = (B * exp(cums[-1] - cums) dt)^T x
 
 On the card it launches the hand-written CUDA kernel of
-``csrc/ssd_scan.cu`` (one launch for all cells; see the source for the
-design); on the CPU it runs :func:`ssd_intra_chunk_ref`, the same function
-in plain PyTorch ops, a batched form of ``repro.kernels.ref.ssd_intra_ref``
+``csrc/ssd_scan.cu`` (one launch for all cells, every product on the
+tensor cores in split TF32; see the source for the design); on the CPU it
+runs :func:`ssd_intra_chunk_ref`, the same function in plain PyTorch ops,
+a batched form of ``repro.kernels.ref.ssd_intra_ref``
 (:func:`ssd_intra_ref` is that one-chunk oracle under its own name).  The
 kernel takes ``x`` in float32 or bfloat16 and float32 ``dt``, ``dA``,
-``B``, ``C``, with P <= 128, H a multiple of G, and Q and N small enough
-for a block's shared memory (Q 256 with N 128 takes 101 KB of 227); other
-inputs raise on the card.
+``B``, ``C``, with P <= 128, H a multiple of G, and Q small enough for a
+block's shared memory (110 KB at Q 256, N 128, P 64 with bf16 x; Q past
+256 walks the strip in windows); other inputs raise on the card.  The
+wrapper refuses a build in which ptxas gave any kernel instance local
+memory (:func:`local_bytes`).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+import re
+from typing import Dict, Tuple
 
 import torch
 
 from .dispatch import kernel_route
 
-__all__ = ["ssd_intra_chunk", "ssd_intra_chunk_ref", "ssd_intra_ref"]
+__all__ = ["local_bytes", "ssd_intra_chunk", "ssd_intra_chunk_ref",
+           "ssd_intra_ref"]
 
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_P = 128
+_PROPS = re.compile(r"Function properties for (\S+)\s+(\d+) bytes stack "
+                    r"frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                    r"loads")
 
 
 def ssd_intra_ref(x, dt, dA, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -81,6 +90,24 @@ def _lib():
     return lib
 
 
+def local_bytes(report: str) -> Dict[str, int]:
+    """``{kernel instance: stack frame + spill bytes}`` of every
+    ``ssd_intra_kernel`` instance in a ``ptxas -v`` report."""
+    return {m.group(1): sum(int(v) for v in m.groups()[1:])
+            for m in _PROPS.finditer(report)
+            if "ssd_intra_kernel" in m.group(1)}
+
+
+@functools.lru_cache(maxsize=None)
+def _check_build() -> None:
+    """Raise if ptxas gave any instance local memory (once a process)."""
+    from .build import load
+    used = local_bytes(load("ssd_scan").ptxas)
+    if not used or any(used.values()):
+        raise RuntimeError("ssd_intra_chunk: refusing a build whose kernel "
+                           f"instances use local memory (bytes: {used})")
+
+
 def _check_inputs(x, dt, dA, B, C) -> None:
     """Raise unless the inputs are what the kernel reads."""
     if x.ndim != 4 or B.ndim != 4:
@@ -113,6 +140,7 @@ def ssd_intra_chunk(x, dt, dA, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
     BC, Q, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     lib = _lib()
+    _check_build()
     xc, dtc, dAc, Bc, Cc = (t.contiguous() for t in (x, dt, dA, B, C))
     y = torch.empty(BC, Q, H, P, dtype=torch.float32, device=x.device)
     st = torch.empty(BC, H, N, P, dtype=torch.float32, device=x.device)

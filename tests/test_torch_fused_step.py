@@ -18,7 +18,6 @@ apply), within X_REL for ids 4-5 (their gamma may differ by an ulp).
 import ast
 import ctypes
 import functools
-import hashlib
 import re
 import types
 
@@ -41,8 +40,6 @@ from repro_torch.kernels import build, dispatch
 from repro_torch.kernels import fused_step as fs
 
 GAMMA_ULPS = 4
-# the first 16 hex digits of the sha256 of B2's kernel text, first design
-_B2_SHA256 = "91180a201b566b5e"
 X_REL = 1e-6
 OPS = {
     "none": {}, "l1": dict(lam=0.05), "l2": dict(lam=0.3),
@@ -482,7 +479,7 @@ def test_fed_kernels_are_in_the_source_with_their_launchers():
     src = (build.CSRC_DIR / "fused_step.cu").read_text()
     for name in ("fused_policy_mix_kernel", "fused_policy_buff_kernel",
                  "fused_policy_mix_step_launch",
-                 "fused_policy_buff_step_launch", "policy_prologue"):
+                 "fused_policy_buff_step_launch", "block_prologue"):
         assert name in src
     assert src.count("return static_cast<int>(cudaGetLastError());") == 4
     assert set(fs._ARGTYPES) == {"fused_policy_prox_step_launch",
@@ -500,17 +497,18 @@ def _kernel_text(src: str, name: str) -> str:
 
 
 def test_b1_b3_stage_the_row_and_b2_keeps_its_first_design():
-    """B1 and B3 run ``block_prologue`` (the cumbuf row staged in shared
-    memory up to kRowCap) and have a float4 and a scalar instance; B2's
-    kernel is byte for byte its first design, on ``policy_prologue``."""
+    """All three event kernels, B2 included (it no longer keeps its first
+    design; the name is kept), run ``block_prologue`` (the cumbuf row
+    staged in shared memory up to kRowCap) and have a float4 and a scalar
+    instance, chosen by the launcher; ``policy_prologue``, the first
+    design's prologue of two dependent trips, is gone from the source."""
     src = (build.CSRC_DIR / "fused_step.cu").read_text()
     assert "constexpr int kRowCap = 1024;" in src
     assert "if (H <= kRowCap)" in src
-    for name in ("fused_policy_prox_kernel", "fused_policy_buff_kernel"):
+    assert "policy_prologue" not in src
+    for name in ("fused_policy_prox_kernel", "fused_policy_mix_kernel",
+                 "fused_policy_buff_kernel"):
         body = _kernel_text(src, name)
-        assert "block_prologue(" in body and "policy_prologue(" not in body
+        assert "block_prologue(" in body
         assert "template <bool kVec4>" in src[:src.index(body)][-60:]
         assert f"&{name}<true>" in src and f"&{name}<false>" in src
-    mix = _kernel_text(src, "fused_policy_mix_kernel")
-    assert "policy_prologue(" in mix and "block_prologue(" not in mix
-    assert hashlib.sha256(mix.encode()).hexdigest()[:16] == _B2_SHA256

@@ -25,9 +25,14 @@ Envelopes:
   implementation.  bfloat16 within one bf16 ulp (0 measured here).
   The model-layer match: float32 1e-5, as the reference's test states.
 * B7 intra-chunk: within 1e-5 of the largest |output| (the two sum the
-  float32 products in other orders; the measured gap is about 1e-7).
+  float32 products in other orders; the measured gap is about 1e-7).  The
+  card kernel's split-TF32 arithmetic, emulated here with bit operations,
+  stays inside that envelope; a single TF32 product per float32 one does
+  not.
 """
 import ctypes
+import importlib.util
+import pathlib
 import re
 import types
 
@@ -295,6 +300,119 @@ def test_ssd_intra_chunk_batched_groups():
     assert tuple(y.shape) == (3, 16, 4, 8) and tuple(st.shape) == (3, 4, 4, 8)
     _close(y, y_k)
     _close(st, st_k)
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: float32 rounded to 10 mantissa bits, to
+    nearest with ties away from zero (finite inputs)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tc_product(a: torch.Tensor, b: torch.Tensor, mode: str, eq: str,
+                b_exact: bool = False) -> torch.Tensor:
+    """``einsum(eq, a, b)`` as the tensor cores compute it from float32
+    operands: ``mode`` "split" (hi = tf32(v), lo = tf32(v - hi);
+    lo.hi + hi.lo + hi.hi, or lo.b + hi.b where ``b`` is exact in TF32)
+    or "single" (tf32(a) . tf32(b)); products exact, sums in float32."""
+    ah = _tf32(a)
+    if mode == "single":
+        return torch.einsum(eq, ah, _tf32(b))
+    al = _tf32(a - ah)
+    if b_exact:
+        return torch.einsum(eq, al, b) + torch.einsum(eq, ah, b)
+    bh = _tf32(b)
+    bl = _tf32(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def _emulate_b7(x, dt, dA, B, C, mode: str):
+    """B7's products on the tensor cores, one group (G = 1): C.B^T in
+    split (or single) TF32, W rounded to float32 and then split, W.x and
+    (B w2)^T.x with x exact in TF32 where it came from bfloat16."""
+    Q = x.shape[1]
+    exact = bool(torch.equal(x, x.bfloat16().float()))
+    cums = torch.cumsum(dA, dim=1)                       # (BC, Q, H)
+    cb = _tc_product(C[:, :, 0], B[:, :, 0], mode, "btn,bsn->bts")
+    decay = cums[:, :, None, :] - cums[:, None, :, :]    # (BC, t, s, H)
+    tri = torch.ones(Q, Q, dtype=torch.bool).tril()
+    L = torch.exp(torch.where(tri[None, :, :, None], decay,
+                              torch.full_like(decay, -1e30)))
+    W = cb[..., None] * L * dt[:, None, :, :]
+    y = _tc_product(W, x, mode, "btsh,bshp->bthp", b_exact=exact)
+    w2 = torch.exp(cums[:, -1:, :] - cums) * dt
+    A = B[:, :, 0, :, None] * w2[:, :, None, :]          # (BC, s, N, H)
+    st = _tc_product(A, x, mode, "bsnh,bshp->bhnp", b_exact=exact)
+    return y, st
+
+
+def _ssd_rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_split_tf32_emulation_stays_inside_the_b7_envelope(x_dtype):
+    """The card kernel's design at one chunk of mamba2-780m's shape (Q 256,
+    N 128, P 64, two heads of one group), on the reference's inputs: every
+    product in split TF32 with float32 sums keeps y and the state within
+    1e-5 of max|out| of ``ssd_intra_chunk_ref``, for a float32 x and for a
+    bfloat16 x (two products, x exact in TF32)."""
+    arrs = _ssd_chunk_inputs(21, 1, 256, 2, 64, 1, 128)
+    x, dt, dA, B, C = map(torch.from_numpy, arrs)
+    if x_dtype == "bfloat16":
+        x = x.bfloat16().float()
+    y_r, st_r = ssd_intra_chunk(x, dt, dA, B, C)
+    y, st = _emulate_b7(x, dt, dA, B, C, "split")
+    assert _ssd_rel_err(y, y_r) <= SSD_REL_ENVELOPE
+    assert _ssd_rel_err(st, st_r) <= SSD_REL_ENVELOPE
+
+
+def test_single_tf32_product_leaves_the_b7_envelope():
+    """Why the operands are split: one TF32 product per float32 one (the
+    tensor cores' usual float32 shortcut) moves y out of the envelope on
+    the same inputs."""
+    arrs = _ssd_chunk_inputs(21, 1, 256, 2, 64, 1, 128)
+    x, dt, dA, B, C = map(torch.from_numpy, arrs)
+    y_r, _ = ssd_intra_chunk(x, dt, dA, B, C)
+    y, _ = _emulate_b7(x, dt, dA, B, C, "single")
+    assert _ssd_rel_err(y, y_r) > 10 * SSD_REL_ENVELOPE
+
+
+def _chip_smoke(monkeypatch):
+    """``chip_smoke.py`` as a module, without running it (the script leaves
+    at once without a card, so the check is switched off for the import;
+    the module level only imports and defines)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("x_itemsize,per_product", [(2, 2), (4, 3)])
+def test_ssd_intra_work_counts_the_split_tf32_products(x_itemsize,
+                                                       per_product,
+                                                       monkeypatch):
+    """B7's bound at mamba2-780m's layer on 8192 tokens: the bytes once,
+    and the products in split TF32 (C.B^T once per (chunk, group) at
+    three TF32 products, W.x and the state per cell at two for a bfloat16
+    x, three for float32).  With bf16 x the bytes bound it: 63.5 us
+    against 53.8 us of TF32 products."""
+    smoke = _chip_smoke(monkeypatch)
+    BC, Q, H, P, G, N = 32, 256, 48, 64, 1, 128
+    nbytes, flops = smoke.ssd_intra_work(BC, Q, H, P, G, N, x_itemsize)
+    pairs = Q * (Q + 1) // 2
+    assert flops == 2 * (3 * BC * G * pairs * N + per_product * (
+        BC * H * pairs * P + BC * H * Q * N * P))
+    assert nbytes == (x_itemsize * BC * Q * H * P + 4 * (
+        2 * BC * Q * H + 2 * BC * Q * G * N + BC * Q * H * P
+        + BC * H * N * P))
+    if x_itemsize == 2:
+        assert (nbytes, flops) == (212_860_928, 26_628_587_520)
+        assert nbytes / smoke.HBM_BYTES_PER_S > flops / smoke.TF32_OPS_PER_S
 
 
 # ------------------------------------------------- the ctypes bindings ----

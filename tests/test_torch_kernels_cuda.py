@@ -23,8 +23,9 @@ Envelopes:
   bfloat16 within one bf16 ulp, and bitwise equal on all but 1e-3 of a
   test's elements (both round once from float32; the model layer's
   order, cast and then scale, differs on about a quarter).
-* B7 (SSD intra-chunk, and ``ssd_scan_pallas`` against ``ssd_chunked``):
-  within 1e-5 of the largest |output|.
+* B7 (SSD intra-chunk on the tensor cores in split TF32, and
+  ``ssd_scan_pallas`` against ``ssd_chunked``): within 1e-5 of the largest
+  |output| (float32 sums and the cumulative sum in other orders).
 * B1-B3 (the fused event steps): k and clipped exact; policy ids 0-3
   bitwise; hinge/poly and group_l2 within the envelopes stated above
   their tests.
@@ -366,9 +367,15 @@ def _ssd_close(got, want):
                                   (2, 17, 6, 8, 3, 4), (2, 64, 2, 16, 1, 8),
                                   (2, 100, 3, 64, 1, 64),
                                   (2, 256, 4, 64, 1, 128),
-                                  (1, 256, 4, 128, 2, 128)])
+                                  (1, 256, 4, 128, 2, 128),
+                                  (2, 256, 48, 64, 1, 128),
+                                  (2, 128, 4, 64, 4, 64),
+                                  (2, 100, 6, 64, 2, 64)])
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 def test_b7_kernel_matches_plain(cuda, dims, x_dtype):
+    """(2, 256, 48, 64, 1, 128) is mamba2-780m's grouping (48 heads over
+    one group) at a small batch; (2, 128, 4, 64, 4, 64) has G = H (no
+    sharing); (2, 100, 6, 64, 2, 64) a ragged Q with 3 heads a group."""
     gen = torch.Generator().manual_seed(sum(dims))
     args = _ssd_case(gen, cuda, *dims, x_dtype=x_dtype)
     before = ss.ssd_intra_chunk.launches
@@ -378,6 +385,69 @@ def test_b7_kernel_matches_plain(cuda, dims, x_dtype):
     torch.cuda.synchronize()
     _ssd_close(y, y_r)
     _ssd_close(st, st_r)
+
+
+@pytest.mark.parametrize("dims,offset", [
+    ((16, 256, 48, 64, 1, 128), 0),   # 16 chunks: blocks of several heads
+    ((1, 320, 2, 64, 1, 64), 0),      # Q past 256: the strip in windows
+    ((2, 40, 4, 5, 2, 6), 0),         # P 5, N 6: element copies
+    ((2, 64, 4, 64, 2, 32), 1),       # x off 16-byte alignment
+    ((1, 320, 2, 100, 1, 64), 0)])    # P past 64: two passes (float32 x)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_b7_head_slices_windows_and_element_copies(cuda, dims, offset,
+                                                   x_dtype):
+    """The kernel's other paths: a y block walking a slice of a group's
+    heads (the launcher's choice at 16 chunks of mamba2-780m's heads on
+    132 SMs), the strip in windows of 256 columns, the element-copy
+    staging of rows that are not whole 16-byte chunks or not aligned, and
+    a float32 x past P 64 in two column passes (with windows)."""
+    gen = torch.Generator().manual_seed(sum(dims) + offset)
+    x, dt, dA, B, C = _ssd_case(gen, cuda, *dims, x_dtype=x_dtype)
+    if offset:
+        flat = torch.zeros(x.numel() + offset, dtype=x_dtype, device=cuda)
+        flat[offset:] = x.reshape(-1)
+        x = flat[offset:].view(x.shape)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    before = ss.ssd_intra_chunk.launches
+    y, st = ss.ssd_intra_chunk(x, dt, dA, B, C)
+    assert ss.ssd_intra_chunk.launches == before + 1
+    y_r, st_r = ss.ssd_intra_chunk_ref(x, dt, dA, B, C)
+    torch.cuda.synchronize()
+    _ssd_close(y, y_r)
+    _ssd_close(st, st_r)
+
+
+def test_b7_is_deterministic(cuda):
+    """The kernel has no atomics and a fixed order of sums: twenty launches
+    on the same inputs give bitwise the same y and state (a race between
+    the staged tiles and their readers would show as a difference), at a
+    shape with several heads a block (the launcher's choice at 16 chunks)
+    and one with the strip in windows."""
+    for dims in ((16, 256, 48, 64, 1, 128), (1, 320, 2, 64, 1, 64)):
+        gen = torch.Generator().manual_seed(sum(dims))
+        args = _ssd_case(gen, cuda, *dims, x_dtype=torch.bfloat16)
+        y0, st0 = ss.ssd_intra_chunk(*args)
+        for _ in range(20):
+            y, st = ss.ssd_intra_chunk(*args)
+            assert torch.equal(y, y0) and torch.equal(st, st0)
+
+
+def test_b7_instances_use_the_tensor_cores_and_no_local_memory(cuda):
+    """Every instance of the kernel (four widths of P for a bfloat16 x,
+    three for a float32 x, whose P past 64 runs in two column passes)
+    issues tensor-core products (``HMMA`` in its SASS) and, by the ptxas
+    report the build keeps, uses no local memory; the wrapper's own guard
+    passes."""
+    from repro_torch.kernels import build
+    built = build.load("ssd_scan")
+    used = ss.local_bytes(built.ptxas)
+    assert len(used) == 7 and not any(used.values()), used
+    funcs = _sass_functions(built.path)
+    names = [n for n in funcs if "ssd_intra_kernel" in n]
+    assert sorted(names) == sorted(used)
+    for name in names:
+        assert any("HMMA" in ln for ln in funcs[name]), name
+    ss._check_build()
 
 
 def test_b7_scan_pallas_matches_ssd_chunked(cuda):
@@ -598,7 +668,8 @@ def test_b3_scalar_path_on_unaligned_rows(cuda):
 @pytest.mark.parametrize("H", [2, 64, 256, 4096])
 @pytest.mark.parametrize("d", [1, 127, 784, 4097])
 def test_b2_kernel_matches_plain(cuda, d, H):
-    """B2 keeps its first design; it shares the wrappers' launch path."""
+    """12 cells; d 784 takes the float4 instance, d 1, 127, 4097 the
+    scalar one."""
     params, state, tau, vecs, agg = _event_case(d * 3 + H, 12, d, H, cuda)
     _fed_events("mix", params, state, tau, vecs, agg)
 
@@ -606,6 +677,18 @@ def test_b2_kernel_matches_plain(cuda, d, H):
 def test_b2_kernel_matches_plain_at_the_main_path_shape(cuda):
     """24 cells x 784, H = 256 (mnist-fed-24's FedAsync path)."""
     params, state, tau, vecs, agg = _event_case(7, 24, 784, 256, cuda)
+    _fed_events("mix", params, state, tau, vecs, agg)
+
+
+def test_b2_scalar_path_on_unaligned_rows(cuda):
+    """An offset view of 24 cells at d = 784, and a column slice at an odd
+    offset of one cell: the kernel's scalar instance."""
+    params, state, tau, vecs, agg = _event_case(9, 24, 784, 256, cuda,
+                                                offset=1)
+    _fed_events("mix", params, state, tau, vecs, agg)
+    params, state, tau, vecs, agg = _event_case(10, 1, 784, 256, cuda)
+    wide = torch.randn(1, 785, generator=torch.Generator().manual_seed(10))
+    vecs[1] = wide.to(cuda)[:, 1:]
     _fed_events("mix", params, state, tau, vecs, agg)
 
 
@@ -665,8 +748,8 @@ def _sass_functions(path):
 
 
 def _loads_before_the_first_barrier(funcs, kernel, vec4):
-    """The global loads (``LDG``) of B1's or B3's ``vec4`` instance that
-    come before its first ``BAR.SYNC``."""
+    """The global loads (``LDG``) of B1's, B2's or B3's ``vec4`` instance
+    that come before its first ``BAR.SYNC``."""
     tag = f"fused_policy_{kernel}_kernelILb{int(vec4)}E"
     names = [n for n in funcs if tag in n]
     assert len(names) == 1, (tag, sorted(funcs))
@@ -675,7 +758,8 @@ def _loads_before_the_first_barrier(funcs, kernel, vec4):
     return [ln for ln in code[:first_bar] if re.search(r"\bLDG\.", ln)]
 
 
-@pytest.mark.parametrize("kernel,vectors", [("prox", 2), ("buff", 4)])
+@pytest.mark.parametrize("kernel,vectors", [("prox", 2), ("mix", 2),
+                                            ("buff", 4)])
 @pytest.mark.parametrize("vec4", [True, False])
 def test_b1_b3_load_every_vector_before_the_first_barrier(
         cuda, kernel, vectors, vec4):

@@ -1,7 +1,9 @@
 """Time the fused event kernels B1-B3 and the launch floor on the card, and
-break one eager call of each wrapper into its host steps.
+break one eager call of each wrapper into its host steps; with ``--ssd``
+also the SSD intra-chunk kernel B7.
 
     python3 tools/fused_step_timing.py [--root DIR] [--label NAME] [--paths]
+                                       [--ssd]
 
 ``--root`` names the tree whose ``src/repro_torch`` and ``chip_smoke.py``
 are used (default: the tree holding this tool), so one call can time two
@@ -21,7 +23,13 @@ cycling, k well past H) it prints, per kernel:
   outputs' allocation, the stream handle, the ctypes call.
 
 The empty kernel (``_launch_floor``, with B1's grid and with B3's) is
-timed the same way where the tree has it.  With ``--paths`` it then
+timed the same way where the tree has it.  With ``--ssd`` it times B7
+at the smoke's kernels-ops shapes, (a) ``kernel_bench``'s (Bt 2, S 512, H
+8, P 64, G 1, N 64, chunk 128, float32 x) and (b) one mamba2-780m layer
+on 8192 tokens (H 48, P 64, G 1, N 128, chunk 256, bfloat16 x), from the
+tree's own ``chip_smoke._ssd_inputs`` and ``_ssd_kernel_inputs`` with the
+smoke's seeds, each checked against its plain version first (within 1e-5
+of max|out|).  With ``--paths`` it then
 drives the tree's own smoke phases for the paths these kernels serve:
 the builds, PIAG ``api.run`` (phase 4) and its profile (8), FedAsync and
 FedBuff ``api.run`` (10) and the FedAsync profile (14).  The last line is
@@ -45,6 +53,8 @@ def _args():
     ap.add_argument("--label", default=None, help="name printed per line")
     ap.add_argument("--paths", action="store_true",
                     help="also run the tree's smoke phases 4, 8, 10, 14")
+    ap.add_argument("--ssd", action="store_true",
+                    help="also time B7 at the smoke's shapes (a) and (b)")
     return ap.parse_args()
 
 
@@ -194,6 +204,48 @@ def _timed(smoke, kernel, plain=None) -> dict:
     return row
 
 
+def ssd_rows(smoke, label: str) -> dict:
+    """B7 at the smoke's shapes (a) and (b): checked against its plain
+    version, then timed by the tree's ``_time_kernel``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as ss
+    mamba = get_config("mamba2-780m")
+    shapes = {
+        "a": ((2, 512, 8, 64, 1, 64, torch.float32), 128, 16),
+        "b": ((1, 8192, mamba.ssm_heads, mamba.ssm_head_dim,
+               mamba.ssm_n_groups, mamba.ssm_state, torch.bfloat16),
+              mamba.ssm_chunk, 17)}
+    rows = {}
+    for key, (dims, chunk, seed) in shapes.items():
+        inp = smoke._ssd_inputs(torch.Generator().manual_seed(seed), *dims)
+        kin = smoke._ssd_kernel_inputs(inp, chunk)
+        got, want = ss.ssd_intra_chunk(*kin), ss.ssd_intra_chunk_ref(*kin)
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, w in zip(got, want):
+            e = float((g - w).abs().max())
+            assert e <= 1e-5 * float(w.abs().max()), (key, e)
+            err = max(err, e)
+        del got, want
+        BC, Q, H, P = kin[0].shape
+        name = (f"B7 ssd_intra_chunk ({key}) BC {BC}, Q {Q}, H {H}, P {P}, "
+                f"G {kin[3].shape[2]}, N {kin[3].shape[3]}, "
+                f"{str(kin[0].dtype)[6:]} x")
+        row = _timed(smoke, lambda: ss.ssd_intra_chunk(*kin),
+                     lambda: ss.ssd_intra_chunk_ref(*kin))
+        row["max_abs_err"] = err
+        rows[name] = row
+        print(f"[{label}] {name}: {row['graph_us']:.3f} us/launch "
+              f"replayed, {row['eager_us']:.3f} / "
+              f"{row['eager_after_us']:.3f} eager, plain "
+              f"{row['plain_us']:.3f}; max abs err vs plain {err:.3g}",
+              flush=True)
+        del inp, kin
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     args = _args()
     root = os.path.abspath(args.root)
@@ -238,6 +290,8 @@ def main() -> None:
               f"{row['graph_us']:.3f} us/launch replayed, "
               f"{row['eager_us']:.3f} / {row['eager_after_us']:.3f} eager",
               flush=True)
+    if args.ssd:
+        out["kernels"].update(ssd_rows(smoke, label))
     if args.paths:
         run_paths(smoke)
     print(json.dumps(out), flush=True)
