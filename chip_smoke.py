@@ -6,8 +6,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 nvcc per source, all started together), holds each against its plain
 PyTorch version on the card, and drives the port's main paths:
 
-* ``repro_torch.api.run`` for PIAG, FedAsync and FedBuff (batched, default
-  engine) at the paper's MNIST shape, through kernels B1-B3;
+* ``repro_torch.api.run`` for PIAG, Async-BCD (m 20 blocks), FedAsync and
+  FedBuff (batched, default engine) at the paper's MNIST shape, through
+  kernels B1-B3, and each of the four with the in-loop telemetry on;
 * ``repro_torch.kernels.ops`` (``prox_step``, ``prox_step_tree``,
   ``rmsnorm_fused``, ``ssd_scan_pallas``) at ``benchmarks/kernel_bench.py``'s
   shapes and at full model width (one qwen2.5-32b layer's parameters, a
@@ -24,6 +25,7 @@ non-zero.  The last three lines are the kernels' JSON, the card's name and
 power limit, and ``{"ok": true, "device": ...}``.  Exits non-zero without
 a result when no CUDA device is present.
 """
+import dataclasses
 import json
 import os
 import re
@@ -45,13 +47,16 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch import api, interop  # noqa: E402
 from repro_torch.analysis import (best_fixed_vs_adaptive,  # noqa: E402
                                   time_to_tolerance)
-from repro_torch.core.engine import simulate_parameter_server  # noqa: E402
+from repro_torch.core.bcd import run_bcd_logreg  # noqa: E402
+from repro_torch.core.engine import (simulate_parameter_server,  # noqa: E402
+                                     simulate_shared_memory)
 from repro_torch.core.piag import run_piag_logreg  # noqa: E402
 from repro_torch.core.problems import (make_logreg,  # noqa: E402
                                        solve_centralized)
 from repro_torch.core.prox import L1, make_prox  # noqa: E402
-from repro_torch.core.stepsize import (Adaptive1, FixedStepSize,  # noqa: E402
-                                       StepsizeState, make_policy)
+from repro_torch.core.stepsize import (Adaptive1, DavisFixed,  # noqa: E402
+                                       FixedStepSize, StepsizeState,
+                                       SunDengFixed, make_policy)
 from repro_torch.federated import (heterogeneous_clients,  # noqa: E402
                                    run_fedasync_problem, simulate_federated)
 from repro_torch.configs import get_config  # noqa: E402
@@ -72,6 +77,7 @@ from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.models.transformer import Layer  # noqa: E402
 from repro_torch.serving import ContinuousBatcher, Request  # noqa: E402
 from repro_torch.sweep.policies import POLICY_IDS, PolicyParams  # noqa: E402
+from repro_torch.sweep.cache import clear_program_cache  # noqa: E402
 from repro_torch.sweep.runners import fed_bucket_races  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -151,6 +157,13 @@ def main_spec(**over):
         n_events=2500)
     kw.update(over)
     return api.ExperimentSpec(**kw)
+
+
+def bcd_spec(**over):
+    """The Async-BCD main path: mnist-96's grid (6 policies x 4 seeds x 4
+    topologies, 10 workers) over m = 20 blocks of 40 coordinates."""
+    return main_spec(**{"solver": api.SolverSpec(name="bcd", horizon="auto",
+                                                 m=20), **over})
 
 
 def fed_spec(solver: str, **over):
@@ -907,6 +920,159 @@ def phase_profile(tag: str, run, what: str) -> None:
         + "; ".join(f"{n[:60]} {us / 1e6:.4f}" for n, us in top))
 
 
+# ------------------------------------------ Async-BCD and telemetry ----
+
+def phase_bcd_main_path():
+    """api.run of the Async-BCD main path; every count set to 0 just
+    before, read just after: one B1 launch per event per bucket on the
+    gathered (96, 40) block rows, and no B2 or B3 launch."""
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = api.run(bcd_spec())
+    wall = time.perf_counter() - t0
+    launches = fused_policy_prox_step.launches
+    if fused_policy_mix_step.launches or fused_policy_buff_step.launches:
+        raise AssertionError("the BCD path launched a federated kernel")
+    B, K = len(res), res.n_events
+    if launches <= 0 or launches != K * len(res.grid.buckets()):
+        raise AssertionError(f"BCD: expected one B1 launch per event per "
+                             f"bucket, got {launches}")
+    obj = res.objective
+    if tuple(obj.shape) != (B, K // 10) or not bool(torch.isfinite(obj).all()) \
+            or not bool(torch.isfinite(res.gammas).all()) \
+            or not bool(torch.isfinite(res.x).all()):
+        raise AssertionError("BCD output has the wrong shape or is not finite")
+    if int(res.clipped.sum()) != 0:
+        raise AssertionError("BCD horizon='auto' run clipped a delay")
+    if not bool((obj[:, -1] < obj[:, 0]).all()):
+        raise AssertionError("BCD: a cell's objective did not decrease")
+    blocks = res.extras["blocks"]
+    final = {p: float(np.mean([float(obj[i, -1]) for i, c in
+                               enumerate(res.cells) if c.policy_name == p]))
+             for p in POLICIES}
+    say("4b bcd main path", f"api.run 96 cells (6 policies x 4 seeds x 4 "
+        f"topologies), 60000 x 784 logreg, 10 workers, m=20 blocks of 40, "
+        f"{K} events, H={res.horizon} (tau_bar={res.tau_bar}), record_every"
+        f"=10, engine={res.spec.execution.engine}: wall {wall:.3f} s "
+        f"(resolve + build included), dispatch {res.elapsed_s:.3f} s, "
+        f"{B * K / res.elapsed_s:.1f} cell-events/s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, B1 launches "
+        f"{launches}, blocks recorded {int(blocks.min())}..."
+        f"{int(blocks.max())}; objective {float(obj[0, 0]):.6f} -> mean "
+        "final " + ", ".join(f"{p} {v:.6f}" for p, v in final.items()))
+    return res, launches
+
+
+def phase_bcd_scan_vs_fused() -> None:
+    """16 cells at full size: both engines on the card, bitwise on every
+    leaf; then a small spec on the card against the CPU plain path."""
+    sub = dict(policies=api.PolicyGridSpec(
+        names=("adaptive1", "adaptive2", "fixed", "naive"), seeds=(0,)))
+    r_f = api.run(bcd_spec(**sub, execution=dict(engine="fused")))
+    r_s = api.run(bcd_spec(**sub, execution=dict(engine="scan")))
+    for f in ("x", "objective", "gammas", "taus", "blocks", "clipped"):
+        if not torch.equal(getattr(r_f.raw, f), getattr(r_s.raw, f)):
+            raise AssertionError(f"BCD scan vs fused: {f} not bitwise")
+    small = dict(problem=api.ProblemSpec(kind="logreg", params=dict(
+        n_samples=1200, dim=784, sparse_like=False, lam1=1e-3, lam2=1e-4)),
+        n_events=300)
+    r_gpu = api.run(bcd_spec(**small))
+    r_cpu = api.run(bcd_spec(**small, execution=dict(device="cpu")))
+    exact = torch.tensor([c.policy_name in ("adaptive1", "adaptive2",
+                                            "fixed", "naive")
+                          for c in r_cpu.cells])
+    for f in ("taus", "clipped", "blocks"):
+        if not torch.equal(getattr(r_gpu.raw, f).cpu(), getattr(r_cpu.raw, f)):
+            raise AssertionError(f"BCD card vs cpu: {f} differ")
+    if not torch.equal(r_gpu.gammas.cpu()[exact], r_cpu.gammas[exact]):
+        raise AssertionError("BCD card vs cpu: gammas of ids 0-3 not bitwise")
+    rel = float(((r_gpu.objective.cpu() - r_cpu.objective).abs()
+                 / r_cpu.objective[:, :1].abs()).max())
+    if not rel <= OBJ_REL_ENVELOPE:
+        raise AssertionError(f"BCD card vs cpu objective rel diff {rel}")
+    say("5b bcd scan vs fused", f"16 cells at 60000 x 784, m=20, 2500 "
+        f"events: fused {r_f.elapsed_s:.3f} s, scan {r_s.elapsed_s:.3f} s; "
+        f"x, objective, gammas, taus, blocks, clipped bitwise | card vs cpu "
+        f"plain path, 96 cells at 1200 x 784, 300 events: taus, blocks, "
+        f"clipped, gammas (ids 0-3) bitwise, objective max rel diff "
+        f"{rel:.3g} (envelope {OBJ_REL_ENVELOPE:g})")
+
+
+def phase_fig4() -> None:
+    """Paper Fig. 4 at the CPU test's size (tests/test_torch_bcd.py,
+    ``test_fig4_comparison_matches_reference``): adaptive1 against the
+    Sun-Deng and Davis fixed step-sizes on one shared-memory trace; the
+    reference's final objectives put adaptive1 below both there."""
+    prob = make_logreg(600, 60, n_workers=8, sparse_like=False, seed=0,
+                       device=DEV)
+    m = 10
+    trace = simulate_shared_memory(8, 800, m, seed=4)
+    tb = trace.max_delay()
+    lh = prob.block_smoothness(m)
+    gp = 0.99 / lh
+    ratio = float(2.0 * prob.L / (lh * np.sqrt(m)))
+    prox = L1(lam=prob.lam1)
+    final = {}
+    for name, pol in (("adaptive1", Adaptive1(gamma_prime=gp, alpha=0.9)),
+                      ("sun", SunDengFixed(gamma_prime=gp, tau_bound=tb)),
+                      ("davis", DavisFixed(gamma_prime=gp, tau_bound=tb,
+                                           ratio=ratio))):
+        res = run_bcd_logreg(prob, trace, pol, prox, m=m)
+        final[name] = float(res.objective[-1])
+    if not final["adaptive1"] < min(final["sun"], final["davis"]):
+        raise AssertionError(f"fig4: adaptive1 not below the fixed: {final}")
+    say("6b fig4", f"Async-BCD 600 x 60, 8 workers, m={m}, 800 events "
+        f"(max delay {tb}): final objective adaptive1 "
+        f"{final['adaptive1']:.6f}, Sun-Deng fixed {final['sun']:.6f}, "
+        f"Davis fixed {final['davis']:.6f}")
+
+
+def phase_telemetry() -> None:
+    """PIAG, BCD, FedAsync and FedBuff at 200 events on the card, with
+    telemetry on and off: the solver rows bitwise, each cell's histogram
+    summing to its events, the RunRecord well formed; dispatch rates."""
+    specs = {"piag": main_spec(n_events=200), "bcd": bcd_spec(n_events=200),
+             "fedasync": fed_spec("fedasync", n_events=200),
+             "fedbuff": fed_spec("fedbuff", n_events=200)}
+    rates = []
+    for solver, spec in specs.items():
+        on_spec = spec.replace(execution=dataclasses.replace(
+            spec.execution, telemetry=True))
+        runs = {}
+        for tag, sp in (("off", spec), ("on", on_spec), ("off", spec),
+                        ("on", on_spec)):
+            runs[tag] = api.run(sp)  # the second of each pair is timed
+        off, on = runs["off"], runs["on"]
+        for f in off.raw._fields:
+            if f in ("telemetry", "faults"):
+                continue
+            if not torch.equal(getattr(off.raw, f), getattr(on.raw, f)):
+                raise AssertionError(f"telemetry {solver}: {f} not bitwise")
+        tel, rec = on.raw.telemetry, on.telemetry
+        B, K = len(on), on.n_events
+        if not (bool((tel.hist.sum(dim=1) == K).all())
+                and bool((tel.count == K).all())):
+            raise AssertionError(f"telemetry {solver}: histogram sums differ "
+                                 "from the event count")
+        json.loads(rec.to_json())
+        if rec.hist_source != "accumulator" or sum(rec.delay_hist) != B * K \
+                or rec.n_cells != B or rec.solver != solver \
+                or len(rec.fingerprint) != 12 or rec.horizon != on.horizon \
+                or rec.clipped["events_clipped"] != int(on.clipped.sum()):
+            raise AssertionError(f"telemetry {solver}: malformed RunRecord "
+                                 f"{rec}")
+        rates.append(f"{solver} {B * K / off.elapsed_s:.1f} off / "
+                     f"{B * K / on.elapsed_s:.1f} on "
+                     f"({on.elapsed_s / off.elapsed_s:.3f}x the time; tau "
+                     f"mean {rec.tau_stats['mean']:.3f}, max "
+                     f"{rec.tau_stats['max']}, cache {rec.cache['hits']} "
+                     f"hits)")
+    say("T telemetry", "rows bitwise on vs off, histograms sum to the "
+        "events, RunRecord from the accumulator; dispatch cell-events/s "
+        "(second runs): " + "; ".join(rates))
+
+
 # ------------------------------------------------- B6 and serving ----
 
 def _fa_check(got, want) -> float:
@@ -1652,6 +1818,15 @@ def main() -> None:
     timing = phase_timing(horizon, name, max_err)
     phase_profile("8 profile", lambda: api.run(main_spec(n_events=200)),
                   "api.run PIAG 200 events x 96 cells (resolve included)")
+    # Async-BCD (B1 on the gathered block rows) and the telemetry
+    res_bcd, bcd_launches = phase_bcd_main_path()
+    del res_bcd
+    phase_bcd_scan_vs_fused()
+    phase_fig4()
+    phase_profile("8b bcd profile", lambda: api.run(bcd_spec(n_events=200)),
+                  "api.run Async-BCD 200 events x 96 cells (resolve "
+                  "included)")
+    phase_telemetry()
     fed = {}
     for solver in ("fedasync", "fedbuff"):
         r, n = phase_fed_main_path(solver)
@@ -1682,6 +1857,7 @@ def main() -> None:
             "B7": max(ssd_err, ops_run["err"]["B7"])}
     t_ops = phase_ops_timing(ops_inp, name, errs)
     del ops_inp
+    clear_program_cache()  # the cached sweep programs hold their problems
     torch.cuda.empty_cache()
     cfg, model = phase_serve_model(name)
     fa_launches = phase_generate("20 generate a", cfg, model, 4, 64, 32)
@@ -1695,8 +1871,9 @@ def main() -> None:
                       32),
                   f"generate {cfg.name} batch 4, prompt 64, gen 32 (one "
                   "prefill and 32 decode steps)")
-    rows = [("fused_policy_prox_step", KERNEL_SOURCE, REPLACES, launches,
-             timing),
+    timing["launches_by_path"] = {"piag": launches, "bcd": bcd_launches}
+    rows = [("fused_policy_prox_step", KERNEL_SOURCE, REPLACES,
+             launches + bcd_launches, timing),
             ("fused_policy_mix_step", KERNEL_SOURCE, REPLACES_MIX,
              fed["fedasync"][1], t_mix),
             ("fused_policy_buff_step", KERNEL_SOURCE, REPLACES_BUFF,
@@ -1714,7 +1891,9 @@ def main() -> None:
         launches=n, max_abs_err=t["max_abs_err"], ms=t["ms"],
         eager_ms=t["eager_ms"], plain_ms=t["plain_ms"],
         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-        library_ms=t.get("library_ms"), floor_ms=t.get("floor_ms"))
+        library_ms=t.get("library_ms"), floor_ms=t.get("floor_ms"),
+        **({"launches_by_path": t["launches_by_path"]}
+           if "launches_by_path" in t else {}))
         for kname, src, rep, n, t in rows]}
     say("24 kernels", f"smoke finished in {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernels), flush=True)

@@ -16,7 +16,8 @@ Subpackages are imported lazily (PEP 562), as in ``repro``, so
 import importlib
 
 __all__ = ["api", "analysis", "core", "federated", "sweep", "models",
-           "kernels", "serving", "configs", "launch", "interop"]
+           "kernels", "serving", "configs", "launch", "interop",
+           "telemetry"]
 
 
 def __getattr__(name):

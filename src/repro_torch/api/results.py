@@ -49,8 +49,9 @@ class Results:
       record_every: the trace-recording stride s: objective/gammas/taus
                   columns hold rows ``s-1, 2s-1, ...`` of the event
                   trajectory ((B, K // s) leaves).
-      telemetry / cache_stats: kept for the reference's shape; None until
-                  telemetry is ported (ROADMAP queue A item 9).
+      telemetry:  the run's ``telemetry.RunRecord`` (delay histogram and
+                  moments, compile/warm ms, the program cache's deltas).
+      cache_stats: the record's program-cache delta.
     """
 
     solver: str
@@ -139,7 +140,7 @@ class Results:
         """(B, K // record_every) simulated wall-clock time of each RECORDED
         event (column j is event ``j*s + s - 1``), recomputed from the
         grid's own pre-sampled randomness with the event race on the
-        device of the run (PIAG per bucket, federated per cell)."""
+        device of the run (PIAG and BCD per bucket, federated per cell)."""
         import torch
 
         from ..core.engine import trace_scan
@@ -158,10 +159,6 @@ class Results:
                 c.n_workers, self.n_events, clients=list(c.workers),
                 buffer_size=bs, seed=c.seed, n_steps=n_steps,
                 device=device).t_wall[s - 1::s] for c in self.cells])
-        if self.solver != "piag":
-            raise NotImplementedError(
-                f"virtual_time for solver={self.solver!r} is not ported yet")
-
         def run_bucket(b):
             T = torch.from_numpy(b.grid.service_times(b.width)).to(device)
             act = None if b.uniform else torch.from_numpy(

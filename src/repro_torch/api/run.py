@@ -10,21 +10,26 @@ the build-time horizon validation.  ``run(spec)`` then dispatches:
 solver    solo                                batched
 ========  ==================================  ================================
 piag      ``core.piag.run_piag``              ``sweep.runners.sweep_piag``
+bcd       ``core.bcd.run_async_bcd``          ``sweep.runners.sweep_bcd``
 fedasync  ``federated.server.run_fedasync``   ``sweep.runners.sweep_fedasync``
 fedbuff   ``federated.server.run_fedbuff``    ``sweep.runners.sweep_fedbuff``
 ========  ==================================  ================================
 
-What is not ported yet raises ``NotImplementedError`` naming its ROADMAP
-queue A item: the BCD solver, the sharded backend, faults, telemetry and
-checkpointed resume.
+Every run also builds a ``telemetry.RunRecord`` (on ``Results.telemetry``;
+appended to the JSONL ledger when one is set).  What is not ported yet
+raises ``NotImplementedError`` naming its ROADMAP queue A item: the
+sharded backend, faults and checkpointed resume.
 """
 from __future__ import annotations
 
 import time
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from .. import analysis
+from ..core.bcd import run_async_bcd, sample_blocks
 from ..core.engine import generate_trace, sample_service_times
 from ..core.piag import run_piag
 from ..core.problems import make_lasso, make_logreg
@@ -36,20 +41,27 @@ from ..federated.server import _problem_pieces, run_fedasync, run_fedbuff
 from ..kernels.dispatch import resolve_device
 from ..sweep.grid import (SweepGrid, make_grid, measure_tau_bar,
                           standard_topology_factories)
+from ..sweep.cache import LRU, IdKey, program_cache_stats
 from ..sweep.runners import (fed_bucket_races, races_tau_bar,
-                             resolve_grid_horizon, sweep_fedasync,
+                             resolve_grid_horizon, sweep_bcd, sweep_fedasync,
                              sweep_fedbuff, sweep_piag)
+from ..telemetry.accumulators import TelemetryConfig, summarize_telemetry
+from ..telemetry.ledger import (RunRecord, append_record, cache_delta,
+                                estimate_carry_bytes, spec_fingerprint)
+from ..telemetry.timing import COMPILE_EVENT_NAMES, drain_timings
 from .results import Results
 from .spec import (FIXED_FAMILY, ExecutionSpec, ExperimentSpec, ProblemSpec,
                    SolverSpec, check_horizon)
 
 __all__ = ["Resolved", "resolve", "run", "run_components", "component_spec"]
 
-# resolve-time memo: repeated runs of value-equal problem specs on one
-# device reuse the same problem (the 60 000-sample build and its power
-# iterations cost seconds); bounded, oldest evicted first
-_PROBLEM_MEMO: dict = {}
-_PROBLEM_MEMO_SIZE = 4
+# resolve-time memos: repeated runs of value-equal specs on one device
+# reuse the same problem (the 60 000-sample build and its power iterations
+# cost seconds), prox and runner pieces, so the program cache
+# (``sweep.cache``) sees the same captured objects and serves its programs
+_PROBLEM_MEMO = LRU(4)
+_PROX_MEMO = LRU(32)
+_PIECES_MEMO = LRU(32)
 
 
 def _not_ported(what: str, item: int):
@@ -86,11 +98,7 @@ def _build_problem(spec: ExperimentSpec, device: torch.device):
         hash(key)
     except TypeError:  # exotic params: build fresh, skip memoization
         return maker(device=device, **kwargs)
-    if key not in _PROBLEM_MEMO:
-        if len(_PROBLEM_MEMO) >= _PROBLEM_MEMO_SIZE:
-            _PROBLEM_MEMO.pop(next(iter(_PROBLEM_MEMO)))
-        _PROBLEM_MEMO[key] = maker(device=device, **kwargs)
-    return _PROBLEM_MEMO[key]
+    return _PROBLEM_MEMO.get(key, lambda: maker(device=device, **kwargs))
 
 
 def _build_prox(spec: ExperimentSpec, problem):
@@ -100,7 +108,12 @@ def _build_prox(spec: ExperimentSpec, problem):
     kwargs = dict(ps.prox_params)
     if ps.prox == "l1":
         kwargs.setdefault("lam", problem.lam1)
-    return make_prox(ps.prox, **kwargs)
+    try:
+        key = (ps.prox, tuple(sorted(kwargs.items())))
+        hash(key)
+    except TypeError:
+        return make_prox(ps.prox, **kwargs)
+    return _PROX_MEMO.get(key, lambda: make_prox(ps.prox, **kwargs))
 
 
 def _build_topologies(spec: ExperimentSpec):
@@ -140,6 +153,8 @@ def _measure_tau_bar(spec: ExperimentSpec, topos, device) -> int:
 def _auto_gamma_prime(spec: ExperimentSpec, problem) -> float:
     if spec.solver.name == "piag":
         return 0.99 / problem.L
+    if spec.solver.name == "bcd":
+        return 0.99 / problem.block_smoothness(spec.solver.m)
     return 0.6  # federated base mixing weight alpha
 
 
@@ -170,15 +185,10 @@ def _validate_horizon(spec: ExperimentSpec, tau_bar: Optional[int]) -> None:
 
 def _check_ported(spec: ExperimentSpec, resume=None) -> None:
     """Refuse, before any work, what the port cannot run yet."""
-    sv, ex = spec.solver, spec.execution
-    if sv.name == "bcd":
-        raise _not_ported("solver='bcd' (Async-BCD)", 5)
-    if ex.backend == "sharded":
+    if spec.execution.backend == "sharded":
         raise _not_ported("backend='sharded'", 12)
     if spec.faults is not None:
         raise _not_ported("fault injection (faults=...)", 10)
-    if ex.telemetry:
-        raise _not_ported("telemetry=True", 9)
     if resume is not None:
         raise _not_ported("checkpointed resume (resume=...)", 11)
 
@@ -260,27 +270,63 @@ def resolve(spec: ExperimentSpec) -> Resolved:
 
 # ------------------------------------------------------------- dispatch ----
 
-def _piag_pieces(problem, device):
-    """(loss, x0, worker_data, objective, grad_fn) for PIAG; problems with
-    a closed-form batched gradient (``worker_grads``) use it."""
-    Aw, bw = problem.worker_slices()
-    x0 = torch.zeros((problem.dim,), dtype=torch.float32, device=device)
-    grad_fn = problem.worker_grads() if hasattr(problem, "worker_grads") \
-        else None
-    return problem.worker_loss, x0, (Aw, bw), problem.P, grad_fn
+def _piag_pieces(problem):
+    """(loss, x0, worker_data, objective, grad_fn) for PIAG, memoized per
+    problem; problems with a closed-form batched gradient
+    (``worker_grads``) use it."""
+    def build():
+        x0 = torch.zeros((problem.dim,), dtype=torch.float32,
+                         device=problem.A.device)
+        grad_fn = problem.worker_grads() \
+            if hasattr(problem, "worker_grads") else None
+        return (problem.worker_loss, x0, problem.worker_slices(), problem.P,
+                grad_fn)
+
+    return _PIECES_MEMO.get(("piag", IdKey(problem)), build)
+
+
+def _bcd_pieces(problem):
+    """(grad_f, objective, x0) for Async-BCD, memoized per problem."""
+    def build():
+        return (problem.grad_f, problem.P,
+                torch.zeros((problem.dim,), dtype=torch.float32,
+                            device=problem.A.device))
+
+    return _PIECES_MEMO.get(("bcd", IdKey(problem)), build)
+
+
+def _fed_pieces(problem, prox, local_lr):
+    """(update, x0, client_data, objective), memoized per problem, prox
+    and local step size."""
+    def build():
+        update, x0, data = _problem_pieces(problem, prox, local_lr)
+        return update, x0, data, problem.P
+
+    return _PIECES_MEMO.get(("fed", IdKey(problem), IdKey(prox), local_lr),
+                            build)
+
+
+def _telemetry_cfg(spec: ExperimentSpec) -> Optional[TelemetryConfig]:
+    """The in-loop accumulator config: None (the telemetry-off step body)
+    unless the spec opts in."""
+    ex = spec.execution
+    return TelemetryConfig(delay_bins=ex.telemetry_bins) \
+        if ex.telemetry else None
 
 
 def _run_piag(r: Resolved):
     spec = r.spec
-    loss, x0, wd, objective, grad_fn = _piag_pieces(r.problem, r.device)
+    loss, x0, wd, objective, grad_fn = _piag_pieces(r.problem)
     h, utm = r.horizon, spec.delay.use_tau_max
     s = spec.execution.record_every
+    tel = _telemetry_cfg(spec)
     eng = spec.execution.engine
     if spec.execution.backend == "batched":
         return sweep_piag(loss, x0, wd, r.grid, r.prox, objective=objective,
                           horizon=h, use_tau_max=utm,
                           bucket_widths=spec.execution.bucket_widths,
-                          record_every=s, engine=eng, grad_fn=grad_fn)
+                          record_every=s, telemetry=tel, engine=eng,
+                          grad_fn=grad_fn)
 
     rows = []
     for c in r.grid.cells:
@@ -289,18 +335,41 @@ def _run_piag(r: Resolved):
         rows.append(run_piag(loss, x0, tuple(leaf[:c.n_workers] for leaf in wd),
                              tr, c.policy, r.prox, objective=objective,
                              horizon=h, use_tau_max=utm, record_every=s,
-                             engine=eng, grad_fn=grad_fn))
+                             telemetry=tel, engine=eng, grad_fn=grad_fn))
+    return _stack_rows(rows)
+
+
+def _run_bcd(r: Resolved):
+    spec = r.spec
+    m, h = spec.solver.m, r.horizon
+    grad_f, objective, x0 = _bcd_pieces(r.problem)
+    s = spec.execution.record_every
+    tel = _telemetry_cfg(spec)
+    eng = spec.execution.engine
+    if spec.execution.backend == "batched":
+        return sweep_bcd(grad_f, objective, x0, m, r.grid, r.prox,
+                         horizon=h, bucket_widths=spec.execution.bucket_widths,
+                         record_every=s, telemetry=tel, engine=eng)
+
+    rows = []
+    for c in r.grid.cells:
+        T = sample_service_times(c.workers, r.grid.n_events + 1, seed=c.seed)
+        tr = generate_trace(T, kind="shared_memory", device=r.device)
+        blocks = sample_blocks(m, r.grid.n_events, seed=c.seed)
+        rows.append(run_async_bcd(grad_f, objective, x0, m, tr, blocks,
+                                  c.policy, r.prox, horizon=h,
+                                  record_every=s, telemetry=tel, engine=eng))
     return _stack_rows(rows)
 
 
 def _run_fed(r: Resolved):
     spec = r.spec
     sv = spec.solver
-    update, x0, data = _problem_pieces(r.problem, r.prox, sv.local_lr)
-    objective = r.problem.P
+    update, x0, data, objective = _fed_pieces(r.problem, r.prox, sv.local_lr)
     h, n_steps = r.horizon, sv.n_steps
     bs = sv.buffer_size if sv.name == "fedbuff" else 1
     s = spec.execution.record_every
+    tel = _telemetry_cfg(spec)
     eng = spec.execution.engine
     if spec.execution.backend == "batched":
         if sv.name == "fedasync":
@@ -309,13 +378,15 @@ def _run_fed(r: Resolved):
                                   reference=spec.execution.reference,
                                   n_steps=n_steps,
                                   bucket_widths=spec.execution.bucket_widths,
-                                  record_every=s, engine=eng, races=r.races)
+                                  record_every=s, engine=eng, races=r.races,
+                                  telemetry=tel)
         return sweep_fedbuff(update, x0, data, r.grid, eta=sv.eta,
                              buffer_size=bs, objective=objective, horizon=h,
                              reference=spec.execution.reference,
                              n_steps=n_steps,
                              bucket_widths=spec.execution.bucket_widths,
-                             record_every=s, engine=eng, races=r.races)
+                             record_every=s, engine=eng, races=r.races,
+                             telemetry=tel)
 
     rows = []
     for c in r.grid.cells:
@@ -327,18 +398,88 @@ def _run_fed(r: Resolved):
         if sv.name == "fedasync":
             rows.append(run_fedasync(update, x0, cd, tr, c.policy,
                                      objective=objective, horizon=h,
-                                     record_every=s, engine=eng))
+                                     record_every=s, telemetry=tel,
+                                     engine=eng))
         else:
             rows.append(run_fedbuff(update, x0, cd, tr, c.policy, eta=sv.eta,
                                     buffer_size=bs, objective=objective,
-                                    horizon=h, record_every=s, engine=eng))
+                                    horizon=h, record_every=s, telemetry=tel,
+                                    engine=eng))
     return _stack_rows(rows)
 
 
+_SOLVER_DISPATCH = {"piag": _run_piag, "bcd": _run_bcd,
+                    "fedasync": _run_fed, "fedbuff": _run_fed}
+
+
 def _stack_rows(rows):
-    return type(rows[0])(*(
-        torch.stack(leaves) if isinstance(leaves[0], torch.Tensor)
-        else leaves[0] for leaves in zip(*rows)))
+    """Stack solo rows along a new cell axis (nested result tuples, such
+    as ``telemetry``, leaf by leaf)."""
+    first = rows[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(rows)
+    if isinstance(first, tuple):
+        return type(first)(*(_stack_rows(list(col)) for col in zip(*rows)))
+    return first
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
+def _build_record(spec: ExperimentSpec, r: Resolved, raw: Any,
+                  elapsed: float, cache: dict, timings) -> RunRecord:
+    """Fold one dispatched run into the ledger's ``RunRecord`` (host-side
+    bookkeeping on results already synchronized)."""
+    grid, bins = r.grid, spec.execution.telemetry_bins
+    tel = getattr(raw, "telemetry", None)
+    if tel is not None:
+        summ = summarize_telemetry(tel)
+        delay_hist, hist_source = summ["hist"], "accumulator"
+        tau_stats, gamma_stats = summ["tau"], summ["gamma"]
+    else:
+        taus = _host(raw.taus).reshape(-1)
+        gam = _host(raw.weights if "weights" in raw._fields
+                    else raw.gammas).astype(np.float64).reshape(-1)
+        delay_hist = np.bincount(np.clip(taus, 0, bins - 1),
+                                 minlength=bins).astype(np.int64).tolist()
+        hist_source = "recorded"
+        tau_stats = {"min": int(taus.min()), "max": int(taus.max()),
+                     "mean": float(taus.mean()), "std": float(taus.std())}
+        gamma_stats = {"min": float(gam.min()), "max": float(gam.max()),
+                       "mean": float(gam.mean()), "std": float(gam.std())}
+    compile_ms = sum(ev["ms"] for ev in timings
+                     if ev["name"] in COMPILE_EVENT_NAMES)
+    width = max(c.n_workers for c in grid.cells)
+    return RunRecord(
+        ts=time.time(),
+        fingerprint=spec_fingerprint(spec, grid),
+        solver=spec.solver.name,
+        backend=spec.execution.backend,
+        n_cells=len(grid.cells),
+        n_events=int(grid.n_events),
+        record_every=int(spec.execution.record_every),
+        horizon=int(r.horizon),
+        tau_bar=None if r.tau_bar is None else int(r.tau_bar),
+        devices=1,
+        mesh_shape=None,
+        carry_bytes=estimate_carry_bytes(spec.solver.name,
+                                         int(getattr(r.problem, "dim", 0)),
+                                         width, r.horizon, len(grid.cells)),
+        elapsed_ms=elapsed * 1e3,
+        compile_ms=float(compile_ms),
+        warm_ms=max(elapsed * 1e3 - compile_ms, 0.0),
+        cache=cache,
+        delay_hist=list(delay_hist),
+        hist_source=hist_source,
+        tau_stats=tau_stats,
+        gamma_stats=gamma_stats,
+        clipped=analysis.clipped_summary(raw.clipped),
+        policies=sorted({c.policy_name for c in grid.cells}),
+        timings=list(timings),
+        faults=None,
+    )
 
 
 def run(spec: ExperimentSpec, resume=None) -> Results:
@@ -349,24 +490,35 @@ def run(spec: ExperimentSpec, resume=None) -> Results:
     ``"cpu"``; with no card and no device named it raises.  Under the
     default ``engine='fused'`` every event of the run is one launch of a
     hand-written kernel on the card (per bucket, for the batched
-    backend)."""
+    backend).  Every run builds a ``telemetry.RunRecord`` on
+    ``Results.telemetry``: the timing buffer is drained around the
+    dispatch, so its compile-side events are this run's, and the program
+    cache's counters are read before and after it."""
     _check_ported(spec, resume)
     r = resolve(spec)
+    drain_timings()  # drop events from unrelated earlier activity
+    cache_before = program_cache_stats()
     t0 = time.perf_counter()
-    raw = _run_fed(r) if spec.solver.federated else _run_piag(r)
+    raw = _SOLVER_DISPATCH[spec.solver.name](r)
     if r.device.type == "cuda":
         torch.cuda.synchronize(r.device)
     elapsed = time.perf_counter() - t0
+    record = _build_record(
+        spec, r, raw, elapsed,
+        cache_delta(cache_before, program_cache_stats()), drain_timings())
+    append_record(record)
     return Results(solver=spec.solver.name, backend=spec.execution.backend,
                    grid=r.grid, raw=raw, elapsed_s=elapsed,
                    tau_bar=r.tau_bar, spec=spec, horizon=r.horizon,
-                   record_every=spec.execution.record_every)
+                   record_every=spec.execution.record_every,
+                   telemetry=record, cache_stats=record.cache)
 
 
 # -------------------------------------------------- component escape ----
 
 def component_spec(solver: str, backend: str, *, problem, grid, prox,
                    reference: bool = False, record_every: int = 1,
+                   telemetry: bool = False, telemetry_bins: int = 64,
                    engine: str = "fused", device=None,
                    **solver_kwargs) -> ExperimentSpec:
     """A spec from prebuilt components (problem + grid + prox), bypassing
@@ -379,7 +531,9 @@ def component_spec(solver: str, backend: str, *, problem, grid, prox,
         problem=ProblemSpec(kind="custom", problem=problem, prox_op=prox),
         solver=SolverSpec(name=solver, **solver_kwargs),
         execution=ExecutionSpec(backend=backend, reference=reference,
-                                record_every=record_every, engine=engine,
+                                record_every=record_every,
+                                telemetry=telemetry,
+                                telemetry_bins=telemetry_bins, engine=engine,
                                 device=device),
         delay=DelaySpec(measure=False),
         n_events=grid.n_events,
@@ -390,10 +544,12 @@ def component_spec(solver: str, backend: str, *, problem, grid, prox,
 
 def run_components(solver: str, backend: str, *, problem, grid, prox,
                    reference: bool = False, record_every: int = 1,
+                   telemetry: bool = False, telemetry_bins: int = 64,
                    engine: str = "fused", device=None,
                    **solver_kwargs) -> Results:
     """``run`` over prebuilt components (see ``component_spec``)."""
     return run(component_spec(solver, backend, problem=problem, grid=grid,
                               prox=prox, reference=reference,
-                              record_every=record_every, engine=engine,
+                              record_every=record_every, telemetry=telemetry,
+                              telemetry_bins=telemetry_bins, engine=engine,
                               device=device, **solver_kwargs))

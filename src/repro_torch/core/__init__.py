@@ -1,21 +1,24 @@
 """Core library: step-size policies, prox operators, problems, the event
-engine and PIAG (counterparts of ``repro.core`` modules of the same name).
+engine, PIAG and Async-BCD (counterparts of ``repro.core`` modules of the
+same name).
 
 Public API (the ported part of ``repro.core``'s)::
 
     from repro_torch.core import (
         make_policy, Adaptive1, Adaptive2, FixedStepSize, NaiveAdaptive,
-        make_prox, run_piag, simulate_parameter_server, make_logreg,
+        make_prox, run_piag, run_async_bcd, simulate_parameter_server,
+        simulate_shared_memory, make_logreg,
     )
 
-Not ported yet (ROADMAP queue A): Async-BCD (item 5), ``delay``,
-``runtime``, ``async_sgd``, ``theory``, ``Quadratic`` and
-``run_piag_lipschitz`` (item 13), ``simulate_shared_memory`` (item 5).
+Not ported yet (ROADMAP queue A item 13): ``delay``, ``runtime``,
+``async_sgd``, ``theory``, ``Quadratic`` and ``run_piag_lipschitz``.
 """
+from .bcd import (BCDResult, bcd_scan, run_async_bcd, run_bcd_logreg,
+                  sample_blocks)
 from .engine import (EventHeap, EventTrace, TraceArrays, WorkerModel,
                      generate_trace, heterogeneous_workers,
                      sample_service_times, simulate_parameter_server,
-                     trace_scan)
+                     simulate_shared_memory, trace_scan)
 from .piag import PIAGResult, piag_scan, run_piag, run_piag_logreg
 from .problems import (LassoProblem, LogRegProblem, make_lasso, make_logreg,
                        solve_centralized)
@@ -27,9 +30,11 @@ from .stepsize import (POLICIES, Adaptive1, Adaptive2, AdaptiveLipschitz,
                        SunDengFixed, init_state, make_policy, window_sum)
 
 __all__ = [
+    "BCDResult", "bcd_scan", "run_async_bcd", "run_bcd_logreg",
+    "sample_blocks",
     "EventHeap", "EventTrace", "TraceArrays", "WorkerModel",
     "generate_trace", "heterogeneous_workers", "sample_service_times",
-    "simulate_parameter_server", "trace_scan",
+    "simulate_parameter_server", "simulate_shared_memory", "trace_scan",
     "PIAGResult", "piag_scan", "run_piag", "run_piag_logreg",
     "LassoProblem", "LogRegProblem", "make_lasso", "make_logreg",
     "solve_centralized",
@@ -39,5 +44,5 @@ __all__ = [
     "FixedStepSize", "HingeWeight", "NaiveAdaptive", "PolyWeight",
     "StepsizePolicy", "StepsizeState", "SunDengFixed", "init_state",
     "make_policy", "window_sum",
-    "engine", "piag", "problems", "prox", "stepsize",
+    "bcd", "engine", "piag", "problems", "prox", "stepsize",
 ]

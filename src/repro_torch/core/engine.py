@@ -5,8 +5,9 @@ arrives at each master write event, and how stale it is -- comes from
 per-worker service-time models.  Two interchangeable paths, as in the
 reference:
 
-* the reference path, ``simulate_parameter_server``: a Python ``heapq``
-  discrete-event loop (the shared-memory twin comes with Async-BCD);
+* the reference path, ``simulate_parameter_server`` (PIAG) and
+  ``simulate_shared_memory`` (Async-BCD): Python ``heapq`` discrete-event
+  loops;
 * the device path, ``trace_scan`` / ``generate_trace``: the same event
   structure computed from a pre-sampled service-time matrix, written as a
   loop over events batched over cells on the device.
@@ -28,9 +29,9 @@ import torch
 from ..kernels.dispatch import resolve_device
 
 __all__ = ["WorkerModel", "EventTrace", "EventHeap", "TraceArrays",
-           "simulate_parameter_server",
+           "simulate_parameter_server", "simulate_shared_memory",
            "sample_service_times", "trace_scan", "generate_trace",
-           "strided_scan", "heterogeneous_workers"]
+           "strided_scan", "solver_loop", "heterogeneous_workers"]
 
 
 def strided_scan(make_step, carry, xs, record_every: int = 1):
@@ -61,6 +62,58 @@ def strided_scan(make_step, carry, xs, record_every: int = 1):
     if not outs:
         return carry, None
     return carry, tuple(torch.stack(col) for col in zip(*outs))
+
+
+def solver_loop(advance, outputs, carry0, xs, record_every: int = 1,
+                telemetry=None, state_at: int = -1):
+    """A solver's event loop over B cells, with the in-loop telemetry.
+
+    ``advance(carry, event) -> (carry, gamma)`` moves every cell one event
+    (``event[1]`` is the delay); ``outputs(old, new, gamma, event)`` is
+    the recorded row.  ``state_at`` indexes the step-size state in the
+    carry.  Returns ``(final carry, recorded columns each (B, K // s),
+    DelayTelemetry or None)``.
+
+    With ``telemetry`` (a ``telemetry.TelemetryConfig``) the accumulator
+    rides after the solver carry and a separate step body folds every
+    event into it -- silent steps included -- with the per-event clip
+    flag from the state's ``clipped`` counter (copied first: the fused
+    kernels update the state in place); each recorded row gains the
+    window's clip count.  The telemetry-off body is unchanged."""
+    if telemetry is None:
+        def make_step(emit):
+            def step(carry, event):
+                new, gamma = advance(carry, event)
+                if not emit:
+                    return new, None
+                return new, outputs(carry, new, gamma, event)
+            return step
+    else:
+        from ..telemetry.accumulators import (emit_window, init_telemetry,
+                                              observe)
+        carry0 = carry0 + (init_telemetry(telemetry, (carry0[0].shape[0],),
+                                          carry0[0].device),)
+
+        def make_step(emit):
+            def step(carry, event):
+                solver, tel = carry[:-1], carry[-1]
+                clipped0 = solver[state_at].clipped.clone()
+                new, gamma = advance(solver, event)
+                tel = observe(tel, event[1], gamma,
+                              new[state_at].clipped - clipped0)
+                if not emit:
+                    return new + (tel,), None
+                tel, wclip = emit_window(tel)
+                return new + (tel,), \
+                    outputs(solver, new, gamma, event) + (wclip,)
+            return step
+
+    carry, outs = strided_scan(make_step, carry0, xs, record_every)
+    cols = tuple(o.T.contiguous() for o in outs)
+    if telemetry is None:
+        return carry, cols, None
+    from ..telemetry.accumulators import finalize
+    return carry[:-1], cols[:-1], finalize(carry[-1], cols[-1])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,6 +252,46 @@ def simulate_parameter_server(
         t_wall[k] = t
         heap.push(_next_time(t, workers, i, rng, service_times, next_task), i, k + 1)
     return EventTrace(worker, read_at, tau, tau_max, t_wall)
+
+
+def simulate_shared_memory(
+    n_workers: int,
+    n_events: int,
+    n_blocks: int,
+    workers: Optional[Sequence[WorkerModel]] = None,
+    seed: int = 0,
+    service_times: Optional[np.ndarray] = None,
+) -> EventTrace:
+    """Algorithm 2's event structure (heapq reference): each worker reads
+    the shared iterate, computes a block gradient and makes one atomic
+    write; tau_k = k - s_{i_k}, and ``tau_max = tau``.  The block index is
+    the solver's draw (``core.bcd.sample_blocks``), so ``n_blocks`` does
+    not enter the trace.  ``service_times`` as in
+    ``simulate_parameter_server``."""
+    del n_blocks
+    if workers is None:
+        workers = heterogeneous_workers(n_workers, seed=seed)
+    rng = np.random.default_rng(seed + 2)
+    next_task = np.zeros((n_workers,), np.int64)
+
+    heap = EventHeap()  # payload: (worker, counter_read)
+    for i, w in enumerate(workers):
+        heap.push(_next_time(0.0, workers, i, rng, service_times, next_task), i, 0)
+
+    worker = np.zeros((n_events,), np.int32)
+    read_at = np.zeros((n_events,), np.int32)
+    tau = np.zeros((n_events,), np.int32)
+    t_wall = np.zeros((n_events,), np.float64)
+
+    for k in range(n_events):
+        t, i, s_read = heap.pop()
+        worker[k] = i
+        read_at[k] = s_read
+        tau[k] = k - s_read
+        t_wall[k] = t
+        # worker i re-reads right after its write (version k+1)
+        heap.push(_next_time(t, workers, i, rng, service_times, next_task), i, k + 1)
+    return EventTrace(worker, read_at, tau, tau.copy(), t_wall)
 
 
 class TraceArrays(NamedTuple):

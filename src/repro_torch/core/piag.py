@@ -13,7 +13,9 @@ serves a solo run (B = 1) and a batched sweep.  Under ``engine='fused'``
 (the port's default) the policy step and the prox update are ONE launch of
 the hand-written kernel per event for all cells
 (``kernels.fused_step``); ``engine='scan'`` runs them as composed torch
-ops.  Not ported yet: fault injection, telemetry, ``run_piag_lipschitz``.
+ops.  ``telemetry=`` threads the in-loop delay accumulators
+(``repro_torch.telemetry``) through a separate step body.  Not ported
+yet: fault injection, ``run_piag_lipschitz``.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from .engine import EventTrace, strided_scan
+from .engine import EventTrace, solver_loop
 from .prox import ProxOp
 from .stepsize import (StepsizePolicy, auto_horizon, clipped_count,
                        init_state)
@@ -32,6 +34,18 @@ __all__ = ["PIAGResult", "piag_scan", "run_piag", "run_piag_logreg"]
 ENGINES = ("scan", "fused")
 
 
+def _solo(res):
+    """A B = 1 result without its cell axis (nested result tuples, such as
+    ``telemetry``, too)."""
+    def strip(leaf):
+        if isinstance(leaf, torch.Tensor):
+            return leaf[0]
+        if isinstance(leaf, tuple) and hasattr(leaf, "_fields"):
+            return type(leaf)(*(strip(x) for x in leaf))
+        return leaf
+    return strip(res)
+
+
 class PIAGResult(NamedTuple):
     x: torch.Tensor            # final iterate
     objective: torch.Tensor    # P(x_{k+1}) at recorded events
@@ -39,7 +53,7 @@ class PIAGResult(NamedTuple):
     taus: torch.Tensor         # tau_k fed to the policy
     opt_residual: torch.Tensor  # ||x_{k+1} - x_k|| / gamma_k
     clipped: Any = 0           # final horizon-clip count
-    telemetry: Any = None      # not ported (ROADMAP queue A item 9)
+    telemetry: Any = None      # DelayTelemetry when telemetry= was passed
     faults: Any = None         # not ported (ROADMAP queue A item 10)
 
 
@@ -68,6 +82,7 @@ def piag_scan(
     horizon: int = 4096,
     active: torch.Tensor | None = None,  # (B, n) bool ragged-bucket mask
     record_every: int = 1,
+    telemetry=None,                     # telemetry.TelemetryConfig or None
     engine: str = "fused",
     grad_fn: Callable | None = None,    # (xw (B, d), w (B,)) -> (B, d)
 ) -> PIAGResult:
@@ -78,6 +93,8 @@ def piag_scan(
     records (and evaluates the objective on) every s-th event only; the
     iterate path is unchanged.  ``grad_fn`` is the gradient seam: by
     default the gradient comes from ``worker_loss`` by autograd.
+    ``telemetry`` threads the in-loop accumulators through a separate step
+    body; the solver leaves are bitwise those without it.
     """
     if engine not in ENGINES:
         raise ValueError(f"engine must be 'scan' or 'fused', got {engine!r}")
@@ -126,38 +143,37 @@ def piag_scan(
     ss = policy.init(horizon, batch_shape=(B,), device=dev) \
         if engine == "scan" else init_state(horizon, (B,), dev)
 
-    def make_step(emit):
-        def step(carry, event):
-            x, gtab, x_read, ss = carry
-            w, tau = event
-            wl = w.to(torch.int64)
-            # worker w returns grad f_w(x_read[w])  (Algorithm 1 line 12)
-            gtab[cells, wl] = grad_fn(x_read[cells, wl], w)
-            # line 14: aggregate; line 16: gamma; line 17: prox step
-            g = aggregate(gtab)
-            if engine == "fused":
-                gamma, ss, x_new = fused_policy_prox_step(
-                    fparams, prox, ss, tau, x, g, fma_push)
-            else:
-                gamma, ss = policy.step(ss, tau)
-                x_new = prox.prox(x - gamma.unsqueeze(-1) * g, gamma)
-            # line 20: hand x_{k+1} to the returning worker
-            x_read[cells, wl] = x_new
-            if not emit:
-                return (x_new, gtab, x_read, ss), None
-            dx = torch.sqrt(torch.sum(torch.square(x_new - x), dim=-1))
-            res = torch.where(gamma > 0, dx / torch.clamp(gamma, min=1e-30),
-                              torch.zeros_like(dx))
-            return (x_new, gtab, x_read, ss), (objective(x_new), gamma, tau,
-                                               res)
-        return step
+    def advance(carry, event):
+        x, gtab, x_read, ss = carry
+        w, tau = event
+        wl = w.to(torch.int64)
+        # worker w returns grad f_w(x_read[w])  (Algorithm 1 line 12)
+        gtab[cells, wl] = grad_fn(x_read[cells, wl], w)
+        # line 14: aggregate; line 16: gamma; line 17: prox step
+        g = aggregate(gtab)
+        if engine == "fused":
+            gamma, ss, x_new = fused_policy_prox_step(
+                fparams, prox, ss, tau, x, g, fma_push)
+        else:
+            gamma, ss = policy.step(ss, tau)
+            x_new = prox.prox(x - gamma.unsqueeze(-1) * g, gamma)
+        # line 20: hand x_{k+1} to the returning worker
+        x_read[cells, wl] = x_new
+        return (x_new, gtab, x_read, ss), gamma
+
+    def outputs(old, new, gamma, event):
+        dx = torch.sqrt(torch.sum(torch.square(new[0] - old[0]), dim=-1))
+        res = torch.where(gamma > 0, dx / torch.clamp(gamma, min=1e-30),
+                          torch.zeros_like(dx))
+        return objective(new[0]), gamma, event[1], res
 
     xs = (worker.T.contiguous(), taus.to(torch.int32).T.contiguous())
-    (x_fin, _, _, ss_fin), outs = strided_scan(
-        make_step, (x, gtab, x_read, ss), xs, record_every)
-    obj, gam, tau_out, res = (o.T.contiguous() for o in outs)
-    return PIAGResult(x=x_fin, objective=obj, gammas=gam, taus=tau_out,
-                      opt_residual=res, clipped=clipped_count(ss_fin))
+    carry, (obj, gam, tau_out, res), tel = solver_loop(
+        advance, outputs, (x, gtab, x_read, ss), xs, record_every, telemetry,
+        state_at=3)
+    return PIAGResult(x=carry[0], objective=obj, gammas=gam, taus=tau_out,
+                      opt_residual=res, clipped=clipped_count(carry[3]),
+                      telemetry=tel)
 
 
 def run_piag(
@@ -171,6 +187,7 @@ def run_piag(
     horizon: int | str = 4096,
     use_tau_max: bool = True,
     record_every: int = 1,
+    telemetry=None,
     engine: str = "fused",
     grad_fn: Callable | None = None,
 ) -> PIAGResult:
@@ -186,9 +203,9 @@ def run_piag(
               torch.from_numpy(np.asarray(taus, np.int32)).to(dev)[None])
     res = piag_scan(worker_loss, x0, worker_data, events, policy, prox,
                     objective=objective, horizon=int(horizon),
-                    record_every=record_every, engine=engine, grad_fn=grad_fn)
-    return PIAGResult(*(leaf[0] if isinstance(leaf, torch.Tensor) else leaf
-                        for leaf in res))
+                    record_every=record_every, telemetry=telemetry,
+                    engine=engine, grad_fn=grad_fn)
+    return _solo(res)
 
 
 def run_piag_logreg(problem, trace, policy, prox, horizon: int = 4096,

@@ -10,6 +10,7 @@ float32 tensors.  Every function of an iterate accepts ``(d,)`` or
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Tuple
 
 import numpy as np
@@ -33,17 +34,54 @@ def worker_rms_smoothness(A: np.ndarray, n_workers: int, denom_scale: float,
 
 def power_iteration_sq(A: np.ndarray, iters: int = 200, seed: int = 0) -> float:
     """lambda_max(A^T A) via power iteration."""
+    return _power_iteration(lambda v: A.T @ (A @ v), A.shape[1], iters, seed)
+
+
+def _power_iteration(gram, n: int, iters: int, seed: int) -> float:
+    """The largest eigenvalue of the Gram operator ``gram`` (n x n) by the
+    reference's power iteration."""
     rng = np.random.default_rng(seed)
-    v = rng.normal(size=(A.shape[1],))
+    v = rng.normal(size=(n,))
     v /= np.linalg.norm(v)
     lam = 0.0
     for _ in range(iters):
-        w = A.T @ (A @ v)
+        w = gram(v)
         lam = float(np.linalg.norm(w))
         if lam == 0.0:
             return 0.0
         v = w / lam
     return lam
+
+
+# block_smoothness per problem and m (the power iterations over a
+# 60 000-sample problem's blocks take seconds); dropped with the problem
+_BLOCK_SMOOTHNESS = weakref.WeakKeyDictionary()
+
+
+def _block_smoothness(problem, m: int, denom_scale: float,
+                      shift: float) -> float:
+    """max over the m column blocks (width ceil(d/m), the last one short)
+    of lambda_max(A_J^T A_J) / (denom_scale * N) + shift, the reference's
+    power iterations bit for bit.  numpy would cast the float32 block to
+    float64 in every product (``A_J`` into a C-ordered copy, ``A_J^T``
+    into a C-ordered copy of the transpose); the casts are made once."""
+    memo = _BLOCK_SMOOTHNESS.setdefault(problem, {})
+    if m in memo:
+        return memo[m]
+    A = problem.A.cpu().numpy()
+    N, d = A.shape
+    db = -(-d // m)
+    worst = 0.0
+    for j in range(m):
+        blk = A[:, j * db:(j + 1) * db]
+        if blk.shape[1] == 0:
+            continue
+        b = np.ascontiguousarray(blk, dtype=np.float64)
+        bt = np.ascontiguousarray(blk.T, dtype=np.float64)
+        worst = max(worst, _power_iteration(lambda v: bt @ (b @ v),
+                                            blk.shape[1], 200, j))
+    memo[m] = float(worst / (denom_scale * N) + shift)
+    return memo[m]
 
 
 def _logaddexp0(v: torch.Tensor) -> torch.Tensor:
@@ -128,6 +166,12 @@ class LogRegProblem:
         A = self.A.cpu().numpy()
         return float(power_iteration_sq(A) / (4.0 * A.shape[0]) + self.lam2)
 
+    def block_smoothness(self, m: int) -> float:
+        """Assumption 1's block-wise constant for an m-block partition:
+        max_J lambda_max(A_J^T A_J) / (4N) + lam2 (Async-BCD's auto
+        gamma' is 0.99 over it)."""
+        return _block_smoothness(self, m, 4.0, self.lam2)
+
 
 def make_logreg(
     n_samples: int = 2000,
@@ -205,6 +249,11 @@ class LassoProblem:
     def full_smoothness(self) -> float:
         A = self.A.cpu().numpy()
         return float(power_iteration_sq(A) / A.shape[0])
+
+    def block_smoothness(self, m: int) -> float:
+        """max_J lambda_max(A_J^T A_J) / N over an m-block partition (the
+        reference's lasso has no such method; the rule is logreg's)."""
+        return _block_smoothness(self, m, 1.0, 0.0)
 
 
 def make_lasso(

@@ -21,8 +21,9 @@ cells (``kernels.fused_step.fused_policy_mix_step`` /
 ``fused_policy_buff_step``); ``engine='scan'`` runs them as composed torch
 ops.  The reference's compiled program contracts the mix, the delta
 accumulate, the buffered apply and the client's ``x - lr * g`` into FMAs;
-the port computes each as ``fma32``.  Not ported yet: fault injection and
-telemetry (ROADMAP queue A items 10 and 9).
+the port computes each as ``fma32``.  ``telemetry=`` threads the in-loop
+delay accumulators (``repro_torch.telemetry``) through a separate step
+body.  Not ported yet: fault injection (ROADMAP queue A item 10).
 """
 from __future__ import annotations
 
@@ -31,8 +32,8 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.engine import strided_scan
-from ..core.piag import ENGINES, default_grad_fn
+from ..core.engine import solver_loop
+from ..core.piag import ENGINES, _solo, default_grad_fn
 from ..core.prox import ProxOp
 from ..core.stepsize import (StepsizePolicy, auto_horizon, clipped_count, f32,
                              fma32, init_state)
@@ -50,7 +51,7 @@ class FedResult(NamedTuple):
     taus: torch.Tensor         # staleness fed to the weight policy
     versions: torch.Tensor     # server version after each recorded event
     clipped: Any = 0           # final horizon-clip count
-    telemetry: Any = None      # not ported (ROADMAP queue A item 9)
+    telemetry: Any = None      # DelayTelemetry when telemetry= was passed
     faults: Any = None         # not ported (ROADMAP queue A item 10)
 
 
@@ -116,12 +117,6 @@ def _setup(client_data, x0, events, policy, engine, horizon, what):
     return B, x, x_read, ss, max_steps, fparams, fma_push
 
 
-def _outputs(objective, x_new, gamma, tau, ver):
-    obj = objective(x_new) if objective is not None else \
-        torch.full_like(gamma, float("nan"))
-    return obj, gamma, tau, ver
-
-
 def _events_xs(events, max_steps):
     client, tau, steps, agg, ver = events
     return (client.T.contiguous(), tau.to(torch.int32).T.contiguous(),
@@ -129,10 +124,24 @@ def _events_xs(events, max_steps):
             ver.T.contiguous(), max_steps)
 
 
-def _result(x_fin, ss_fin, outs):
-    o, g, t, v = (c.T.contiguous() for c in outs)
-    return FedResult(x=x_fin, objective=o, weights=g, taus=t, versions=v,
-                     clipped=clipped_count(ss_fin))
+def _outputs(objective):
+    """The recorded row of a server event: (P(x_new), weight, tau,
+    version)."""
+    def outputs(old, new, gamma, event):
+        obj = objective(new[0]) if objective is not None else \
+            torch.full_like(gamma, float("nan"))
+        return obj, gamma, event[1], event[4]
+    return outputs
+
+
+def _scan(advance, outputs, carry0, events, max_steps, record_every,
+          telemetry, state_at: int) -> FedResult:
+    """Run a server loop over the events and pack the ``FedResult``."""
+    carry, (o, g, t, v), tel = solver_loop(
+        advance, outputs, carry0, _events_xs(events, max_steps),
+        record_every, telemetry, state_at)
+    return FedResult(x=carry[0], objective=o, weights=g, taus=t, versions=v,
+                     clipped=clipped_count(carry[state_at]), telemetry=tel)
 
 
 def fedasync_scan(
@@ -144,13 +153,16 @@ def fedasync_scan(
     objective: Optional[Callable] = None,   # P(x (B, d)) -> (B,)
     horizon: int = 4096,
     record_every: int = 1,
+    telemetry=None,             # telemetry.TelemetryConfig or None
     engine: str = "fused",
 ) -> FedResult:
     """FedAsync over B cells at once; every result leaf leads with B.
 
     ``record_every=s`` records (and evaluates the objective on) every s-th
     upload only.  The uploading client picks up the freshly written model
-    (its row of the snapshot table)."""
+    (its row of the snapshot table).  ``telemetry`` threads the in-loop
+    accumulators through a separate step body; the server's leaves are
+    bitwise those without it."""
     B, x, x_read, ss, max_steps, fparams, fma_push = _setup(
         client_data, x0, events, policy, engine, horizon,
         "FedAsync server model")
@@ -158,30 +170,23 @@ def fedasync_scan(
         from ..kernels.fused_step import fused_policy_mix_step
     cells = torch.arange(B, device=x.device)
 
-    def make_step(emit):
-        def step(carry, event):
-            x, x_read, ss = carry
-            w, tau, steps, _, ver, ms = event
-            wl = w.to(torch.int64)
-            xc = client_update(x_read[cells, wl], steps, w, max_steps=ms)
-            if engine == "fused":
-                gamma, ss, x_new = fused_policy_mix_step(
-                    fparams, ss, tau, x, xc, fma_push)
-            else:
-                gamma, ss = policy.step(ss, tau)
-                # x <- x + gamma (x_c - x)
-                x_new = fma32(gamma.unsqueeze(-1), xc - x, x)
-            x_read[cells, wl] = x_new
-            if not emit:
-                return (x_new, x_read, ss), None
-            return (x_new, x_read, ss), _outputs(objective, x_new, gamma,
-                                                 tau, ver)
-        return step
+    def advance(carry, event):
+        x, x_read, ss = carry
+        w, tau, steps, _, ver, ms = event
+        wl = w.to(torch.int64)
+        xc = client_update(x_read[cells, wl], steps, w, max_steps=ms)
+        if engine == "fused":
+            gamma, ss, x_new = fused_policy_mix_step(
+                fparams, ss, tau, x, xc, fma_push)
+        else:
+            gamma, ss = policy.step(ss, tau)
+            # x <- x + gamma (x_c - x)
+            x_new = fma32(gamma.unsqueeze(-1), xc - x, x)
+        x_read[cells, wl] = x_new
+        return (x_new, x_read, ss), gamma
 
-    (x_fin, _, ss_fin), outs = strided_scan(
-        make_step, (x, x_read, ss), _events_xs(events, max_steps),
-        record_every)
-    return _result(x_fin, ss_fin, outs)
+    return _scan(advance, _outputs(objective), (x, x_read, ss), events,
+                 max_steps, record_every, telemetry, state_at=2)
 
 
 def fedbuff_scan(
@@ -195,12 +200,14 @@ def fedbuff_scan(
     objective: Optional[Callable] = None,
     horizon: int = 4096,
     record_every: int = 1,
+    telemetry=None,
     engine: str = "fused",
 ) -> FedResult:
     """FedBuff over B cells at once: uploads accumulate
     ``s(tau_j) * (x_cj - x_read_j)``; where the trace marks the buffer full
     the server applies the buffered delta scaled by ``eta / buffer_size``
-    (rounded to float32, as the reference's weakly typed constant)."""
+    (rounded to float32, as the reference's weakly typed constant).
+    ``telemetry`` as in :func:`fedasync_scan`."""
     B, x, x_read, ss, max_steps, fparams, fma_push = _setup(
         client_data, x0, events, policy, engine, horizon,
         "FedBuff server model")
@@ -211,32 +218,25 @@ def fedbuff_scan(
     scale_t = f32(scale, x)
     delta = torch.zeros_like(x)
 
-    def make_step(emit):
-        def step(carry, event):
-            x, x_read, delta, ss = carry
-            w, tau, steps, agg, ver, ms = event
-            wl = w.to(torch.int64)
-            xw = x_read[cells, wl]
-            xc = client_update(xw, steps, w, max_steps=ms)
-            if engine == "fused":
-                gamma, ss, x_new, delta = fused_policy_buff_step(
-                    fparams, ss, tau, x, xc, xw, delta, agg, scale, fma_push)
-            else:
-                gamma, ss = policy.step(ss, tau)
-                delta = fma32(gamma.unsqueeze(-1), xc - xw, delta)
-                x_new = fma32((agg * scale_t).unsqueeze(-1), delta, x)
-                delta = (1.0 - agg).unsqueeze(-1) * delta
-            x_read[cells, wl] = x_new
-            if not emit:
-                return (x_new, x_read, delta, ss), None
-            return (x_new, x_read, delta, ss), _outputs(objective, x_new,
-                                                        gamma, tau, ver)
-        return step
+    def advance(carry, event):
+        x, x_read, delta, ss = carry
+        w, tau, steps, agg, ver, ms = event
+        wl = w.to(torch.int64)
+        xw = x_read[cells, wl]
+        xc = client_update(xw, steps, w, max_steps=ms)
+        if engine == "fused":
+            gamma, ss, x_new, delta = fused_policy_buff_step(
+                fparams, ss, tau, x, xc, xw, delta, agg, scale, fma_push)
+        else:
+            gamma, ss = policy.step(ss, tau)
+            delta = fma32(gamma.unsqueeze(-1), xc - xw, delta)
+            x_new = fma32((agg * scale_t).unsqueeze(-1), delta, x)
+            delta = (1.0 - agg).unsqueeze(-1) * delta
+        x_read[cells, wl] = x_new
+        return (x_new, x_read, delta, ss), gamma
 
-    (x_fin, _, _, ss_fin), outs = strided_scan(
-        make_step, (x, x_read, delta, ss), _events_xs(events, max_steps),
-        record_every)
-    return _result(x_fin, ss_fin, outs)
+    return _scan(advance, _outputs(objective), (x, x_read, delta, ss),
+                 events, max_steps, record_every, telemetry, state_at=3)
 
 
 def _solo_events(trace: FederatedTrace, device):
@@ -245,11 +245,6 @@ def _solo_events(trace: FederatedTrace, device):
     return (col(trace.client, np.int32), col(trace.tau, np.int32),
             col(trace.local_steps, np.int32), col(trace.aggregate, np.float32),
             col(trace.version, np.int32))
-
-
-def _solo(res: FedResult) -> FedResult:
-    return FedResult(*(leaf[0] if isinstance(leaf, torch.Tensor) else leaf
-                       for leaf in res))
 
 
 def _solo_horizon(horizon, trace: FederatedTrace) -> int:
@@ -267,6 +262,7 @@ def run_fedasync(
     objective: Optional[Callable] = None,
     horizon: int | str = 4096,
     record_every: int = 1,
+    telemetry=None,
     engine: str = "fused",
 ) -> FedResult:
     """FedAsync over one trace (one cell) on ``x0``'s device; result leaves
@@ -275,7 +271,7 @@ def run_fedasync(
     return _solo(fedasync_scan(
         client_update, x0, client_data, _solo_events(trace, x0.device),
         policy, objective=objective, horizon=_solo_horizon(horizon, trace),
-        record_every=record_every, engine=engine))
+        record_every=record_every, telemetry=telemetry, engine=engine))
 
 
 def run_fedbuff(
@@ -289,6 +285,7 @@ def run_fedbuff(
     objective: Optional[Callable] = None,
     horizon: int | str = 4096,
     record_every: int = 1,
+    telemetry=None,
     engine: str = "fused",
 ) -> FedResult:
     """FedBuff over one trace (one cell) on ``x0``'s device."""
@@ -296,7 +293,7 @@ def run_fedbuff(
         client_update, x0, client_data, _solo_events(trace, x0.device),
         policy, eta=eta, buffer_size=buffer_size, objective=objective,
         horizon=_solo_horizon(horizon, trace), record_every=record_every,
-        engine=engine))
+        telemetry=telemetry, engine=engine))
 
 
 def _problem_pieces(problem, prox: ProxOp, local_lr: Optional[float],

@@ -1,6 +1,7 @@
-"""Batched sweeps: policies as tensors, grids of cells, and the PIAG,
-FedAsync and FedBuff runners that advance every cell of a bucket with one
-kernel launch per event (counterpart of ``repro.sweep``).
+"""Batched sweeps: policies as tensors, grids of cells, the PIAG,
+Async-BCD, FedAsync and FedBuff runners that advance every cell of a
+bucket with one kernel launch per event, and the cache of built bucket
+programs (counterpart of ``repro.sweep``).
 
 Quick taste::
 
@@ -16,26 +17,29 @@ Quick taste::
                      n_events=2000, n_workers=[4, 8])
     res = sweep_piag_logreg(prob, grid, L1(lam=prob.lam1))
 
-Not ported yet (ROADMAP queue A): the Async-BCD runners (item 5), the
-program cache (item 6 residue) and the sharded runners (item 12).
+Not ported yet (ROADMAP queue A): the sharded runners (item 12).
 """
+from .cache import clear_program_cache, program_cache_stats
 from .grid import (SweepBucket, SweepCell, SweepGrid, make_grid,
                    measure_tau_bar, next_pow2, standard_topologies,
                    standard_topology_factories)
 from .policies import (POLICY_IDS, ParamPolicy, PolicyParams, policy_params,
                        stack_params)
-from .runners import (make_sweep_fedasync, make_sweep_fedasync_fused,
-                      make_sweep_fedbuff, make_sweep_piag,
-                      measure_fed_tau_bar, resolve_grid_horizon,
-                      run_bucketed, sweep_fedasync, sweep_fedasync_problem,
-                      sweep_fedbuff, sweep_fedbuff_problem, sweep_piag,
-                      sweep_piag_logreg)
+from .runners import (make_sweep_bcd, make_sweep_fedasync,
+                      make_sweep_fedasync_fused, make_sweep_fedbuff,
+                      make_sweep_piag, measure_fed_tau_bar,
+                      resolve_grid_horizon, run_bucketed, sweep_bcd,
+                      sweep_bcd_logreg, sweep_fedasync,
+                      sweep_fedasync_problem, sweep_fedbuff,
+                      sweep_fedbuff_problem, sweep_piag, sweep_piag_logreg)
 
 __all__ = [
     "SweepBucket", "SweepCell", "SweepGrid", "make_grid", "measure_tau_bar",
     "next_pow2", "standard_topologies", "standard_topology_factories",
     "POLICY_IDS", "ParamPolicy", "PolicyParams", "policy_params",
     "stack_params",
+    "clear_program_cache", "program_cache_stats",
+    "make_sweep_bcd", "sweep_bcd", "sweep_bcd_logreg",
     "make_sweep_fedasync", "make_sweep_fedasync_fused", "make_sweep_fedbuff",
     "make_sweep_piag", "measure_fed_tau_bar", "resolve_grid_horizon",
     "run_bucketed", "sweep_fedasync", "sweep_fedasync_problem",

@@ -13,8 +13,12 @@ Worker and client data stay one shared ``(W, n_per, d)`` tensor; cells
 index it (the problem's ``worker_grads``), never copy it.  Rows are
 stitched back into grid order.
 
-Not ported yet: Async-BCD, the sharded runners, the program cache, faults,
-telemetry and checkpoints (ROADMAP queue A).
+Async-BCD runs the same race (``tau``, the shared-memory delay) with
+each cell's block choices replayed from ``core.bcd.sample_blocks``.  Each
+bucket's built program is kept in ``sweep.cache`` under its static
+configuration (telemetry included), and each bucket's dispatch is timed
+for the run ledger.  Not ported yet: the sharded runners, faults and
+checkpoints (ROADMAP queue A items 12, 10, 11).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import Callable, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..core.bcd import BCDResult, bcd_scan, sample_blocks
 from ..core.engine import trace_scan
 from ..core.piag import PIAGResult, piag_scan
 from ..core.prox import ProxOp
@@ -32,10 +37,13 @@ from ..federated.events import (ClientRounds, client_arrays,
                                 default_fed_steps, federated_trace_scan,
                                 sample_client_rounds, simulate_federated)
 from ..federated.server import FedResult, fedasync_scan, fedbuff_scan
+from ..telemetry.timing import timed
+from .cache import IdKey, cached_program, tree_key
 from .grid import SweepBucket, SweepGrid
 from .policies import ParamPolicy
 
 __all__ = ["make_sweep_piag", "sweep_piag", "sweep_piag_logreg",
+           "make_sweep_bcd", "sweep_bcd", "sweep_bcd_logreg",
            "make_sweep_fedasync", "make_sweep_fedasync_fused",
            "make_sweep_fedbuff", "sweep_fedasync", "sweep_fedbuff",
            "sweep_fedasync_problem", "sweep_fedbuff_problem",
@@ -70,7 +78,12 @@ def run_bucketed(grid: SweepGrid, run_bucket: Callable,
     leading B_bucket axis) over every bucket of ``grid`` and stitch rows
     back into grid cell order."""
     buckets = grid.buckets(bucket_widths)
-    parts = [run_bucket(b) for b in buckets]
+    parts = []
+    for b in buckets:
+        # the bucket's host dispatch time (the device may still be busy;
+        # api.run's synchronize covers that)
+        with timed("bucket_dispatch", width=b.width, cells=len(b.index)):
+            parts.append(run_bucket(b))
     if len(parts) == 1:
         return parts[0]
     order = np.concatenate([b.index for b in buckets])
@@ -81,10 +94,15 @@ def run_bucketed(grid: SweepGrid, run_bucket: Callable,
             return xs[0]
         return torch.cat(xs, dim=0)[inv.to(xs[0].device)]
 
-    leaves = [stitch(*col) for col in zip(*parts)]
-    if hasattr(parts[0], "_fields"):  # a NamedTuple result
-        return type(parts[0])(*leaves)
-    return tuple(leaves)
+    def stitch_tree(*xs):
+        if not isinstance(xs[0], tuple):
+            return stitch(*xs)
+        leaves = [stitch_tree(*col) for col in zip(*xs)]
+        if hasattr(xs[0], "_fields"):  # a NamedTuple (result, telemetry)
+            return type(xs[0])(*leaves)
+        return tuple(leaves)
+
+    return stitch_tree(*parts)
 
 
 def _slice_workers(worker_data, width: int):
@@ -100,7 +118,8 @@ def _slice_workers(worker_data, width: int):
 def make_sweep_piag(worker_loss: Callable, x0, worker_data, prox: ProxOp,
                     objective: Optional[Callable] = None, horizon: int = 4096,
                     use_tau_max: bool = True, masked: bool = False,
-                    record_every: int = 1, engine: str = "fused",
+                    record_every: int = 1, telemetry=None,
+                    engine: str = "fused",
                     grad_fn: Optional[Callable] = None) -> Callable:
     """Build the batched PIAG program: ``fn(service_times (B, n, K+1),
     params (B,)) -> PIAGResult`` with a leading B on every leaf; with
@@ -119,7 +138,7 @@ def make_sweep_piag(worker_loss: Callable, x0, worker_data, prox: ProxOp,
                          ParamPolicy(params.to(dev)), prox,
                          objective=objective, horizon=horizon,
                          active=active, record_every=record_every,
-                         engine=engine, grad_fn=grad_fn)
+                         telemetry=telemetry, engine=engine, grad_fn=grad_fn)
 
     return run
 
@@ -128,20 +147,26 @@ def sweep_piag(worker_loss: Callable, x0, worker_data, grid: SweepGrid,
                prox: ProxOp, objective: Optional[Callable] = None,
                horizon: Horizon = 4096, use_tau_max: bool = True,
                bucket_widths: Optional[Sequence[int]] = None,
-               record_every: int = 1, engine: str = "fused",
+               record_every: int = 1, telemetry=None, engine: str = "fused",
                grad_fn: Optional[Callable] = None) -> PIAGResult:
     """PIAG on every cell of ``grid``, one batched pass per bucket (a
     homogeneous grid is one pass).  ``grad_fn(xw, w)``, when given, must
-    serve the widest bucket; narrower buckets use its first rows."""
+    serve the widest bucket; narrower buckets use its first rows.  Each
+    bucket's program is cached (``sweep.cache``) under its static
+    configuration and the identity of the captured objects."""
     dev = x0.device
     horizon = resolve_grid_horizon(horizon, grid, device=dev)
 
     def run_bucket(b: SweepBucket):
-        fn = make_sweep_piag(
+        key = ("piag", b.width, not b.uniform, horizon, use_tau_max,
+               record_every, telemetry, engine, IdKey(worker_loss),
+               tree_key(x0), tree_key(worker_data), IdKey(prox),
+               IdKey(objective), IdKey(grad_fn))
+        fn = cached_program(key, lambda: make_sweep_piag(
             worker_loss, x0, _slice_workers(worker_data, b.width), prox,
             objective=objective, horizon=horizon, use_tau_max=use_tau_max,
-            masked=not b.uniform, record_every=record_every, engine=engine,
-            grad_fn=grad_fn)
+            masked=not b.uniform, record_every=record_every,
+            telemetry=telemetry, engine=engine, grad_fn=grad_fn))
         T = torch.from_numpy(b.grid.service_times(b.width))
         pp = b.grid.policy_params(dev)
         if b.uniform:
@@ -159,6 +184,76 @@ def sweep_piag_logreg(problem, grid: SweepGrid, prox: ProxOp,
     from ..api import run_components
     return run_components("piag", "batched", problem=problem, grid=grid,
                           prox=prox, horizon=horizon, engine=engine).raw
+
+
+# ----------------------------------------------------------- Async-BCD ----
+
+def make_sweep_bcd(grad_f: Callable, objective: Callable, x0, m: int,
+                   n_workers: int, prox: ProxOp, horizon: int = 4096,
+                   masked: bool = False, record_every: int = 1,
+                   telemetry=None, engine: str = "fused") -> Callable:
+    """Build the batched Async-BCD program: ``fn(service_times (B, n, K+1)
+    [, active (B, n)], blocks (B, K), params (B,)) -> BCDResult`` on
+    ``x0``'s device.  BCD reduces nothing over workers, so the mask only
+    guards the trace (see ``core.bcd.bcd_scan``)."""
+    dev = x0.device
+
+    def run(T, *rest):
+        active, blocks, params = rest if masked else (None,) + rest
+        T = torch.as_tensor(T).to(dev)
+        if active is not None:
+            active = torch.as_tensor(active).to(dev)
+        tr = trace_scan(T, active=active)
+        events = (tr.worker, tr.tau, torch.as_tensor(blocks).to(dev))
+        return bcd_scan(grad_f, objective, x0, m, n_workers, events,
+                        ParamPolicy(params.to(dev)), prox, horizon=horizon,
+                        record_every=record_every, telemetry=telemetry,
+                        engine=engine)
+
+    return run
+
+
+def sweep_bcd(grad_f: Callable, objective: Callable, x0, m: int,
+              grid: SweepGrid, prox: ProxOp, horizon: Horizon = 4096,
+              bucket_widths: Optional[Sequence[int]] = None,
+              record_every: int = 1, telemetry=None,
+              engine: str = "fused") -> BCDResult:
+    """Async-BCD on every cell of ``grid``, one batched pass per bucket on
+    ``x0``'s device (one kernel launch per event for the bucket under
+    ``engine='fused'``).  Block choices replay the solo draw
+    (``sample_blocks(m, K, seed=cell seed)``), so batched rows equal solo
+    rows.  Programs are cached as in ``sweep_piag``."""
+    dev = x0.device
+    horizon = resolve_grid_horizon(horizon, grid, device=dev)
+
+    def run_bucket(b: SweepBucket):
+        key = ("bcd", b.width, not b.uniform, horizon, m, record_every,
+               telemetry, engine, IdKey(grad_f), IdKey(objective),
+               tree_key(x0), IdKey(prox))
+        fn = cached_program(key, lambda: make_sweep_bcd(
+            grad_f, objective, x0, m, b.width, prox, horizon=horizon,
+            masked=not b.uniform, record_every=record_every,
+            telemetry=telemetry, engine=engine))
+        T = torch.from_numpy(b.grid.service_times(b.width))
+        blocks = torch.from_numpy(np.stack([
+            sample_blocks(m, grid.n_events, seed=c.seed)
+            for c in b.grid.cells]))
+        pp = b.grid.policy_params(dev)
+        if b.uniform:
+            return fn(T, blocks, pp)
+        return fn(T, torch.from_numpy(b.grid.active_masks(b.width)), blocks,
+                  pp)
+
+    return run_bucketed(grid, run_bucket, bucket_widths)
+
+
+def sweep_bcd_logreg(problem, grid: SweepGrid, prox: ProxOp, m: int = 20,
+                     horizon: int = 4096, engine: str = "fused") -> BCDResult:
+    """Grid analogue of ``core.bcd.run_bcd_logreg`` (routed through
+    ``api.run_components``)."""
+    from ..api import run_components
+    return run_components("bcd", "batched", problem=problem, grid=grid,
+                          prox=prox, m=m, horizon=horizon, engine=engine).raw
 
 
 # ------------------------------------------------- FedAsync / FedBuff ----
@@ -222,37 +317,39 @@ def _check_fed_diag(n_up: torch.Tensor, exhausted: torch.Tensor,
 
 
 def _fedasync_scan_adapter(client_update, x0, client_data, objective,
-                           horizon, record_every=1, engine="fused"):
+                           horizon, record_every=1, engine="fused",
+                           telemetry=None):
     def server_scan(events, pp):
         return fedasync_scan(client_update, x0, client_data, events,
                              ParamPolicy(pp), objective=objective,
                              horizon=horizon, record_every=record_every,
-                             engine=engine)
+                             telemetry=telemetry, engine=engine)
     return server_scan
 
 
 def _fedbuff_scan_adapter(client_update, x0, client_data, objective, horizon,
-                          eta, buffer_size, record_every=1, engine="fused"):
+                          eta, buffer_size, record_every=1, engine="fused",
+                          telemetry=None):
     def server_scan(events, pp):
         return fedbuff_scan(client_update, x0, client_data, events,
                             ParamPolicy(pp), eta=eta,
                             buffer_size=buffer_size, objective=objective,
                             horizon=horizon, record_every=record_every,
-                            engine=engine)
+                            telemetry=telemetry, engine=engine)
     return server_scan
 
 
 def make_sweep_fedasync(client_update: Callable, x0, client_data,
                         objective: Optional[Callable] = None,
                         horizon: int = 4096, record_every: int = 1,
-                        engine: str = "fused") -> Callable:
+                        engine: str = "fused", telemetry=None) -> Callable:
     """The events-driven batched FedAsync program: ``fn(events (5 x
     (B, K)), params (B,)) -> FedResult`` on ``x0``'s device.  The events
     come stacked from the host, e.g. from the heapq twin
     ``_stack_fed_events``; the default sweep path races them on the device
     instead (``make_sweep_fedasync_fused``)."""
     return _fedasync_scan_adapter(client_update, x0, client_data, objective,
-                                  horizon, record_every, engine)
+                                  horizon, record_every, engine, telemetry)
 
 
 def make_sweep_fedasync_fused(client_update: Callable, x0, client_data,
@@ -261,14 +358,15 @@ def make_sweep_fedasync_fused(client_update: Callable, x0, client_data,
                               horizon: int = 4096,
                               n_steps: Optional[int] = None,
                               record_every: int = 1,
-                              engine: str = "fused") -> Callable:
+                              engine: str = "fused",
+                              telemetry=None) -> Callable:
     """The batched FedAsync program with the trace race fused in:
     ``fn(rounds, cparams, active, params) -> (FedResult, n_uploads (B,),
     exhausted (B,))``, on ``x0``'s device."""
     S = default_fed_steps(n_uploads) if n_steps is None else int(n_steps)
     return _fed_cell(_fedasync_scan_adapter(client_update, x0, client_data,
                                             objective, horizon, record_every,
-                                            engine),
+                                            engine, telemetry),
                      n_uploads, buffer_size, S, x0.device)
 
 
@@ -277,13 +375,14 @@ def make_sweep_fedbuff(client_update: Callable, x0, client_data,
                        objective: Optional[Callable] = None,
                        horizon: int = 4096, n_steps: Optional[int] = None,
                        record_every: int = 1,
-                       engine: str = "fused") -> Callable:
+                       engine: str = "fused", telemetry=None) -> Callable:
     """The batched FedBuff program (the shape of
     ``make_sweep_fedasync_fused`` with the buffered-delta server)."""
     S = default_fed_steps(n_uploads) if n_steps is None else int(n_steps)
     return _fed_cell(_fedbuff_scan_adapter(client_update, x0, client_data,
                                            objective, horizon, eta,
-                                           buffer_size, record_every, engine),
+                                           buffer_size, record_every, engine,
+                                           telemetry),
                      n_uploads, buffer_size, S, x0.device)
 
 
@@ -353,11 +452,13 @@ def _stack_fed_events(grid: SweepGrid, buffer_size: int,
 def _sweep_fed(make_server: Callable, grid: SweepGrid, client_data,
                buffer_size: int, reference: bool, n_steps: Optional[int],
                device, bucket_widths: Optional[Sequence[int]] = None,
-               races: Optional[Sequence] = None) -> FedResult:
+               races: Optional[Sequence] = None,
+               cache_key: tuple = ()) -> FedResult:
     """The common body of ``sweep_fedasync`` and ``sweep_fedbuff``: the
     server loop (``make_server(client_data) -> server_scan``) of each
     bucket over its race (``races``, from ``fed_bucket_races`` with the
-    same ``bucket_widths``, or raced here)."""
+    same ``bucket_widths``, or raced here).  Each bucket's server is
+    cached under ``cache_key + (width, n_steps)``."""
     K = grid.n_events
     S = default_fed_steps(K) if n_steps is None else int(n_steps)
     if reference:
@@ -371,7 +472,8 @@ def _sweep_fed(make_server: Callable, grid: SweepGrid, client_data,
     def run_bucket(b: SweepBucket):
         ftr = next(pending)
         _check_fed_diag(ftr.n_uploads, ftr.exhausted, K, S)
-        server = make_server(_slice_workers(client_data, b.width))
+        server = cached_program(cache_key + (b.width, S), lambda: make_server(
+            _slice_workers(client_data, b.width)))
         return server(_race_events(ftr), b.grid.policy_params(device))
 
     return run_bucketed(grid, run_bucket, bucket_widths)
@@ -400,7 +502,8 @@ def sweep_fedasync(client_update: Callable, x0, client_data, grid: SweepGrid,
                    bucket_widths: Optional[Sequence[int]] = None,
                    record_every: int = 1,
                    engine: str = "fused",
-                   races: Optional[Sequence] = None) -> FedResult:
+                   races: Optional[Sequence] = None,
+                   telemetry=None) -> FedResult:
     """FedAsync on every cell of a grid whose topologies are
     ``ClientModel`` lists, one batched pass per bucket on ``x0``'s device:
     the client round-trip race, then the server loop (one kernel launch
@@ -415,11 +518,14 @@ def sweep_fedasync(client_update: Callable, x0, client_data, grid: SweepGrid,
 
     def make_server(cd):
         return make_sweep_fedasync(client_update, x0, cd, objective, horizon,
-                                   record_every, engine)
+                                   record_every, engine, telemetry)
 
+    key = ("fedasync", grid.n_events, buffer_size, horizon, record_every,
+           telemetry, engine, IdKey(client_update), tree_key(x0),
+           tree_key(client_data), IdKey(objective))
     return _sweep_fed(make_server, grid, client_data, buffer_size,
                       reference, n_steps, dev, bucket_widths=bucket_widths,
-                      races=races)
+                      races=races, cache_key=key)
 
 
 def sweep_fedbuff(client_update: Callable, x0, client_data, grid: SweepGrid,
@@ -430,7 +536,8 @@ def sweep_fedbuff(client_update: Callable, x0, client_data, grid: SweepGrid,
                   bucket_widths: Optional[Sequence[int]] = None,
                   record_every: int = 1,
                   engine: str = "fused",
-                  races: Optional[Sequence] = None) -> FedResult:
+                  races: Optional[Sequence] = None,
+                  telemetry=None) -> FedResult:
     """FedBuff on every cell: the batched race + buffered delta
     aggregation, one pass per bucket; ``reference`` / ``horizon`` /
     ``races`` as in ``sweep_fedasync``."""
@@ -441,11 +548,14 @@ def sweep_fedbuff(client_update: Callable, x0, client_data, grid: SweepGrid,
     def make_server(cd):
         return _fedbuff_scan_adapter(client_update, x0, cd, objective,
                                      horizon, eta, buffer_size, record_every,
-                                     engine)
+                                     engine, telemetry)
 
+    key = ("fedbuff", grid.n_events, eta, buffer_size, horizon, record_every,
+           telemetry, engine, IdKey(client_update), tree_key(x0),
+           tree_key(client_data), IdKey(objective))
     return _sweep_fed(make_server, grid, client_data, buffer_size,
                       reference, n_steps, dev, bucket_widths=bucket_widths,
-                      races=races)
+                      races=races, cache_key=key)
 
 
 def sweep_fedasync_problem(problem, grid: SweepGrid, prox: ProxOp,

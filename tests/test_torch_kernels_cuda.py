@@ -781,3 +781,99 @@ def test_b1_b3_load_every_vector_before_the_first_barrier(
         loads = _loads_before_the_first_barrier(funcs, kernel, False)
         assert not [ln for ln in loads if ".128" in ln]
         assert len(loads) >= vectors * 16 + others, (len(loads), others)
+
+
+# -------------------------------------------- Async-BCD and telemetry ----
+#
+# Async-BCD runs B1 on the (B, ceil(d/m)) block rows it gathers from each
+# cell's iterate: db 40 (m 20 on d 784, the main path) takes the float4
+# instance, db 5 (m 7 on d 30) the scalar one.  The checks of the B1 tests
+# above hold.  On the card the engines are bitwise (the kernel computes
+# the plain version's operations, each rounded once), and telemetry is
+# neutral: its accumulator feeds no solver value.
+
+def _gathered_rows(seed, B, m, db, dev):
+    """(B, db) rows gathered from a (B, m, db) tensor at random blocks,
+    as ``bcd_scan`` gathers them."""
+    gen = torch.Generator().manual_seed(seed)
+    full = torch.randn(B, m, db, generator=gen).to(dev)
+    j = torch.randint(0, m, (B,), generator=gen).to(dev)
+    return full[torch.arange(B, device=dev), j]
+
+
+@pytest.mark.parametrize("H", [64, 256])
+@pytest.mark.parametrize("m, db", [(20, 40), (7, 5)])
+def test_b1_on_gathered_bcd_block_rows(cuda, m, db, H):
+    """96 cells of block rows, every prox kind, three events."""
+    from repro_torch.core.prox import make_prox
+    for i, (name, kw) in enumerate(FUSED_PROXES):
+        params, state, tau, _, _ = _event_case(db + H + i, 96, db, H, cuda)
+        x = _gathered_rows(2 * i, 96, m, db, cuda)
+        g = _gathered_rows(2 * i + 1, 96, m, db, cuda)
+        assert x.is_contiguous() and (x.data_ptr() % 16 == 0)
+        got, want = _b1_events(params, state, tau, x, g,
+                               make_prox(name, **kw), cuda)
+        _check_event(params.policy_id, got, want, name != "group_l2")
+
+
+def _bcd_spec(**ex):
+    from repro_torch import api
+    return api.ExperimentSpec(
+        problem=api.ProblemSpec(kind="logreg", params=dict(
+            n_samples=4000, dim=784, sparse_like=False, lam1=1e-3,
+            lam2=1e-4)),
+        solver=api.SolverSpec(name="bcd", horizon="auto", m=20),
+        topology=api.TopologySpec(kind="standard", n_workers=(10,)),
+        policies=api.PolicyGridSpec(names=("adaptive1", "adaptive2", "fixed",
+                                           "naive", "hinge", "poly"),
+                                    seeds=(0, 1)),
+        execution=api.ExecutionSpec(**{"backend": "batched",
+                                       "record_every": 10, **ex}),
+        n_events=200)
+
+
+def test_bcd_fused_is_bitwise_scan_on_the_card(cuda):
+    """``api.run(solver="bcd")`` on the card: the fused engine (one B1
+    launch per event per bucket, no B2 or B3) is bitwise the scan engine
+    on every leaf; ragged buckets too."""
+    from repro_torch.kernels import fused_step as fs
+    wrappers = (fs.fused_policy_prox_step, fs.fused_policy_mix_step,
+                fs.fused_policy_buff_step)
+    for n_workers in ((10,), (3, 4)):
+        from repro_torch import api
+        spec = _bcd_spec().replace(topology=api.TopologySpec(
+            kind="standard", n_workers=n_workers))
+        before = [w.launches for w in wrappers]
+        fused = api.run(spec)
+        n_buckets = len(fused.grid.buckets())
+        assert [w.launches - b for w, b in zip(wrappers, before)] == \
+            [200 * n_buckets, 0, 0]
+        scan = api.run(spec.replace(execution=api.ExecutionSpec(
+            backend="batched", record_every=10, engine="scan")))
+        assert fs.fused_policy_prox_step.launches == \
+            before[0] + 200 * n_buckets
+        for f in ("x", "objective", "gammas", "taus", "blocks", "clipped"):
+            assert torch.equal(getattr(fused.raw, f), getattr(scan.raw, f)), f
+        assert bool(torch.isfinite(fused.objective).all())
+        assert int(fused.clipped.sum()) == 0
+
+
+@pytest.mark.parametrize("solver", ["piag", "bcd"])
+def test_telemetry_is_neutral_on_the_card(cuda, solver):
+    from repro_torch import api
+    spec = _bcd_spec().replace(solver=api.SolverSpec(
+        name=solver, horizon="auto", m=20))
+    off = api.run(spec)
+    on = api.run(spec.replace(execution=api.ExecutionSpec(
+        backend="batched", record_every=10, telemetry=True)))
+    for f in off.raw._fields:
+        if f in ("telemetry", "faults"):
+            continue
+        assert torch.equal(getattr(off.raw, f), getattr(on.raw, f)), f
+    tel = on.raw.telemetry
+    assert tel.hist.is_cuda
+    assert torch.all(tel.hist.sum(dim=1) == 200)
+    # the accumulator sees every event, the recorded rows every tenth
+    assert bool((tel.tau_max >= off.raw.taus.max(dim=1).values).all())
+    assert on.telemetry.hist_source == "accumulator"
+    assert sum(on.telemetry.delay_hist) == on.n_cells * 200

@@ -2,8 +2,8 @@
 registry.
 
 Every name in the ``__all__`` of the reference's ``core``, ``sweep``,
-``federated``, ``api``, ``models``, ``serving``, ``configs`` and
-``kernels`` either resolves in the port's package of the same name or is
+``federated``, ``api``, ``models``, ``serving``, ``configs``,
+``kernels`` and ``telemetry`` either resolves in the port's package of the same name or is
 listed in ``UNPORTED`` under the numbered ROADMAP queue A item that will
 bring it, or with the reason it has no counterpart.
 A name that resolves must not also be listed.  ``get_config`` matches the
@@ -34,17 +34,10 @@ from repro_torch.sweep import runners as trun
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGES = ("core", "sweep", "federated", "api", "models", "serving",
-            "configs", "kernels")
+            "configs", "kernels", "telemetry")
 
 # name -> the ROADMAP queue A item that ports it
 _ITEMS = {
-    "item 5 (Async-BCD)": [
-        "core.BCDResult", "core.bcd", "core.bcd_scan", "core.run_async_bcd",
-        "core.run_bcd_logreg", "core.sample_blocks",
-        "core.simulate_shared_memory", "sweep.make_sweep_bcd",
-        "sweep.sweep_bcd", "sweep.sweep_bcd_logreg"],
-    "item 6 residue (sweep.cache)": [
-        "sweep.clear_program_cache", "sweep.program_cache_stats"],
     "item 12 (mesh + sweep.shard)": [
         "sweep.cell_mesh", "sweep.grid_mesh", "sweep.mesh_topology",
         "sweep.make_sharded_sweep_bcd", "sweep.make_sharded_sweep_piag",
