@@ -9,6 +9,11 @@ PyTorch version on the card, and drives the port's main paths:
 * ``repro_torch.api.run`` for PIAG, Async-BCD (m 20 blocks), FedAsync and
   FedBuff (batched, default engine) at the paper's MNIST shape, through
   kernels B1-B3, and each of the four with the in-loop telemetry on;
+* fault injection (``repro_torch.faults``: the reference's threefry bits
+  drawn on the card, the guarded step of all four solvers under
+  ``engine='scan'``, fig_faults's chaos figure) and checkpointed resume
+  (``api.run(spec, resume=dir)``, which reruns B1-B3 on the unfinished
+  bucket only);
 * ``repro_torch.kernels.ops`` (``prox_step``, ``prox_step_tree``,
   ``rmsnorm_fused``, ``ssd_scan_pallas``) at ``benchmarks/kernel_bench.py``'s
   shapes and at full model width (one qwen2.5-32b layer's parameters, a
@@ -48,15 +53,20 @@ from repro_torch import api, interop  # noqa: E402
 from repro_torch.analysis import (best_fixed_vs_adaptive,  # noqa: E402
                                   time_to_tolerance)
 from repro_torch.core.bcd import run_bcd_logreg  # noqa: E402
-from repro_torch.core.engine import (simulate_parameter_server,  # noqa: E402
-                                     simulate_shared_memory)
+from repro_torch.core.engine import (heterogeneous_workers,  # noqa: E402
+                                     simulate_parameter_server,
+                                     simulate_shared_memory, trace_scan)
 from repro_torch.core.piag import run_piag_logreg  # noqa: E402
 from repro_torch.core.problems import (make_logreg,  # noqa: E402
                                        solve_centralized)
 from repro_torch.core.prox import L1, make_prox  # noqa: E402
-from repro_torch.core.stepsize import (Adaptive1, DavisFixed,  # noqa: E402
-                                       FixedStepSize, StepsizeState,
-                                       SunDengFixed, make_policy)
+from repro_torch.core.stepsize import (Adaptive1, Adaptive2,  # noqa: E402
+                                       DavisFixed, FixedStepSize,
+                                       StepsizeState, SunDengFixed,
+                                       make_policy)
+from repro_torch.faults import (FAULT_PRESETS, FaultSpec,  # noqa: E402
+                                FaultState, summarize_faults)
+from repro_torch.faults import inject as finj  # noqa: E402
 from repro_torch.federated import (heterogeneous_clients,  # noqa: E402
                                    run_fedasync_problem, simulate_federated)
 from repro_torch.configs import get_config  # noqa: E402
@@ -78,6 +88,7 @@ from repro_torch.models.transformer import Layer  # noqa: E402
 from repro_torch.serving import ContinuousBatcher, Request  # noqa: E402
 from repro_torch.sweep.policies import POLICY_IDS, PolicyParams  # noqa: E402
 from repro_torch.sweep.cache import clear_program_cache  # noqa: E402
+from repro_torch.sweep.grid import make_grid  # noqa: E402
 from repro_torch.sweep.runners import fed_bucket_races  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -1073,6 +1084,361 @@ def phase_telemetry() -> None:
         "(second runs): " + "; ".join(rates))
 
 
+# ---------------------------------------------- faults and resume ----
+
+# the chaos spec of phases F1, F2 and F4
+CHAOS = dict(FAULT_PRESETS["chaos"], staleness_cutoff=64)
+# benchmarks/fig_faults.py's setting (phase F3)
+FIG_FAULTS = dict(p_crash=0.04, p_rejoin=0.15, crash_scale=60.0, seed=0)
+# the reference's integers for that setting under jax 0.9.0's partitionable
+# threefry: `python -m benchmarks.fig_faults` on the CPU gives
+# tau_max_faulted 347 and events to the target 559 / 934 / 1814
+# (BENCH_faults.json's 411 and 418 / 574 / 2153 came from the older
+# counter layout)
+FIG_FAULTS_TAU_MAX = 347
+FIG_FAULTS_EVENTS = {"adaptive1": 559, "adaptive2": 934, "fixed_wc": 1814}
+# the spike power: the card takes it in float64 and rounds once, the host
+# calls the C library's powf (the reference's); they may differ by one
+# float32 ulp (ROADMAP queue C)
+POW_ULPS = 1
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in float32 ulps between same-signed finite a, b."""
+    ia = a.contiguous().view(torch.int32).to(torch.int64)
+    ib = b.contiguous().view(torch.int32).to(torch.int64)
+    return int((ia - ib).abs().max()) if ia.numel() else 0
+
+
+def phase_f1_threefry() -> None:
+    """mnist-96's fault draws on the card and on the host: the crash,
+    spike and code uniforms of 96 cells x 10 workers x 2501 tasks (2500
+    events) bitwise, the spike power within POW_ULPS, and the cost of the
+    down-mask chain (one (96, 10) step per task) on the card."""
+    t_phase = time.perf_counter()
+    spec = FaultSpec(**CHAOS)
+    seeds = torch.arange(96)
+    shape = (10, 2501)
+    draws = []
+    for dev in (DEV, torch.device("cpu")):
+        s = seeds.to(dev)
+        k_hit, k_mag = finj.split(finj._key(spec, s, finj._STREAM_SPIKE))
+        draws.append({
+            "crash": finj.uniform(finj._key(spec, s, finj._STREAM_CRASH),
+                                  shape),
+            "hit": finj.uniform(k_hit, shape),
+            "mag": finj.uniform(k_mag, shape, minval=1e-6, maxval=1.0),
+            "codes": finj.update_fault_codes(spec, 2500, s)})
+    for name, a in draws[0].items():
+        if not torch.equal(a.cpu(), draws[1][name]):
+            raise AssertionError(f"F1: {name} draws differ card vs host")
+    hit = draws[1]["hit"] < spec.p_spike
+    mag = draws[1]["mag"][hit]
+    y = float(torch.tensor(-1.0 / spec.spike_tail, dtype=torch.float32))
+    p_card = finj._pow(mag.to(DEV), y).cpu()
+    p_host = finj._pow(mag, y)
+    pow_ulps = _ulps(p_card, p_host)
+    if not pow_ulps <= POW_ULPS:
+        raise AssertionError(f"F1: spike pow {pow_ulps} ulps apart")
+    T = torch.from_numpy(np.random.default_rng(0).lognormal(
+        0.0, 0.3, size=(96,) + shape).astype(np.float32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    down = finj._down_mask(spec, finj._key(spec, seeds.to(DEV),
+                                           finj._STREAM_CRASH), shape)
+    torch.cuda.synchronize()
+    t_chain = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Tc = finj.inject_service_times(T.to(DEV), spec, seeds.to(DEV))
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Th = finj.inject_service_times(T, spec, seeds)
+    t_host = time.perf_counter() - t0
+    t_ulps = _ulps(Tc.cpu(), Th)
+    if not t_ulps <= 2 * POW_ULPS:
+        raise AssertionError(f"F1: injected service times {t_ulps} ulps "
+                             "apart card vs host")
+    say("F1 threefry", f"96 cells x {shape[0]} workers x {shape[1]} tasks: "
+        f"crash, spike-hit, spike-magnitude uniforms and 96 x 2500 codes "
+        f"bitwise card vs host; {int(hit.sum())} spikes, pow {POW_ULPS}-ulp "
+        f"envelope: {int((p_card != p_host).sum())} differ, max {pow_ulps} "
+        f"ulp; injected service times max {t_ulps} ulp apart "
+        f"({int((Tc.cpu() != Th).sum())} of {Th.numel()} differ); "
+        f"down-mask chain on the card {t_chain:.3f} s ({shape[1]} steps, "
+        f"{float(down.mean()):.4f} down), whole injection card "
+        f"{t_card:.3f} s, host {t_host:.3f} s; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_f2_faulted_main_path() -> None:
+    """mnist-96's grid under the chaos spec, scan engine, batched, 500
+    events: rates, idle share, peak memory, the six counters; two cells
+    solo equal to their batched rows."""
+    t_phase = time.perf_counter()
+    spec = main_spec(n_events=500, faults=FaultSpec(**CHAOS),
+                     execution=dict(engine="scan"))
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    res = api.run(spec)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if any(fn.launches for fn in COUNTERS):
+        raise AssertionError("F2: the scan engine launched a fused kernel")
+    B, K = len(res), res.n_events
+    counters = summarize_faults(res.raw.faults)
+    if res.telemetry.faults != counters or not counters["injected"] \
+            or not counters["dropped"] or not counters["duplicated"]:
+        raise AssertionError(f"F2: counters {counters}, ledger "
+                             f"{res.telemetry.faults}")
+    if not bool(torch.isfinite(res.objective).all()) \
+            or not bool(torch.isfinite(res.gammas).all()):
+        raise AssertionError("F2: non-finite output under the guard")
+    # the profiler's own cost grows with the launches it records, so the
+    # idle share is read over the first 100 events of the same spec
+    wall, by_name = _profile(lambda: api.run(spec.replace(n_events=100)))
+    busy = sum(by_name.values()) / 1e6
+    idle = f"{1 - busy / wall:.3f}" if by_name else "not measured"
+    pick = [0, B - 1]
+    sub = res.grid.subset(np.asarray(pick))
+    r = api.resolve(spec)
+    solo = api.run_components("piag", "solo", problem=r.problem, grid=sub,
+                              prox=r.prox, horizon=res.horizon,
+                              record_every=10, engine="scan",
+                              faults=FaultSpec(**CHAOS))
+    idx = torch.tensor(pick, device=DEV)
+    for f in ("taus", "clipped"):
+        if not torch.equal(getattr(solo.raw, f), getattr(res.raw, f)[idx]):
+            raise AssertionError(f"F2: solo {f} differ from batched")
+    for f in FaultState._fields:
+        if not torch.equal(getattr(solo.raw.faults, f),
+                           getattr(res.raw.faults, f)[idx]):
+            raise AssertionError(f"F2: solo counter {f} differs")
+    g_ulps = _ulps(solo.gammas, res.gammas[idx])
+    say("F2 faulted main path", f"api.run PIAG 96 cells, 60000 x 784, {K} "
+        f"events, chaos preset + staleness_cutoff 64, engine=scan, batched: "
+        f"dispatch {res.elapsed_s:.3f} s, {B * K / res.elapsed_s:.1f} "
+        f"cell-events/s, idle share {idle} (profiled run of 100 events, "
+        f"wall {wall:.3f} s), peak {peak:.1f} MiB; counters {counters}; "
+        f"cells 0 and {B - 1} "
+        f"solo: taus, clipped and counters equal to the batched rows, "
+        f"gammas {g_ulps} ulp apart; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def _fig_faults_grid(problem, policies, n_events):
+    return make_grid(policies=policies, seeds=[0],
+                     topologies={"hetero": heterogeneous_workers(
+                         problem.n_workers, seed=1)},
+                     n_events=n_events)
+
+
+def phase_f3_fig_faults() -> None:
+    """benchmarks/fig_faults.py on the card: the delay regime, then the
+    race of adaptive1 / adaptive2 against the fixed step tuned to the
+    faulted worst case; its three gates."""
+    t_phase = time.perf_counter()
+    n_events = 3000
+    problem = make_logreg(800, 100, n_workers=8, seed=0, device=DEV)
+    prox = L1(lam=problem.lam1)
+    gp = 0.99 / problem.L
+    chaos = FaultSpec(**FIG_FAULTS)
+
+    def run(policies, faults):
+        return api.run_components(
+            "piag", "batched", problem=problem,
+            grid=_fig_faults_grid(problem, policies, n_events), prox=prox,
+            horizon=4096, engine="scan", faults=faults)
+
+    # the delay regime: fig_faults reads it from a throwaway adaptive run,
+    # whose taus are its trace's tau_max; the race alone gives them
+    probe = _fig_faults_grid(problem, {"probe": Adaptive1(gamma_prime=gp)},
+                             n_events)
+    T = torch.from_numpy(probe.service_times()).to(DEV)
+    tau_bar = float(trace_scan(T).tau_max.float().mean())
+    tau_max = int(trace_scan(finj.inject_service_times(
+        T, chaos, torch.tensor([0], device=DEV))).tau_max.max())
+    spike = tau_max / max(tau_bar, 1.0)
+    if tau_max != FIG_FAULTS_TAU_MAX:
+        raise AssertionError(f"F3: tau_max_faulted {tau_max}, the reference "
+                             f"gives {FIG_FAULTS_TAU_MAX}")
+    race = run({"adaptive1": Adaptive1(gamma_prime=gp),
+                "adaptive2": Adaptive2(gamma_prime=gp),
+                "fixed_wc": FixedStepSize(gamma_prime=gp,
+                                          tau_bound=tau_max)}, chaos)
+    obj = race.objective.cpu().numpy()
+    traces = {c.policy_name: obj[i] for i, c in enumerate(race.cells)}
+    finals = {n: float(t[-1]) if np.isfinite(t[-1]) else float("inf")
+              for n, t in traces.items()}
+    p0 = float(next(iter(traces.values()))[0])
+    p_star = min(finals.values())
+    target = p_star + 0.2 * (p0 - p_star)
+
+    def hit(t):
+        h = np.isfinite(t) & (t <= target)
+        return int(np.argmax(h)) if h.any() else None
+
+    hits = {n: hit(t) for n, t in traces.items()}
+    diverged = {n: not np.all(np.isfinite(t)) or finals[n] > p0
+                for n, t in traces.items()}
+    adaptive = [hits[n] for n in ("adaptive1", "adaptive2")
+                if hits[n] is not None and not diverged[n]]
+    best = min(adaptive) if adaptive else None
+    fixed = hits["fixed_wc"]
+    gates = {"spike_ge_4x": spike >= 4.0,
+             "adaptive_reaches_target": best is not None,
+             "fixed_diverges_or_2x_writes": diverged["fixed_wc"]
+             or fixed is None or (best is not None and fixed >= 2 * best)}
+    if not all(gates.values()):
+        raise AssertionError(f"F3: gates {gates}, hits {hits}")
+    ratio = f"{fixed / best:.2f}x" if fixed is not None and best else "n/a"
+    say("F3 fig_faults", f"logreg 800 x 100, 8 workers, {n_events} events, "
+        f"p_crash 0.04 / p_rejoin 0.15 / crash_scale 60: tau_bar "
+        f"{tau_bar:.3f}, tau_max_faulted {tau_max} (reference "
+        f"{FIG_FAULTS_TAU_MAX}), spike {spike:.2f}x; events to target "
+        + ", ".join(f"{n} {hits[n]} (reference {FIG_FAULTS_EVENTS[n]})"
+                    for n in FIG_FAULTS_EVENTS)
+        + f"; fixed/adaptive writes {ratio}; gates {gates}; counters "
+        f"{race.telemetry.faults}; race dispatch {race.elapsed_s:.3f} s; "
+        f"phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_f4_other_solvers() -> None:
+    """Async-BCD, FedAsync and FedBuff under the chaos spec at the CPU
+    tests' size, on the card and on the host: integer leaves and counters
+    exact, the objective within OBJ_REL_ENVELOPE of its start."""
+    t_phase = time.perf_counter()
+    notes = []
+    for solver in ("bcd", "fedasync", "fedbuff"):
+        fed = solver != "bcd"
+        runs = []
+        for dev in (DEV, torch.device("cpu")):
+            problem = make_logreg(240, 40, n_workers=4, seed=0, device=dev)
+            gp = 0.99 / problem.block_smoothness(8) if not fed else 0.6
+            if fed:
+                grid = make_grid(
+                    policies={"hinge": make_policy("hinge", 0.6)},
+                    seeds=[0, 1],
+                    topologies={"edge": heterogeneous_clients(4, seed=2)},
+                    n_events=80)
+            else:
+                grid = make_grid(
+                    policies={"a1": Adaptive1(gamma_prime=gp),
+                              "fx": FixedStepSize(gamma_prime=gp,
+                                                  tau_bound=40)},
+                    seeds=[0, 1],
+                    topologies={"hetero": heterogeneous_workers(4, seed=1)},
+                    n_events=100)
+            kw = {"bcd": dict(m=8), "fedasync": {},
+                  "fedbuff": dict(eta=0.5, buffer_size=2)}[solver]
+            runs.append(api.run_components(
+                solver, "batched", problem=problem, grid=grid,
+                prox=L1(lam=problem.lam1), horizon=4096, engine="scan",
+                device=str(dev), faults=FaultSpec(**CHAOS), **kw))
+        a, b = runs[0].raw, runs[1].raw
+        for f in ("taus", "clipped", "blocks", "versions"):
+            if f in a._fields and not torch.equal(getattr(a, f).cpu(),
+                                                  getattr(b, f)):
+                raise AssertionError(f"F4 {solver}: {f} differ card vs host")
+        ca, cb = summarize_faults(a.faults), summarize_faults(b.faults)
+        if ca != cb:
+            raise AssertionError(f"F4 {solver}: counters {ca} vs {cb}")
+        rel = float(((a.objective.cpu() - b.objective).abs()
+                     / b.objective[:, :1].abs()).max())
+        if not rel <= OBJ_REL_ENVELOPE:
+            raise AssertionError(f"F4 {solver}: objective rel diff {rel}")
+        notes.append(f"{solver} {ca}, objective max rel diff {rel:.3g}, "
+                     f"gammas {_ulps(runs[0].gammas.cpu(), runs[1].gammas)}"
+                     " ulp")
+    say("F4 other solvers", "chaos preset at 240 x 40, 4 workers, scan "
+        "engine, card vs host: taus, clipped, blocks/versions and counters "
+        "exact; " + "; ".join(notes)
+        + f"; phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def _resume_pair(spec, counter, tmp):
+    """Run ``spec`` with ``resume=tmp``, delete its second bucket's file,
+    run again; the second run's launches of ``counter`` (counts set to 0
+    just before it, read just after) and both results."""
+    first = api.run(spec, resume=tmp)
+    files = sorted(os.listdir(tmp))
+    if len(files) != 2:
+        raise AssertionError(f"R1: expected two bucket files, got {files}")
+    last = max(files, key=lambda f: int(f.rsplit("_b", 1)[1][:-4]))
+    os.remove(os.path.join(tmp, last))
+    reset_counts()
+    again = api.run(spec, resume=tmp)
+    n = counter.launches
+    for f in first.raw._fields:
+        if f in ("telemetry", "faults"):
+            continue
+        if not torch.equal(getattr(first.raw, f), getattr(again.raw, f)):
+            raise AssertionError(f"R1: resumed {f} not bitwise")
+    return first, again, n
+
+
+def phase_r1_resume() -> dict:
+    """Resume on the card: PIAG (fused, B1) on mnist-96's problem with
+    two buckets (4 and 8 workers), FedAsync (B2) and FedBuff (B3) at a
+    small size; the deleted bucket alone is rerun, bitwise; another spec
+    into the same directory raises.  Returns each kernel's launches."""
+    import tempfile
+    t_phase = time.perf_counter()
+    out = {}
+    # mnist-96's problem (10 workers' shards, the resolve memo's entry)
+    # under a grid of two buckets, 4 and 8 workers
+    mnist = main_spec().problem
+    spec = main_spec(problem=api.ProblemSpec(kind="logreg", params=dict(
+        mnist.params, n_workers=10)), topology=api.TopologySpec(
+            kind="standard", n_workers=(4, 8)))
+    # a fixed horizon: resolve races nothing, the sweep races only the
+    # buckets it runs
+    small = dict(problem=api.ProblemSpec(kind="logreg", params=dict(
+        n_samples=4000, dim=784, sparse_like=False, lam1=1e-3, lam2=1e-4)),
+        topology=api.TopologySpec(kind="edge", n_workers=(4, 8), seed=1,
+                                  params=dict(spread=4.0, p_straggle=0.05,
+                                              p_dropout=0.02)),
+        n_events=500)
+    notes = []
+    for name, sp, counter in (
+            ("piag", spec, fused_policy_prox_step),
+            ("fedasync", _fixed_h(fed_spec("fedasync", **small)),
+             fused_policy_mix_step),
+            ("fedbuff", _fixed_h(fed_spec("fedbuff", **small)),
+             fused_policy_buff_step)):
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            first, again, n = _resume_pair(sp, counter, tmp)
+            wall = time.perf_counter() - t0
+            buckets = first.grid.buckets()
+            if n != first.n_events * 1 or len(buckets) != 2:
+                raise AssertionError(f"R1 {name}: {n} launches for one "
+                                     f"unfinished bucket of {first.n_events}"
+                                     " events")
+            other = sp.replace(n_events=sp.n_events // 2)
+            try:
+                api.run(other, resume=tmp)
+            except ValueError as e:
+                if "different spec" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"R1 {name}: another spec resumed")
+        out[name] = n
+        notes.append(f"{name} {len(first)} cells in buckets "
+                     f"{[b.width for b in buckets]}: dispatch "
+                     f"{first.elapsed_s:.3f} s fresh, {again.elapsed_s:.3f} "
+                     f"s resumed, launches on the resume {n} (= "
+                     f"{first.n_events} x 1 bucket), pair wall {wall:.3f} s")
+    say("R1 resume", "rows bitwise after deleting the last bucket file, "
+        "another spec refused; " + "; ".join(notes)
+        + f"; phase wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _fixed_h(spec):
+    return spec.replace(solver=dataclasses.replace(spec.solver,
+                                                   horizon=256))
+
+
 # ------------------------------------------------- B6 and serving ----
 
 def _fa_check(got, want) -> float:
@@ -1840,6 +2206,13 @@ def main() -> None:
                   lambda: api.run(fed_spec("fedasync", n_events=200)),
                   "api.run FedAsync 200 uploads x 24 cells (resolve "
                   "included)")
+    # faults (scan engine, no kernel) and checkpointed resume (B1-B3 on
+    # the unfinished buckets only)
+    phase_f1_threefry()
+    phase_f2_faulted_main_path()
+    phase_f3_fig_faults()
+    phase_f4_other_solvers()
+    resumed = phase_r1_resume()
     # the serving path (B6): the kernel alone first, then the full model
     fa_err = phase_fa_vs_plain()
     t_fa = phase_fa_timing(name, 4, 64, fa_err)
@@ -1871,7 +2244,12 @@ def main() -> None:
                       32),
                   f"generate {cfg.name} batch 4, prompt 64, gen 32 (one "
                   "prefill and 32 decode steps)")
-    timing["launches_by_path"] = {"piag": launches, "bcd": bcd_launches}
+    timing["launches_by_path"] = {"piag": launches, "bcd": bcd_launches,
+                                  "resume": resumed["piag"]}
+    t_mix["launches_by_path"] = {"fedasync": fed["fedasync"][1],
+                                 "resume": resumed["fedasync"]}
+    t_buff["launches_by_path"] = {"fedbuff": fed["fedbuff"][1],
+                                  "resume": resumed["fedbuff"]}
     rows = [("fused_policy_prox_step", KERNEL_SOURCE, REPLACES,
              launches + bcd_launches, timing),
             ("fused_policy_mix_step", KERNEL_SOURCE, REPLACES_MIX,

@@ -17,7 +17,7 @@ import importlib
 
 __all__ = ["api", "analysis", "core", "federated", "sweep", "models",
            "kernels", "serving", "configs", "launch", "interop",
-           "telemetry"]
+           "telemetry", "faults", "checkpoint"]
 
 
 def __getattr__(name):

@@ -16,9 +16,12 @@ fedbuff   ``federated.server.run_fedbuff``    ``sweep.runners.sweep_fedbuff``
 ========  ==================================  ================================
 
 Every run also builds a ``telemetry.RunRecord`` (on ``Results.telemetry``;
-appended to the JSONL ledger when one is set).  What is not ported yet
-raises ``NotImplementedError`` naming its ROADMAP queue A item: the
-sharded backend, faults and checkpointed resume.
+appended to the JSONL ledger when one is set).  ``spec.faults`` (a
+``faults.FaultSpec``, under ``engine='scan'``) injects faults into every
+solver, solo and batched, with the counters on ``RunRecord.faults``;
+``run(spec, resume=dir)`` resumes a killed run from its bucket (or cell)
+checkpoints.  What is not ported yet raises ``NotImplementedError`` naming
+its ROADMAP queue A item: the sharded backend (item 12).
 """
 from __future__ import annotations
 
@@ -35,6 +38,9 @@ from ..core.piag import run_piag
 from ..core.problems import make_lasso, make_logreg
 from ..core.prox import make_prox
 from ..core.stepsize import make_policy
+from ..checkpoint.sweep import SweepCheckpoint
+from ..faults.guards import summarize_faults
+from ..faults.inject import inject_service_times
 from ..federated.events import (generate_federated_trace,
                                 heterogeneous_clients)
 from ..federated.server import _problem_pieces, run_fedasync, run_fedbuff
@@ -183,14 +189,10 @@ def _validate_horizon(spec: ExperimentSpec, tau_bar: Optional[int]) -> None:
     check_horizon(spec.solver.horizon, tau_bar if exp is None else exp)
 
 
-def _check_ported(spec: ExperimentSpec, resume=None) -> None:
+def _check_ported(spec: ExperimentSpec) -> None:
     """Refuse, before any work, what the port cannot run yet."""
     if spec.execution.backend == "sharded":
         raise _not_ported("backend='sharded'", 12)
-    if spec.faults is not None:
-        raise _not_ported("fault injection (faults=...)", 10)
-    if resume is not None:
-        raise _not_ported("checkpointed resume (resume=...)", 11)
 
 
 def _resolve_horizon(spec: ExperimentSpec, grid: SweepGrid,
@@ -201,7 +203,8 @@ def _resolve_horizon(spec: ExperimentSpec, grid: SweepGrid,
     (PIAG), or the federated upload staleness of the buckets' races, with
     the spec's ``horizon_slack``.  A batched federated run keeps those
     races, so its sweep runs the server loops over them and races each
-    bucket once."""
+    bucket once.  The races never see ``spec.faults`` (as in the
+    reference): a faulted run races its buckets anew with the faults."""
     sv, ex = spec.solver, spec.execution
     bound = spec.delay.expected_max_delay
     if bound is None and not sv.federated:
@@ -213,7 +216,8 @@ def _resolve_horizon(spec: ExperimentSpec, grid: SweepGrid,
             grid, bs, sv.n_steps, device,
             ex.bucket_widths if ex.backend == "batched" else None)
         bound = races_tau_bar(races)
-        if ex.backend != "batched" or ex.reference:
+        if ex.backend != "batched" or ex.reference \
+                or spec.faults is not None:
             races = None
     return resolve_grid_horizon(
         sv.horizon, grid, fed=sv.federated, buffer_size=bs,
@@ -314,55 +318,89 @@ def _telemetry_cfg(spec: ExperimentSpec) -> Optional[TelemetryConfig]:
         if ex.telemetry else None
 
 
-def _run_piag(r: Resolved):
+def _inject_T(T: np.ndarray, faults, cell_seed: int, device) -> np.ndarray:
+    """A solo cell's fault-injected service times: the transform its
+    batched row applies, on ``device``, keyed by the cell seed."""
+    return inject_service_times(torch.from_numpy(T).to(device), faults,
+                                int(cell_seed)).cpu().numpy()
+
+
+def _solo_cells(grid, ckpt, run_cell):
+    """The solo per-cell loop with optional per-cell checkpoints (cell
+    files keyed on (width = n_workers, idx = cell index) through the
+    ``SweepCheckpoint`` the bucketed runners use)."""
+    rows = []
+    for i, c in enumerate(grid.cells):
+        if ckpt is not None:
+            cached = ckpt.load_bucket(c.n_workers, i)
+            if cached is not None:
+                rows.append(cached)
+                continue
+        row = run_cell(c)
+        if ckpt is not None:
+            ckpt.save_bucket(c.n_workers, i, row)
+        rows.append(row)
+    return _stack_rows(rows)
+
+
+def _run_piag(r: Resolved, ckpt=None):
     spec = r.spec
     loss, x0, wd, objective, grad_fn = _piag_pieces(r.problem)
     h, utm = r.horizon, spec.delay.use_tau_max
     s = spec.execution.record_every
     tel = _telemetry_cfg(spec)
     eng = spec.execution.engine
+    fl = spec.faults
     if spec.execution.backend == "batched":
         return sweep_piag(loss, x0, wd, r.grid, r.prox, objective=objective,
                           horizon=h, use_tau_max=utm,
                           bucket_widths=spec.execution.bucket_widths,
                           record_every=s, telemetry=tel, engine=eng,
-                          grad_fn=grad_fn)
+                          grad_fn=grad_fn, faults=fl, checkpoint=ckpt)
 
-    rows = []
-    for c in r.grid.cells:
+    def run_cell(c):
         T = sample_service_times(c.workers, r.grid.n_events + 1, seed=c.seed)
+        if fl is not None:
+            T = _inject_T(T, fl, c.seed, r.device)
         tr = generate_trace(T, device=r.device)
-        rows.append(run_piag(loss, x0, tuple(leaf[:c.n_workers] for leaf in wd),
-                             tr, c.policy, r.prox, objective=objective,
-                             horizon=h, use_tau_max=utm, record_every=s,
-                             telemetry=tel, engine=eng, grad_fn=grad_fn))
-    return _stack_rows(rows)
+        return run_piag(loss, x0, tuple(leaf[:c.n_workers] for leaf in wd),
+                        tr, c.policy, r.prox, objective=objective,
+                        horizon=h, use_tau_max=utm, record_every=s,
+                        telemetry=tel, engine=eng, grad_fn=grad_fn,
+                        faults=fl, fault_seed=c.seed)
+
+    return _solo_cells(r.grid, ckpt, run_cell)
 
 
-def _run_bcd(r: Resolved):
+def _run_bcd(r: Resolved, ckpt=None):
     spec = r.spec
     m, h = spec.solver.m, r.horizon
     grad_f, objective, x0 = _bcd_pieces(r.problem)
     s = spec.execution.record_every
     tel = _telemetry_cfg(spec)
     eng = spec.execution.engine
+    fl = spec.faults
     if spec.execution.backend == "batched":
         return sweep_bcd(grad_f, objective, x0, m, r.grid, r.prox,
                          horizon=h, bucket_widths=spec.execution.bucket_widths,
-                         record_every=s, telemetry=tel, engine=eng)
+                         record_every=s, telemetry=tel, engine=eng,
+                         faults=fl, checkpoint=ckpt)
 
-    rows = []
-    for c in r.grid.cells:
+    def run_cell(c):
         T = sample_service_times(c.workers, r.grid.n_events + 1, seed=c.seed)
+        if fl is not None:
+            T = _inject_T(T, fl, c.seed, r.device)
         tr = generate_trace(T, kind="shared_memory", device=r.device)
         blocks = sample_blocks(m, r.grid.n_events, seed=c.seed)
-        rows.append(run_async_bcd(grad_f, objective, x0, m, tr, blocks,
-                                  c.policy, r.prox, horizon=h,
-                                  record_every=s, telemetry=tel, engine=eng))
-    return _stack_rows(rows)
+        return run_async_bcd(grad_f, objective, x0, m, tr, blocks,
+                             c.policy, r.prox, horizon=h, record_every=s,
+                             telemetry=tel, engine=eng, faults=fl,
+                             fault_seed=c.seed)
+
+    return _solo_cells(r.grid, ckpt, run_cell)
 
 
-def _run_fed(r: Resolved):
+def _run_fed(r: Resolved, ckpt=None):
     spec = r.spec
     sv = spec.solver
     update, x0, data, objective = _fed_pieces(r.problem, r.prox, sv.local_lr)
@@ -371,6 +409,7 @@ def _run_fed(r: Resolved):
     s = spec.execution.record_every
     tel = _telemetry_cfg(spec)
     eng = spec.execution.engine
+    fl = spec.faults
     if spec.execution.backend == "batched":
         if sv.name == "fedasync":
             return sweep_fedasync(update, x0, data, r.grid,
@@ -379,33 +418,33 @@ def _run_fed(r: Resolved):
                                   n_steps=n_steps,
                                   bucket_widths=spec.execution.bucket_widths,
                                   record_every=s, engine=eng, races=r.races,
-                                  telemetry=tel)
+                                  telemetry=tel, faults=fl, checkpoint=ckpt)
         return sweep_fedbuff(update, x0, data, r.grid, eta=sv.eta,
                              buffer_size=bs, objective=objective, horizon=h,
                              reference=spec.execution.reference,
                              n_steps=n_steps,
                              bucket_widths=spec.execution.bucket_widths,
                              record_every=s, engine=eng, races=r.races,
-                             telemetry=tel)
+                             telemetry=tel, faults=fl, checkpoint=ckpt)
 
-    rows = []
-    for c in r.grid.cells:
+    def run_cell(c):
         tr = generate_federated_trace(c.n_workers, r.grid.n_events,
                                       clients=list(c.workers),
                                       buffer_size=bs, seed=c.seed,
-                                      n_steps=n_steps, device=r.device)
+                                      n_steps=n_steps, faults=fl,
+                                      device=r.device)
         cd = tuple(leaf[:c.n_workers] for leaf in data)
         if sv.name == "fedasync":
-            rows.append(run_fedasync(update, x0, cd, tr, c.policy,
-                                     objective=objective, horizon=h,
-                                     record_every=s, telemetry=tel,
-                                     engine=eng))
-        else:
-            rows.append(run_fedbuff(update, x0, cd, tr, c.policy, eta=sv.eta,
-                                    buffer_size=bs, objective=objective,
-                                    horizon=h, record_every=s, telemetry=tel,
-                                    engine=eng))
-    return _stack_rows(rows)
+            return run_fedasync(update, x0, cd, tr, c.policy,
+                                objective=objective, horizon=h,
+                                record_every=s, telemetry=tel, engine=eng,
+                                faults=fl, fault_seed=c.seed)
+        return run_fedbuff(update, x0, cd, tr, c.policy, eta=sv.eta,
+                           buffer_size=bs, objective=objective, horizon=h,
+                           record_every=s, telemetry=tel, engine=eng,
+                           faults=fl, fault_seed=c.seed)
+
+    return _solo_cells(r.grid, ckpt, run_cell)
 
 
 _SOLVER_DISPATCH = {"piag": _run_piag, "bcd": _run_bcd,
@@ -478,7 +517,7 @@ def _build_record(spec: ExperimentSpec, r: Resolved, raw: Any,
         clipped=analysis.clipped_summary(raw.clipped),
         policies=sorted({c.policy_name for c in grid.cells}),
         timings=list(timings),
-        faults=None,
+        faults=summarize_faults(getattr(raw, "faults", None)) or None,
     )
 
 
@@ -493,13 +532,24 @@ def run(spec: ExperimentSpec, resume=None) -> Results:
     backend).  Every run builds a ``telemetry.RunRecord`` on
     ``Results.telemetry``: the timing buffer is drained around the
     dispatch, so its compile-side events are this run's, and the program
-    cache's counters are read before and after it."""
-    _check_ported(spec, resume)
+    cache's counters are read before and after it.
+
+    ``resume`` names a checkpoint directory: buckets (batched) or cells
+    (solo) finished by an earlier -- possibly killed -- run of the SAME
+    spec are loaded from disk instead of recomputed, and fresh ones are
+    saved there as they complete.  Files are fingerprint-stamped; resuming
+    a different spec into the same directory raises."""
     r = resolve(spec)
+    ckpt = None
+    if resume is not None:
+        ckpt = SweepCheckpoint(
+            resume, spec_fingerprint(spec, r.grid),
+            tag=f"{spec.solver.name}_{spec.execution.backend}",
+            device=r.device)
     drain_timings()  # drop events from unrelated earlier activity
     cache_before = program_cache_stats()
     t0 = time.perf_counter()
-    raw = _SOLVER_DISPATCH[spec.solver.name](r)
+    raw = _SOLVER_DISPATCH[spec.solver.name](r, ckpt)
     if r.device.type == "cuda":
         torch.cuda.synchronize(r.device)
     elapsed = time.perf_counter() - t0
@@ -519,7 +569,7 @@ def run(spec: ExperimentSpec, resume=None) -> Results:
 def component_spec(solver: str, backend: str, *, problem, grid, prox,
                    reference: bool = False, record_every: int = 1,
                    telemetry: bool = False, telemetry_bins: int = 64,
-                   engine: str = "fused", device=None,
+                   engine: str = "fused", device=None, faults=None,
                    **solver_kwargs) -> ExperimentSpec:
     """A spec from prebuilt components (problem + grid + prox), bypassing
     the declarative build; horizon validation and tau-bar measurement are
@@ -539,17 +589,20 @@ def component_spec(solver: str, backend: str, *, problem, grid, prox,
         n_events=grid.n_events,
         grid=grid,
         validate_horizon=False,
+        faults=faults,
     )
 
 
 def run_components(solver: str, backend: str, *, problem, grid, prox,
                    reference: bool = False, record_every: int = 1,
                    telemetry: bool = False, telemetry_bins: int = 64,
-                   engine: str = "fused", device=None,
-                   **solver_kwargs) -> Results:
+                   engine: str = "fused", device=None, faults=None,
+                   resume=None, **solver_kwargs) -> Results:
     """``run`` over prebuilt components (see ``component_spec``)."""
     return run(component_spec(solver, backend, problem=problem, grid=grid,
                               prox=prox, reference=reference,
                               record_every=record_every, telemetry=telemetry,
                               telemetry_bins=telemetry_bins, engine=engine,
-                              device=device, **solver_kwargs))
+                              device=device, faults=faults,
+                              **solver_kwargs),
+               resume=resume)

@@ -271,8 +271,8 @@ class ExecutionSpec:
                  the objective for) only every s-th event row; rows
                  ``s-1, 2s-1, ...`` of the stride-1 run.  Must divide
                  ``n_events``.
-    ``telemetry`` / ``telemetry_bins``: in-scan accumulators (not ported
-                 yet, ROADMAP queue A item 9).
+    ``telemetry`` / ``telemetry_bins``: the in-loop delay accumulators
+                 (``repro_torch.telemetry``) and their histogram width.
     ``engine``:  per-event inner loop.  ``"fused"`` (the PORT's default)
                  runs the policy update (window sum / select / push) and
                  the solver update (PIAG's prox step, the FedAsync mix, the
@@ -353,8 +353,15 @@ class ExperimentSpec:
     build entirely (used by the legacy shims).  ``validate_horizon``
     controls resolve-time horizon validation (see ``DelaySpec``).
 
-    ``faults``: fault injection (not ported yet, ROADMAP queue A item 10;
-    ``run`` refuses a spec that sets it).
+    ``faults`` (a ``faults.FaultSpec``, or None) injects deterministic
+    fault processes -- crash/rejoin chains and straggler spikes into the
+    delay traces, drop/duplicate/corrupt codes into the server updates --
+    and arms the in-loop guards (NaN/Inf rejection, staleness cutoff,
+    horizon-overflow degradation).  ``faults=None`` (or a disabled spec)
+    runs the fault-free step bodies on every solver and backend; a set
+    spec rides every sweep-program cache key.  The fused engine (the
+    port's default) refuses faults, as the reference does: a spec with
+    faults sets ``engine='scan'``.
     """
 
     problem: ProblemSpec = dataclasses.field(default_factory=ProblemSpec)
@@ -382,10 +389,18 @@ class ExperimentSpec:
                 f"record_every={self.execution.record_every} must divide "
                 f"n_events={self.n_events}")
         check_horizon(self.solver.horizon, self.delay.expected_max_delay)
-        if self.faults is not None and self.execution.engine == "fused":
-            raise ValueError(
-                "engine='fused' does not support fault injection; use "
-                "engine='scan'")
+        if self.faults is not None:
+            from ..faults.spec import normalize_faults
+            object.__setattr__(self, "faults", normalize_faults(self.faults))
+        if self.faults is not None:
+            if self.execution.engine == "fused":
+                raise ValueError(
+                    "engine='fused' does not support fault injection; use "
+                    "engine='scan'")
+            if self.execution.reference:
+                raise ValueError(
+                    "reference=True (heapq twin) does not support fault "
+                    "injection; use the fused federated trace path")
 
     def validate(self) -> "ExperimentSpec":
         """Resolve problem + grid and run the horizon validation without

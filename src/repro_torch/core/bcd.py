@@ -18,8 +18,8 @@ block.  Under ``engine='fused'`` (the port's default) the policy step and
 the block prox update of the whole bucket are ONE launch of the
 hand-written kernel (``kernels.fused_step.fused_policy_prox_step``) on the
 gathered (B, ceil(d/m)) block rows; ``engine='scan'`` runs them as
-composed torch ops.  Not ported yet: fault injection (ROADMAP queue A
-item 10).
+composed torch ops.  ``faults=`` switches in the guarded block step
+(``repro_torch.faults``) under ``engine='scan'``.
 """
 from __future__ import annotations
 
@@ -29,6 +29,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..faults.guards import (check_faults, finite_of, guard_event,
+                             guarded_gamma, init_faults, poison)
+from ..faults.inject import update_fault_codes
+from ..faults.spec import normalize_faults
 from .engine import EventTrace, solver_loop
 from .piag import ENGINES, _solo
 from .prox import ProxOp
@@ -47,17 +51,7 @@ class BCDResult(NamedTuple):
     blocks: torch.Tensor       # block index updated at each recorded event
     clipped: Any = 0           # final horizon-clip count
     telemetry: Any = None      # DelayTelemetry when telemetry= was passed
-    faults: Any = None         # not ported (ROADMAP queue A item 10)
-
-
-def refuse_faults(faults) -> None:
-    """Fault injection is not ported: refuse any ``faults`` naming its
-    ROADMAP item."""
-    if faults is not None:
-        raise NotImplementedError(
-            "fault injection (faults=...) is not ported to repro_torch yet "
-            "(ROADMAP queue A item 10); run it with the reference package "
-            "`repro`")
+    faults: Any = None         # FaultState counters when faults= was passed
 
 
 def _blockify(x: torch.Tensor, m: int):
@@ -81,7 +75,8 @@ def bcd_scan(
     record_every: int = 1,
     telemetry=None,             # telemetry.TelemetryConfig or None
     engine: str = "fused",
-    faults=None,
+    faults=None,                # faults.FaultSpec or None
+    fault_codes: torch.Tensor | None = None,  # (B, K) int32 event codes
 ) -> BCDResult:
     """Algorithm 2 over B cells at once; every result leaf leads with B.
 
@@ -91,10 +86,15 @@ def bcd_scan(
     never names a padded worker and ``n_workers`` is the bucket width.
     ``telemetry`` threads the in-loop accumulators through a separate step
     body; the solver leaves are bitwise those without it.
+
+    ``faults``/``fault_codes`` switch in the guarded step body (see
+    ``piag_scan``): the block gradient is the guarded payload -- corrupt
+    events poison it, non-finite or over-stale payloads skip the block
+    write -- and ``faults=None`` runs the fault-free body.
     """
     if engine not in ENGINES:
         raise ValueError(f"engine must be 'scan' or 'fused', got {engine!r}")
-    refuse_faults(faults)
+    faults = check_faults(faults, fault_codes, engine)
     worker, taus, blocks = events
     B, K = worker.shape
     dev = x0.device
@@ -142,16 +142,36 @@ def bcd_scan(
     def outputs(old, new, gamma, event):
         return objective(unpad(new[0])), gamma, event[1], event[2]
 
+    def advance_guarded(carry, event):
+        xb, x_read, ss, fs = carry
+        wl, tau, _, jl, code = event
+        g = grad_f(unpad(x_read[cells, wl]))
+        gj = poison(F.pad(g, (0, m * db - d)).view(B, m, db)[cells, jl],
+                    code, faults)
+        accept, mult, fs = guard_event(faults, code, tau,
+                                       finite_of(gj, faults), fs)
+        gamma, ss, fs = guarded_gamma(policy, ss, tau, mult, faults, fs)
+        xj = xb[cells, jl]
+        xj_cand = prox.prox(xj - gamma.unsqueeze(-1) * gj, gamma)
+        xb[cells, jl] = torch.where(accept.unsqueeze(-1), xj_cand, xj)
+        x_read[cells, wl] = xb
+        return (xb, x_read, ss, fs), gamma
+
     xs = (worker.to(torch.int64).T.contiguous(),
           taus.to(torch.int32).T.contiguous(),
           blocks.to(torch.int32).T.contiguous(),
           blocks.to(torch.int64).T.contiguous())
+    carry0 = (xb, x_read, ss)
+    if faults is not None:
+        advance = advance_guarded
+        carry0 = carry0 + (init_faults((B,), dev),)
+        xs = xs + (fault_codes.to(dev, torch.int32).T.contiguous(),)
     carry, (obj, gam, tau_out, blk), tel = solver_loop(
-        advance, outputs, (xb, x_read, ss), xs, record_every, telemetry,
-        state_at=2)
+        advance, outputs, carry0, xs, record_every, telemetry, state_at=2)
     return BCDResult(x=unpad(carry[0]).contiguous(), objective=obj,
                      gammas=gam, taus=tau_out, blocks=blk,
-                     clipped=clipped_count(carry[2]), telemetry=tel)
+                     clipped=clipped_count(carry[2]), telemetry=tel,
+                     faults=None if faults is None else carry[-1])
 
 
 def run_async_bcd(
@@ -168,11 +188,14 @@ def run_async_bcd(
     telemetry=None,
     engine: str = "fused",
     faults=None,
+    fault_seed: int = 0,
 ) -> BCDResult:
     """Async-BCD over one shared-memory trace (one cell) on ``x0``'s
     device.  ``horizon='auto'`` sizes the window buffer from the trace's
-    own delays.  Result leaves carry no cell axis."""
-    refuse_faults(faults)
+    own delays.  ``faults`` enables the guarded step, its event codes
+    drawn from ``fault_seed`` (the cell seed).  Result leaves carry no
+    cell axis."""
+    faults = normalize_faults(faults)
     n = int(trace.worker.max()) + 1 if trace.n_events else 1
     if horizon == "auto":
         horizon = auto_horizon(int(np.max(trace.tau, initial=0)))
@@ -181,11 +204,13 @@ def run_async_bcd(
     def col(a):
         return torch.from_numpy(np.asarray(a, np.int32)).to(dev)[None]
 
+    codes = None if faults is None else update_fault_codes(
+        faults, trace.n_events, [int(fault_seed)], device=dev)
     res = bcd_scan(grad_f, objective, x0, m, n,
                    (col(trace.worker), col(trace.tau), col(blocks)),
                    policy, prox, horizon=int(horizon),
                    record_every=record_every, telemetry=telemetry,
-                   engine=engine)
+                   engine=engine, faults=faults, fault_codes=codes)
     return _solo(res)
 
 

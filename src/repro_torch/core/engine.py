@@ -71,8 +71,10 @@ def solver_loop(advance, outputs, carry0, xs, record_every: int = 1,
     ``advance(carry, event) -> (carry, gamma)`` moves every cell one event
     (``event[1]`` is the delay); ``outputs(old, new, gamma, event)`` is
     the recorded row.  ``state_at`` indexes the step-size state in the
-    carry.  Returns ``(final carry, recorded columns each (B, K // s),
-    DelayTelemetry or None)``.
+    carry.  A guarded step (``repro_torch.faults``) carries its
+    ``FaultState`` counters as the last leaf of its own carry.  Returns
+    ``(final carry, recorded columns each (B, K // s), DelayTelemetry or
+    None)``.
 
     With ``telemetry`` (a ``telemetry.TelemetryConfig``) the accumulator
     rides after the solver carry and a separate step body folds every

@@ -14,8 +14,9 @@ serves a solo run (B = 1) and a batched sweep.  Under ``engine='fused'``
 the hand-written kernel per event for all cells
 (``kernels.fused_step``); ``engine='scan'`` runs them as composed torch
 ops.  ``telemetry=`` threads the in-loop delay accumulators
-(``repro_torch.telemetry``) through a separate step body.  Not ported
-yet: fault injection, ``run_piag_lipschitz``.
+(``repro_torch.telemetry``) through a separate step body, and
+``faults=`` switches in the guarded step body (``repro_torch.faults``).
+Not ported yet: ``run_piag_lipschitz``.
 """
 from __future__ import annotations
 
@@ -24,6 +25,10 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..faults.guards import (check_faults, finite_of, guard_event,
+                             guarded_gamma, init_faults, poison)
+from ..faults.inject import update_fault_codes
+from ..faults.spec import normalize_faults
 from .engine import EventTrace, solver_loop
 from .prox import ProxOp
 from .stepsize import (StepsizePolicy, auto_horizon, clipped_count,
@@ -54,7 +59,7 @@ class PIAGResult(NamedTuple):
     opt_residual: torch.Tensor  # ||x_{k+1} - x_k|| / gamma_k
     clipped: Any = 0           # final horizon-clip count
     telemetry: Any = None      # DelayTelemetry when telemetry= was passed
-    faults: Any = None         # not ported (ROADMAP queue A item 10)
+    faults: Any = None         # FaultState counters when faults= was passed
 
 
 def default_grad_fn(worker_loss: Callable, worker_data) -> Callable:
@@ -85,6 +90,8 @@ def piag_scan(
     telemetry=None,                     # telemetry.TelemetryConfig or None
     engine: str = "fused",
     grad_fn: Callable | None = None,    # (xw (B, d), w (B,)) -> (B, d)
+    faults=None,                        # faults.FaultSpec or None
+    fault_codes: torch.Tensor | None = None,  # (B, K) int32 event codes
 ) -> PIAGResult:
     """Algorithm 1 over B cells at once; every result leaf leads with B.
 
@@ -95,9 +102,18 @@ def piag_scan(
     default the gradient comes from ``worker_loss`` by autograd.
     ``telemetry`` threads the in-loop accumulators through a separate step
     body; the solver leaves are bitwise those without it.
+
+    ``faults=FaultSpec(...)`` with a ``fault_codes`` event column
+    (``faults.update_fault_codes``) switches in the guarded step body:
+    drop/dup/corrupt codes apply to the returning worker's gradient,
+    non-finite or over-stale payloads are rejected (the table keeps the
+    worker's previous row), horizon overflow degrades to
+    ``gamma'/(tau+1)``, and the ``FaultState`` counters land on
+    ``result.faults``.  ``faults=None`` runs the fault-free body.
     """
     if engine not in ENGINES:
         raise ValueError(f"engine must be 'scan' or 'fused', got {engine!r}")
+    faults = check_faults(faults, fault_codes, engine)
     worker, taus = events
     B, K = worker.shape
     dev = x0.device
@@ -167,13 +183,38 @@ def piag_scan(
                           torch.zeros_like(dx))
         return objective(new[0]), gamma, event[1], res
 
+    def advance_guarded(carry, event):
+        x, gtab, x_read, ss, fs = carry
+        w, tau, code = event
+        wl = w.to(torch.int64)
+        # update-level corruption poisons the payload BEFORE the guard
+        gw = poison(grad_fn(x_read[cells, wl], w), code, faults)
+        accept, mult, fs = guard_event(faults, code, tau,
+                                       finite_of(gw, faults), fs)
+        # a rejected update keeps the worker's PREVIOUS table row: one
+        # corrupt gradient never poisons the aggregate
+        acc = accept.unsqueeze(-1)
+        gtab[cells, wl] = torch.where(acc, gw, gtab[cells, wl])
+        g = aggregate(gtab)
+        gamma, ss, fs = guarded_gamma(policy, ss, tau, mult, faults, fs)
+        x_cand = prox.prox(x - gamma.unsqueeze(-1) * g, gamma)
+        x_new = torch.where(acc, x_cand, x)
+        # the worker refetches the latest iterate either way
+        x_read[cells, wl] = x_new
+        return (x_new, gtab, x_read, ss, fs), gamma
+
     xs = (worker.T.contiguous(), taus.to(torch.int32).T.contiguous())
+    carry0 = (x, gtab, x_read, ss)
+    if faults is not None:
+        advance = advance_guarded
+        carry0 = carry0 + (init_faults((B,), dev),)
+        xs = xs + (fault_codes.to(dev, torch.int32).T.contiguous(),)
     carry, (obj, gam, tau_out, res), tel = solver_loop(
-        advance, outputs, (x, gtab, x_read, ss), xs, record_every, telemetry,
-        state_at=3)
+        advance, outputs, carry0, xs, record_every, telemetry, state_at=3)
     return PIAGResult(x=carry[0], objective=obj, gammas=gam, taus=tau_out,
                       opt_residual=res, clipped=clipped_count(carry[3]),
-                      telemetry=tel)
+                      telemetry=tel,
+                      faults=None if faults is None else carry[-1])
 
 
 def run_piag(
@@ -190,21 +231,30 @@ def run_piag(
     telemetry=None,
     engine: str = "fused",
     grad_fn: Callable | None = None,
+    faults=None,
+    fault_seed: int = 0,
 ) -> PIAGResult:
     """PIAG over one write-event trace (one cell) on ``x0``'s device.
 
     ``horizon='auto'`` sizes the window buffer from the trace's own delays
-    (``auto_horizon``).  Result leaves carry no cell axis."""
+    (``auto_horizon``).  ``faults`` enables the guarded step; the per-event
+    codes are drawn from ``fault_seed`` (the cell seed), so a solo run
+    equals its batched row under faults.  Result leaves carry no cell
+    axis."""
     taus = trace.tau_max if use_tau_max else trace.tau
     if horizon == "auto":
         horizon = auto_horizon(int(np.max(taus, initial=0)))
     dev = x0.device
     events = (torch.from_numpy(np.asarray(trace.worker, np.int32)).to(dev)[None],
               torch.from_numpy(np.asarray(taus, np.int32)).to(dev)[None])
+    faults = normalize_faults(faults)
+    codes = None if faults is None else update_fault_codes(
+        faults, events[0].shape[1], [int(fault_seed)], device=dev)
     res = piag_scan(worker_loss, x0, worker_data, events, policy, prox,
                     objective=objective, horizon=int(horizon),
                     record_every=record_every, telemetry=telemetry,
-                    engine=engine, grad_fn=grad_fn)
+                    engine=engine, grad_fn=grad_fn, faults=faults,
+                    fault_codes=codes)
     return _solo(res)
 
 

@@ -415,12 +415,15 @@ def generate_federated_trace(
     ``simulate_federated(..., client_rounds=...)`` on the same pre-sampled
     rounds.  If the pops run out (or a client runs out of pre-sampled
     attempts) the budget doubles and the race re-runs; larger budgets
-    extend the same realization."""
-    if faults is not None:
-        raise NotImplementedError(
-            "fault injection (faults=...) is not ported to repro_torch yet "
-            "(ROADMAP queue A item 10); run it with the reference package "
-            "`repro`")
+    extend the same realization.
+
+    ``faults`` (a ``faults.FaultSpec``) stretches the round durations
+    (crash/rejoin slowdowns, straggler spikes) with ``seed`` as the fault
+    cell seed -- the transform the batched sweep applies to its cells, so
+    the solo trace is bitwise the batched cell's row."""
+    from ..faults.inject import inject_client_rounds
+    from ..faults.spec import normalize_faults
+    faults = normalize_faults(faults)
     if clients is None:
         clients = heterogeneous_clients(n_clients, seed=seed)
     assert len(clients) == n_clients
@@ -429,6 +432,9 @@ def generate_federated_trace(
     S = default_fed_steps(n_uploads) if n_steps is None else int(n_steps)
     for _ in range(max_doublings + 1):
         rounds = sample_client_rounds(clients, S, seed=seed)
+        if faults is not None:
+            rounds = inject_client_rounds(ClientRounds(*(
+                torch.from_numpy(a).to(dev) for a in rounds)), faults, seed)
         out = federated_trace_scan(rounds, *consts, n_uploads,
                                    buffer_size=buffer_size, n_steps=S,
                                    device=dev)

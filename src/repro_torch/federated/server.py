@@ -23,7 +23,8 @@ ops.  The reference's compiled program contracts the mix, the delta
 accumulate, the buffered apply and the client's ``x - lr * g`` into FMAs;
 the port computes each as ``fma32``.  ``telemetry=`` threads the in-loop
 delay accumulators (``repro_torch.telemetry``) through a separate step
-body.  Not ported yet: fault injection (ROADMAP queue A item 10).
+body, and ``faults=`` switches in the guarded step (``repro_torch.faults``)
+under ``engine='scan'``.
 """
 from __future__ import annotations
 
@@ -37,6 +38,10 @@ from ..core.piag import ENGINES, _solo, default_grad_fn
 from ..core.prox import ProxOp
 from ..core.stepsize import (StepsizePolicy, auto_horizon, clipped_count, f32,
                              fma32, init_state)
+from ..faults.guards import (check_faults, finite_of, guard_event,
+                             guarded_gamma, init_faults, poison)
+from ..faults.inject import update_fault_codes
+from ..faults.spec import normalize_faults
 from .events import FederatedTrace
 
 __all__ = ["FedResult", "fedasync_scan", "fedbuff_scan", "run_fedasync",
@@ -52,7 +57,7 @@ class FedResult(NamedTuple):
     versions: torch.Tensor     # server version after each recorded event
     clipped: Any = 0           # final horizon-clip count
     telemetry: Any = None      # DelayTelemetry when telemetry= was passed
-    faults: Any = None         # not ported (ROADMAP queue A item 10)
+    faults: Any = None         # FaultState counters when faults= was passed
 
 
 def local_prox_sgd(worker_loss: Callable, prox: ProxOp, lr: float,
@@ -117,11 +122,14 @@ def _setup(client_data, x0, events, policy, engine, horizon, what):
     return B, x, x_read, ss, max_steps, fparams, fma_push
 
 
-def _events_xs(events, max_steps):
+def _events_xs(events, max_steps, fault_codes=None):
     client, tau, steps, agg, ver = events
-    return (client.T.contiguous(), tau.to(torch.int32).T.contiguous(),
-            steps.T.contiguous(), agg.to(torch.float32).T.contiguous(),
-            ver.T.contiguous(), max_steps)
+    xs = (client.T.contiguous(), tau.to(torch.int32).T.contiguous(),
+          steps.T.contiguous(), agg.to(torch.float32).T.contiguous(),
+          ver.T.contiguous(), max_steps)
+    if fault_codes is None:
+        return xs
+    return xs + (fault_codes.to(client.device, torch.int32).T.contiguous(),)
 
 
 def _outputs(objective):
@@ -135,13 +143,22 @@ def _outputs(objective):
 
 
 def _scan(advance, outputs, carry0, events, max_steps, record_every,
-          telemetry, state_at: int) -> FedResult:
-    """Run a server loop over the events and pack the ``FedResult``."""
+          telemetry, state_at: int, faults=None, fault_codes=None,
+          advance_guarded=None) -> FedResult:
+    """Run a server loop over the events and pack the ``FedResult``: the
+    fault-free body, or with ``faults`` the guarded one, whose
+    ``FaultState`` rides as the last leaf of the carry."""
+    xs = _events_xs(events, max_steps)
+    if faults is not None:
+        advance = advance_guarded
+        x = carry0[0]
+        carry0 = carry0 + (init_faults(x.shape[:1], x.device),)
+        xs = _events_xs(events, max_steps, fault_codes)
     carry, (o, g, t, v), tel = solver_loop(
-        advance, outputs, carry0, _events_xs(events, max_steps),
-        record_every, telemetry, state_at)
+        advance, outputs, carry0, xs, record_every, telemetry, state_at)
     return FedResult(x=carry[0], objective=o, weights=g, taus=t, versions=v,
-                     clipped=clipped_count(carry[state_at]), telemetry=tel)
+                     clipped=clipped_count(carry[state_at]), telemetry=tel,
+                     faults=None if faults is None else carry[-1])
 
 
 def fedasync_scan(
@@ -155,6 +172,8 @@ def fedasync_scan(
     record_every: int = 1,
     telemetry=None,             # telemetry.TelemetryConfig or None
     engine: str = "fused",
+    faults=None,                # faults.FaultSpec or None
+    fault_codes: Optional[torch.Tensor] = None,  # (B, K) int32 codes
 ) -> FedResult:
     """FedAsync over B cells at once; every result leaf leads with B.
 
@@ -162,7 +181,11 @@ def fedasync_scan(
     upload only.  The uploading client picks up the freshly written model
     (its row of the snapshot table).  ``telemetry`` threads the in-loop
     accumulators through a separate step body; the server's leaves are
-    bitwise those without it."""
+    bitwise those without it.  ``faults``/``fault_codes`` switch in the
+    guarded step: the uploaded client model is the guarded payload --
+    corrupt events poison it, non-finite or over-stale uploads make no
+    server write."""
+    faults = check_faults(faults, fault_codes, engine)
     B, x, x_read, ss, max_steps, fparams, fma_push = _setup(
         client_data, x0, events, policy, engine, horizon,
         "FedAsync server model")
@@ -185,8 +208,24 @@ def fedasync_scan(
         x_read[cells, wl] = x_new
         return (x_new, x_read, ss), gamma
 
+    def advance_guarded(carry, event):
+        x, x_read, ss, fs = carry
+        w, tau, steps, _, ver, ms, code = event
+        wl = w.to(torch.int64)
+        xc = poison(client_update(x_read[cells, wl], steps, w, max_steps=ms),
+                    code, faults)
+        accept, mult, fs = guard_event(faults, code, tau,
+                                       finite_of(xc, faults), fs)
+        gamma, ss, fs = guarded_gamma(policy, ss, tau, mult, faults, fs)
+        x_cand = fma32(gamma.unsqueeze(-1), xc - x, x)
+        x_new = torch.where(accept.unsqueeze(-1), x_cand, x)
+        x_read[cells, wl] = x_new
+        return (x_new, x_read, ss, fs), gamma
+
     return _scan(advance, _outputs(objective), (x, x_read, ss), events,
-                 max_steps, record_every, telemetry, state_at=2)
+                 max_steps, record_every, telemetry, state_at=2,
+                 faults=faults, fault_codes=fault_codes,
+                 advance_guarded=advance_guarded)
 
 
 def fedbuff_scan(
@@ -202,12 +241,17 @@ def fedbuff_scan(
     record_every: int = 1,
     telemetry=None,
     engine: str = "fused",
+    faults=None,
+    fault_codes: Optional[torch.Tensor] = None,
 ) -> FedResult:
     """FedBuff over B cells at once: uploads accumulate
     ``s(tau_j) * (x_cj - x_read_j)``; where the trace marks the buffer full
     the server applies the buffered delta scaled by ``eta / buffer_size``
     (rounded to float32, as the reference's weakly typed constant).
-    ``telemetry`` as in :func:`fedasync_scan`."""
+    ``telemetry`` as in :func:`fedasync_scan`.  ``faults``/``fault_codes``
+    guard the buffered delta: a rejected upload adds an exact zero, and
+    the trace's aggregation schedule is untouched."""
+    faults = check_faults(faults, fault_codes, engine)
     B, x, x_read, ss, max_steps, fparams, fma_push = _setup(
         client_data, x0, events, policy, engine, horizon,
         "FedBuff server model")
@@ -235,8 +279,27 @@ def fedbuff_scan(
         x_read[cells, wl] = x_new
         return (x_new, x_read, delta, ss), gamma
 
+    def advance_guarded(carry, event):
+        x, x_read, delta, ss, fs = carry
+        w, tau, steps, agg, ver, ms, code = event
+        wl = w.to(torch.int64)
+        xw = x_read[cells, wl]
+        xc = poison(client_update(xw, steps, w, max_steps=ms), code, faults)
+        accept, mult, fs = guard_event(faults, code, tau,
+                                       finite_of(xc, faults), fs)
+        gamma, ss, fs = guarded_gamma(policy, ss, tau, mult, faults, fs)
+        step = gamma.unsqueeze(-1) * (xc - xw)
+        delta = delta + torch.where(accept.unsqueeze(-1), step,
+                                    torch.zeros_like(step))
+        x_new = fma32((agg * scale_t).unsqueeze(-1), delta, x)
+        delta = (1.0 - agg).unsqueeze(-1) * delta
+        x_read[cells, wl] = x_new
+        return (x_new, x_read, delta, ss, fs), gamma
+
     return _scan(advance, _outputs(objective), (x, x_read, delta, ss),
-                 events, max_steps, record_every, telemetry, state_at=3)
+                 events, max_steps, record_every, telemetry, state_at=3,
+                 faults=faults, fault_codes=fault_codes,
+                 advance_guarded=advance_guarded)
 
 
 def _solo_events(trace: FederatedTrace, device):
@@ -245,6 +308,14 @@ def _solo_events(trace: FederatedTrace, device):
     return (col(trace.client, np.int32), col(trace.tau, np.int32),
             col(trace.local_steps, np.int32), col(trace.aggregate, np.float32),
             col(trace.version, np.int32))
+
+
+def _solo_codes(faults, trace: FederatedTrace, fault_seed: int, device):
+    """One cell's (1, K) upload fault codes, or None without faults."""
+    if faults is None:
+        return None
+    return update_fault_codes(faults, trace.n_events, [int(fault_seed)],
+                              device=device)
 
 
 def _solo_horizon(horizon, trace: FederatedTrace) -> int:
@@ -264,14 +335,20 @@ def run_fedasync(
     record_every: int = 1,
     telemetry=None,
     engine: str = "fused",
+    faults=None,
+    fault_seed: int = 0,
 ) -> FedResult:
     """FedAsync over one trace (one cell) on ``x0``'s device; result leaves
     carry no cell axis.  ``horizon='auto'`` sizes the weight-policy buffer
-    from the trace's own staleness."""
+    from the trace's own staleness.  ``faults`` enables the guarded step,
+    its upload codes drawn from ``fault_seed`` (the cell seed)."""
+    faults = normalize_faults(faults)
     return _solo(fedasync_scan(
         client_update, x0, client_data, _solo_events(trace, x0.device),
         policy, objective=objective, horizon=_solo_horizon(horizon, trace),
-        record_every=record_every, telemetry=telemetry, engine=engine))
+        record_every=record_every, telemetry=telemetry, engine=engine,
+        faults=faults, fault_codes=_solo_codes(faults, trace, fault_seed,
+                                               x0.device)))
 
 
 def run_fedbuff(
@@ -287,13 +364,18 @@ def run_fedbuff(
     record_every: int = 1,
     telemetry=None,
     engine: str = "fused",
+    faults=None,
+    fault_seed: int = 0,
 ) -> FedResult:
-    """FedBuff over one trace (one cell) on ``x0``'s device."""
+    """FedBuff over one trace (one cell) on ``x0``'s device; ``faults`` /
+    ``fault_seed`` as in :func:`run_fedasync`."""
+    faults = normalize_faults(faults)
     return _solo(fedbuff_scan(
         client_update, x0, client_data, _solo_events(trace, x0.device),
         policy, eta=eta, buffer_size=buffer_size, objective=objective,
         horizon=_solo_horizon(horizon, trace), record_every=record_every,
-        telemetry=telemetry, engine=engine))
+        telemetry=telemetry, engine=engine, faults=faults,
+        fault_codes=_solo_codes(faults, trace, fault_seed, x0.device)))
 
 
 def _problem_pieces(problem, prox: ProxOp, local_lr: Optional[float],

@@ -3,8 +3,9 @@
 
 ``cached_program(key, build)`` keeps the built bucket callable of a sweep
 under its static configuration -- ``(solver tag, bucket width, masked?,
-horizon, record_every, telemetry, engine, ..., captured objects)`` -- in
-an LRU, so repeated runs of a spec reuse it.  Captured objects (loss
+horizon, record_every, telemetry, engine, faults, ..., captured
+objects)``; a ``faults.FaultSpec`` is hashable by value -- in an LRU, so
+repeated runs of a spec reuse it.  Captured objects (loss
 closures, data tensors, prox ops) are keyed by IDENTITY through ``IdKey``,
 which holds a strong reference, so an id cannot be recycled while its
 entry lives.  Captured tensors are therefore FROZEN by contract: after

@@ -16,9 +16,16 @@ stitched back into grid order.
 Async-BCD runs the same race (``tau``, the shared-memory delay) with
 each cell's block choices replayed from ``core.bcd.sample_blocks``.  Each
 bucket's built program is kept in ``sweep.cache`` under its static
-configuration (telemetry included), and each bucket's dispatch is timed
-for the run ledger.  Not ported yet: the sharded runners, faults and
-checkpoints (ROADMAP queue A items 12, 10, 11).
+configuration (telemetry and faults included), and each bucket's dispatch
+is timed for the run ledger.
+
+``faults`` (a ``faults.FaultSpec``) stretches each cell's service times
+or client round durations before the race and draws its per-event fault
+codes, both keyed by the cell's seed (so a batched row equals its solo
+run), and switches the solver loops to their guarded step bodies.
+``checkpoint`` (a ``checkpoint.SweepCheckpoint``) makes the bucket loop
+resumable.  Not ported yet: the sharded runners (ROADMAP queue A item
+12).
 """
 from __future__ import annotations
 
@@ -36,6 +43,9 @@ from ..core.stepsize import auto_horizon
 from ..federated.events import (ClientRounds, client_arrays,
                                 default_fed_steps, federated_trace_scan,
                                 sample_client_rounds, simulate_federated)
+from ..faults.inject import (inject_client_rounds, inject_service_times,
+                             update_fault_codes)
+from ..faults.spec import normalize_faults
 from ..federated.server import FedResult, fedasync_scan, fedbuff_scan
 from ..telemetry.timing import timed
 from .cache import IdKey, cached_program, tree_key
@@ -73,17 +83,38 @@ def resolve_grid_horizon(horizon: Horizon, grid: SweepGrid, *,
 
 
 def run_bucketed(grid: SweepGrid, run_bucket: Callable,
-                 bucket_widths: Optional[Sequence[int]] = None):
+                 bucket_widths: Optional[Sequence[int]] = None,
+                 checkpoint=None, prepare: Optional[Callable] = None):
     """Run ``run_bucket(bucket) -> result`` (a tuple of tensors with a
     leading B_bucket axis) over every bucket of ``grid`` and stitch rows
-    back into grid cell order."""
+    back into grid cell order.
+
+    ``checkpoint`` (a ``checkpoint.SweepCheckpoint``) makes the loop
+    resumable at bucket granularity: a bucket already on disk is loaded
+    instead of run, and each fresh bucket is saved (a copy to the host,
+    which waits for the device) before the next one starts.  With
+    ``prepare`` each bucket that runs is ``run_bucket(bucket,
+    prepare(bucket))``, the ``prepare`` call timed in a
+    ``bucket_prepare`` span of its own, outside ``bucket_dispatch``."""
     buckets = grid.buckets(bucket_widths)
     parts = []
-    for b in buckets:
+    for i, b in enumerate(buckets):
+        if checkpoint is not None:
+            cached = checkpoint.load_bucket(b.width, i)
+            if cached is not None:
+                parts.append(cached)
+                continue
+        args = ()
+        if prepare is not None:
+            with timed("bucket_prepare", width=b.width, cells=len(b.index)):
+                args = (prepare(b),)
         # the bucket's host dispatch time (the device may still be busy;
         # api.run's synchronize covers that)
         with timed("bucket_dispatch", width=b.width, cells=len(b.index)):
-            parts.append(run_bucket(b))
+            part = run_bucket(b, *args)
+        if checkpoint is not None:
+            checkpoint.save_bucket(b.width, i, part)
+        parts.append(part)
     if len(parts) == 1:
         return parts[0]
     order = np.concatenate([b.index for b in buckets])
@@ -115,30 +146,64 @@ def _slice_workers(worker_data, width: int):
     return tuple(leaf[:width] for leaf in worker_data)
 
 
+def _cell_seeds(b: SweepBucket, device) -> torch.Tensor:
+    """(B,) per-cell seeds keying the fault streams of a bucket's cells."""
+    return torch.tensor([c.seed for c in b.grid.cells], dtype=torch.int64,
+                        device=device)
+
+
+def _inject(T: torch.Tensor, faults, seeds):
+    """(service times, per-event fault codes) of a bucket: under
+    ``faults`` the times fault-injected and the K codes drawn, both keyed
+    by the (B,) cell ``seeds``; else ``(T, None)``."""
+    if faults is None:
+        return T, None
+    seeds = torch.as_tensor(seeds).to(T.device)
+    return (inject_service_times(T, faults, seeds),
+            update_fault_codes(faults, T.shape[-1] - 1, seeds))
+
+
+def _split_args(rest, masked: bool, faulted: bool, n: int):
+    """A bucket program's trailing arguments: ``[active,] *n [, seeds]``
+    -> (active or None, the n middle arguments, seeds or None)."""
+    rest = list(rest)
+    seeds = rest.pop() if faulted else None
+    active = rest.pop(0) if masked else None
+    return active, rest[:n], seeds
+
+
 def make_sweep_piag(worker_loss: Callable, x0, worker_data, prox: ProxOp,
                     objective: Optional[Callable] = None, horizon: int = 4096,
                     use_tau_max: bool = True, masked: bool = False,
                     record_every: int = 1, telemetry=None,
                     engine: str = "fused",
-                    grad_fn: Optional[Callable] = None) -> Callable:
+                    grad_fn: Optional[Callable] = None,
+                    faults=None) -> Callable:
     """Build the batched PIAG program: ``fn(service_times (B, n, K+1),
     params (B,)) -> PIAGResult`` with a leading B on every leaf; with
-    ``masked=True`` it takes ``active (B, n) bool`` between the two.
-    Inputs go to ``x0``'s device; ``grad_fn`` as in ``piag_scan``."""
+    ``masked=True`` it takes ``active (B, n) bool`` between the two, and
+    with ``faults`` a trailing ``seeds (B,)`` of cell seeds (the service
+    times are fault-injected before the race and the event codes drawn
+    from the same seeds).  Inputs go to ``x0``'s device; ``grad_fn`` as
+    in ``piag_scan``."""
     dev = x0.device
+    faults = normalize_faults(faults)
 
     def run(T, *rest):
-        active, params = rest if masked else (None, rest[0])
+        active, (params,), seeds = _split_args(rest, masked,
+                                               faults is not None, 1)
         T = torch.as_tensor(T).to(dev)
         if active is not None:
             active = torch.as_tensor(active).to(dev)
+        T, codes = _inject(T, faults, seeds)
         tr = trace_scan(T, active=active)
         events = (tr.worker, tr.tau_max if use_tau_max else tr.tau)
         return piag_scan(worker_loss, x0, worker_data, events,
                          ParamPolicy(params.to(dev)), prox,
                          objective=objective, horizon=horizon,
                          active=active, record_every=record_every,
-                         telemetry=telemetry, engine=engine, grad_fn=grad_fn)
+                         telemetry=telemetry, engine=engine, grad_fn=grad_fn,
+                         faults=faults, fault_codes=codes)
 
     return run
 
@@ -148,32 +213,39 @@ def sweep_piag(worker_loss: Callable, x0, worker_data, grid: SweepGrid,
                horizon: Horizon = 4096, use_tau_max: bool = True,
                bucket_widths: Optional[Sequence[int]] = None,
                record_every: int = 1, telemetry=None, engine: str = "fused",
-               grad_fn: Optional[Callable] = None) -> PIAGResult:
+               grad_fn: Optional[Callable] = None, faults=None,
+               checkpoint=None) -> PIAGResult:
     """PIAG on every cell of ``grid``, one batched pass per bucket (a
     homogeneous grid is one pass).  ``grad_fn(xw, w)``, when given, must
     serve the widest bucket; narrower buckets use its first rows.  Each
     bucket's program is cached (``sweep.cache``) under its static
-    configuration and the identity of the captured objects."""
+    configuration and the identity of the captured objects.  ``faults``
+    rides the cache key and switches in the fault-injected program;
+    ``checkpoint`` makes the bucket loop resumable (``run_bucketed``)."""
     dev = x0.device
     horizon = resolve_grid_horizon(horizon, grid, device=dev)
+    faults = normalize_faults(faults)
 
     def run_bucket(b: SweepBucket):
         key = ("piag", b.width, not b.uniform, horizon, use_tau_max,
-               record_every, telemetry, engine, IdKey(worker_loss),
+               record_every, telemetry, engine, faults, IdKey(worker_loss),
                tree_key(x0), tree_key(worker_data), IdKey(prox),
                IdKey(objective), IdKey(grad_fn))
         fn = cached_program(key, lambda: make_sweep_piag(
             worker_loss, x0, _slice_workers(worker_data, b.width), prox,
             objective=objective, horizon=horizon, use_tau_max=use_tau_max,
             masked=not b.uniform, record_every=record_every,
-            telemetry=telemetry, engine=engine, grad_fn=grad_fn))
+            telemetry=telemetry, engine=engine, grad_fn=grad_fn,
+            faults=faults))
         T = torch.from_numpy(b.grid.service_times(b.width))
         pp = b.grid.policy_params(dev)
+        tail = (_cell_seeds(b, dev),) if faults is not None else ()
         if b.uniform:
-            return fn(T, pp)
-        return fn(T, torch.from_numpy(b.grid.active_masks(b.width)), pp)
+            return fn(T, pp, *tail)
+        return fn(T, torch.from_numpy(b.grid.active_masks(b.width)), pp,
+                  *tail)
 
-    return run_bucketed(grid, run_bucket, bucket_widths)
+    return run_bucketed(grid, run_bucket, bucket_widths, checkpoint)
 
 
 def sweep_piag_logreg(problem, grid: SweepGrid, prox: ProxOp,
@@ -191,24 +263,29 @@ def sweep_piag_logreg(problem, grid: SweepGrid, prox: ProxOp,
 def make_sweep_bcd(grad_f: Callable, objective: Callable, x0, m: int,
                    n_workers: int, prox: ProxOp, horizon: int = 4096,
                    masked: bool = False, record_every: int = 1,
-                   telemetry=None, engine: str = "fused") -> Callable:
+                   telemetry=None, engine: str = "fused",
+                   faults=None) -> Callable:
     """Build the batched Async-BCD program: ``fn(service_times (B, n, K+1)
-    [, active (B, n)], blocks (B, K), params (B,)) -> BCDResult`` on
-    ``x0``'s device.  BCD reduces nothing over workers, so the mask only
-    guards the trace (see ``core.bcd.bcd_scan``)."""
+    [, active (B, n)], blocks (B, K), params (B,)[, seeds (B,)]) ->
+    BCDResult`` on ``x0``'s device (``seeds`` with ``faults``, as in
+    ``make_sweep_piag``).  BCD reduces nothing over workers, so the mask
+    only guards the trace (see ``core.bcd.bcd_scan``)."""
     dev = x0.device
+    faults = normalize_faults(faults)
 
     def run(T, *rest):
-        active, blocks, params = rest if masked else (None,) + rest
+        active, (blocks, params), seeds = _split_args(
+            rest, masked, faults is not None, 2)
         T = torch.as_tensor(T).to(dev)
         if active is not None:
             active = torch.as_tensor(active).to(dev)
+        T, codes = _inject(T, faults, seeds)
         tr = trace_scan(T, active=active)
         events = (tr.worker, tr.tau, torch.as_tensor(blocks).to(dev))
         return bcd_scan(grad_f, objective, x0, m, n_workers, events,
                         ParamPolicy(params.to(dev)), prox, horizon=horizon,
                         record_every=record_every, telemetry=telemetry,
-                        engine=engine)
+                        engine=engine, faults=faults, fault_codes=codes)
 
     return run
 
@@ -217,34 +294,38 @@ def sweep_bcd(grad_f: Callable, objective: Callable, x0, m: int,
               grid: SweepGrid, prox: ProxOp, horizon: Horizon = 4096,
               bucket_widths: Optional[Sequence[int]] = None,
               record_every: int = 1, telemetry=None,
-              engine: str = "fused") -> BCDResult:
+              engine: str = "fused", faults=None,
+              checkpoint=None) -> BCDResult:
     """Async-BCD on every cell of ``grid``, one batched pass per bucket on
     ``x0``'s device (one kernel launch per event for the bucket under
     ``engine='fused'``).  Block choices replay the solo draw
     (``sample_blocks(m, K, seed=cell seed)``), so batched rows equal solo
-    rows.  Programs are cached as in ``sweep_piag``."""
+    rows.  Programs are cached as in ``sweep_piag``; ``faults`` and
+    ``checkpoint`` as there."""
     dev = x0.device
     horizon = resolve_grid_horizon(horizon, grid, device=dev)
+    faults = normalize_faults(faults)
 
     def run_bucket(b: SweepBucket):
         key = ("bcd", b.width, not b.uniform, horizon, m, record_every,
-               telemetry, engine, IdKey(grad_f), IdKey(objective),
+               telemetry, engine, faults, IdKey(grad_f), IdKey(objective),
                tree_key(x0), IdKey(prox))
         fn = cached_program(key, lambda: make_sweep_bcd(
             grad_f, objective, x0, m, b.width, prox, horizon=horizon,
             masked=not b.uniform, record_every=record_every,
-            telemetry=telemetry, engine=engine))
+            telemetry=telemetry, engine=engine, faults=faults))
         T = torch.from_numpy(b.grid.service_times(b.width))
         blocks = torch.from_numpy(np.stack([
             sample_blocks(m, grid.n_events, seed=c.seed)
             for c in b.grid.cells]))
         pp = b.grid.policy_params(dev)
+        tail = (_cell_seeds(b, dev),) if faults is not None else ()
         if b.uniform:
-            return fn(T, blocks, pp)
+            return fn(T, blocks, pp, *tail)
         return fn(T, torch.from_numpy(b.grid.active_masks(b.width)), blocks,
-                  pp)
+                  pp, *tail)
 
-    return run_bucketed(grid, run_bucket, bucket_widths)
+    return run_bucketed(grid, run_bucket, bucket_widths, checkpoint)
 
 
 def sweep_bcd_logreg(problem, grid: SweepGrid, prox: ProxOp, m: int = 20,
@@ -280,18 +361,34 @@ def _stack_fed_rounds(grid: SweepGrid, width: int, n_steps: int):
             grid.active_masks(width))
 
 
-def _fed_cell(server_scan: Callable, n_uploads: int, buffer_size: int,
-              n_steps: int, device) -> Callable:
-    """A bucket's federated program: the batched trace race on ``device``,
-    then ``server_scan(events, params) -> FedResult`` over its upload rows.
-    Returns ``fn(rounds, cparams, active, params) -> (FedResult, n_uploads
-    (B,), exhausted (B,))``; the host checks the diagnostics."""
+def _inject_rounds(rounds, faults, seeds, device):
+    """A bucket's client rounds with fault-injected durations (keyed by
+    the (B,) cell ``seeds``), on ``device``."""
+    put = (lambda a: torch.as_tensor(a).to(device))
+    return inject_client_rounds(ClientRounds(put(rounds.drop_u),
+                                             put(rounds.duration)),
+                                faults, put(seeds))
 
-    def run(rounds, cparams, active, pp):
+
+def _fed_cell(server_scan: Callable, n_uploads: int, buffer_size: int,
+              n_steps: int, device, faults=None) -> Callable:
+    """A bucket's federated program: the batched trace race on ``device``,
+    then ``server_scan(events, params[, fault_codes]) -> FedResult`` over
+    its upload rows.  Returns ``fn(rounds, cparams, active, params[,
+    seeds]) -> (FedResult, n_uploads (B,), exhausted (B,))``; the host
+    checks the diagnostics.  With ``faults`` the trailing ``seeds`` (B,)
+    key the round-duration injection and the upload fault codes."""
+
+    def run(rounds, cparams, active, pp, seeds=None):
+        codes = None
+        if faults is not None:
+            rounds = _inject_rounds(rounds, faults, seeds, device)
+            codes = update_fault_codes(faults, n_uploads,
+                                       torch.as_tensor(seeds).to(device))
         ftr = federated_trace_scan(rounds, *cparams, n_uploads,
                                    buffer_size=buffer_size, n_steps=n_steps,
                                    active=active, device=device)
-        return server_scan(_race_events(ftr), pp.to(device)), \
+        return server_scan(_race_events(ftr), pp.to(device), codes), \
             ftr.n_uploads, ftr.exhausted
 
     return run
@@ -318,38 +415,42 @@ def _check_fed_diag(n_up: torch.Tensor, exhausted: torch.Tensor,
 
 def _fedasync_scan_adapter(client_update, x0, client_data, objective,
                            horizon, record_every=1, engine="fused",
-                           telemetry=None):
-    def server_scan(events, pp):
+                           telemetry=None, faults=None):
+    def server_scan(events, pp, fault_codes=None):
         return fedasync_scan(client_update, x0, client_data, events,
                              ParamPolicy(pp), objective=objective,
                              horizon=horizon, record_every=record_every,
-                             telemetry=telemetry, engine=engine)
+                             telemetry=telemetry, engine=engine,
+                             faults=faults, fault_codes=fault_codes)
     return server_scan
 
 
 def _fedbuff_scan_adapter(client_update, x0, client_data, objective, horizon,
                           eta, buffer_size, record_every=1, engine="fused",
-                          telemetry=None):
-    def server_scan(events, pp):
+                          telemetry=None, faults=None):
+    def server_scan(events, pp, fault_codes=None):
         return fedbuff_scan(client_update, x0, client_data, events,
                             ParamPolicy(pp), eta=eta,
                             buffer_size=buffer_size, objective=objective,
                             horizon=horizon, record_every=record_every,
-                            telemetry=telemetry, engine=engine)
+                            telemetry=telemetry, engine=engine,
+                            faults=faults, fault_codes=fault_codes)
     return server_scan
 
 
 def make_sweep_fedasync(client_update: Callable, x0, client_data,
                         objective: Optional[Callable] = None,
                         horizon: int = 4096, record_every: int = 1,
-                        engine: str = "fused", telemetry=None) -> Callable:
+                        engine: str = "fused", telemetry=None,
+                        faults=None) -> Callable:
     """The events-driven batched FedAsync program: ``fn(events (5 x
     (B, K)), params (B,)) -> FedResult`` on ``x0``'s device.  The events
     come stacked from the host, e.g. from the heapq twin
     ``_stack_fed_events``; the default sweep path races them on the device
     instead (``make_sweep_fedasync_fused``)."""
     return _fedasync_scan_adapter(client_update, x0, client_data, objective,
-                                  horizon, record_every, engine, telemetry)
+                                  horizon, record_every, engine, telemetry,
+                                  normalize_faults(faults))
 
 
 def make_sweep_fedasync_fused(client_update: Callable, x0, client_data,
@@ -359,15 +460,17 @@ def make_sweep_fedasync_fused(client_update: Callable, x0, client_data,
                               n_steps: Optional[int] = None,
                               record_every: int = 1,
                               engine: str = "fused",
-                              telemetry=None) -> Callable:
+                              telemetry=None, faults=None) -> Callable:
     """The batched FedAsync program with the trace race fused in:
-    ``fn(rounds, cparams, active, params) -> (FedResult, n_uploads (B,),
-    exhausted (B,))``, on ``x0``'s device."""
+    ``fn(rounds, cparams, active, params[, seeds]) -> (FedResult,
+    n_uploads (B,), exhausted (B,))``, on ``x0``'s device (``seeds`` with
+    ``faults``)."""
     S = default_fed_steps(n_uploads) if n_steps is None else int(n_steps)
+    faults = normalize_faults(faults)
     return _fed_cell(_fedasync_scan_adapter(client_update, x0, client_data,
                                             objective, horizon, record_every,
-                                            engine, telemetry),
-                     n_uploads, buffer_size, S, x0.device)
+                                            engine, telemetry, faults),
+                     n_uploads, buffer_size, S, x0.device, faults)
 
 
 def make_sweep_fedbuff(client_update: Callable, x0, client_data,
@@ -375,37 +478,58 @@ def make_sweep_fedbuff(client_update: Callable, x0, client_data,
                        objective: Optional[Callable] = None,
                        horizon: int = 4096, n_steps: Optional[int] = None,
                        record_every: int = 1,
-                       engine: str = "fused", telemetry=None) -> Callable:
+                       engine: str = "fused", telemetry=None,
+                       faults=None) -> Callable:
     """The batched FedBuff program (the shape of
     ``make_sweep_fedasync_fused`` with the buffered-delta server)."""
     S = default_fed_steps(n_uploads) if n_steps is None else int(n_steps)
+    faults = normalize_faults(faults)
     return _fed_cell(_fedbuff_scan_adapter(client_update, x0, client_data,
                                            objective, horizon, eta,
                                            buffer_size, record_every, engine,
-                                           telemetry),
-                     n_uploads, buffer_size, S, x0.device)
+                                           telemetry, faults),
+                     n_uploads, buffer_size, S, x0.device, faults)
+
+
+def _race_bucket(b: SweepBucket, n_uploads: int, buffer_size: int,
+                 n_steps: int, device, faults=None):
+    """One bucket's batched trace race on ``device`` (round durations
+    fault-injected by cell seed under ``faults``)."""
+    rounds, cparams, active = _stack_fed_rounds(b.grid, b.width, n_steps)
+    if faults is not None:
+        rounds = _inject_rounds(rounds, faults, _cell_seeds(b, device),
+                                device)
+    return federated_trace_scan(rounds, *cparams, n_uploads,
+                                buffer_size=buffer_size, n_steps=n_steps,
+                                active=active, device=device)
 
 
 def fed_bucket_races(grid: SweepGrid, buffer_size: int = 1,
                      n_steps: Optional[int] = None, device=None,
-                     bucket_widths: Optional[Sequence[int]] = None) -> list:
+                     bucket_widths: Optional[Sequence[int]] = None,
+                     faults=None) -> list:
     """The batched trace race of every bucket of ``grid``
     (``grid.buckets(bucket_widths)`` order) on ``device``: a list of
     ``FederatedTraceArrays``.  The federated sweeps run their servers over
     these rows, and ``horizon='auto'`` sizes the weight buffer from their
-    staleness, so a run races each bucket once.  Adds the wall seconds it
-    took, up to the end of the device work, to
-    ``fed_bucket_races.seconds``."""
-    t0 = time.perf_counter()
+    staleness, so a run races each bucket once.  ``faults`` injects the
+    round durations first.  Adds the wall seconds it took, up to the end
+    of the device work, to ``fed_bucket_races.seconds``."""
     K = grid.n_events
     S = default_fed_steps(K) if n_steps is None else int(n_steps)
-    races = []
-    for b in grid.buckets(bucket_widths):
-        rounds, cparams, active = _stack_fed_rounds(b.grid, b.width, S)
-        ftr = federated_trace_scan(rounds, *cparams, K,
-                                   buffer_size=buffer_size, n_steps=S,
-                                   active=active, device=device)
-        races.append(ftr)
+    return _race_buckets(grid.buckets(bucket_widths), K, buffer_size, S,
+                         device, normalize_faults(faults))
+
+
+def _race_buckets(buckets, n_uploads: int, buffer_size: int, n_steps: int,
+                  device, faults=None) -> list:
+    """``_race_bucket`` over ``buckets``, adding the wall seconds up to the
+    end of the device work to ``fed_bucket_races.seconds`` (every race of
+    a federated sweep is counted there, whether raced up front or as its
+    bucket runs)."""
+    t0 = time.perf_counter()
+    races = [_race_bucket(b, n_uploads, buffer_size, n_steps, device, faults)
+             for b in buckets]
     if races and races[-1].tau.is_cuda:
         torch.cuda.synchronize(races[-1].tau.device)
     fed_bucket_races.seconds += time.perf_counter() - t0
@@ -453,37 +577,56 @@ def _sweep_fed(make_server: Callable, grid: SweepGrid, client_data,
                buffer_size: int, reference: bool, n_steps: Optional[int],
                device, bucket_widths: Optional[Sequence[int]] = None,
                races: Optional[Sequence] = None,
-               cache_key: tuple = ()) -> FedResult:
+               cache_key: tuple = (), faults=None,
+               checkpoint=None) -> FedResult:
     """The common body of ``sweep_fedasync`` and ``sweep_fedbuff``: the
     server loop (``make_server(client_data) -> server_scan``) of each
     bucket over its race (``races``, from ``fed_bucket_races`` with the
-    same ``bucket_widths``, or raced here).  Each bucket's server is
-    cached under ``cache_key + (width, n_steps)``."""
+    same ``bucket_widths`` and ``faults``, or raced here in the bucket's
+    ``bucket_prepare`` span -- a bucket loaded from ``checkpoint`` is not
+    raced).  Each bucket's server is cached under ``cache_key + (width,
+    n_steps)``; under ``faults`` it draws the bucket's upload fault codes
+    by cell seed."""
     K = grid.n_events
     S = default_fed_steps(K) if n_steps is None else int(n_steps)
     if reference:
+        if faults is not None:
+            raise TypeError(
+                "reference=True does not support fault injection (the heapq "
+                "reference path has no per-cell seed stream); use the fused "
+                "path")
         return make_server(client_data)(
             _stack_fed_events(grid, buffer_size, n_steps=S, device=device),
             grid.policy_params(device))
-    if races is None:
-        races = fed_bucket_races(grid, buffer_size, S, device, bucket_widths)
-    pending = iter(races)
+    by_width = {} if races is None else {
+        b.width: r for b, r in zip(grid.buckets(bucket_widths), races)}
 
-    def run_bucket(b: SweepBucket):
-        ftr = next(pending)
+    def race(b: SweepBucket):
+        ftr = by_width.get(b.width)
+        if ftr is None:
+            ftr = _race_buckets([b], K, buffer_size, S, device, faults)[0]
+        return ftr
+
+    def run_bucket(b: SweepBucket, ftr):
         _check_fed_diag(ftr.n_uploads, ftr.exhausted, K, S)
         server = cached_program(cache_key + (b.width, S), lambda: make_server(
             _slice_workers(client_data, b.width)))
-        return server(_race_events(ftr), b.grid.policy_params(device))
+        codes = None if faults is None else update_fault_codes(
+            faults, K, _cell_seeds(b, device))
+        return server(_race_events(ftr), b.grid.policy_params(device), codes)
 
-    return run_bucketed(grid, run_bucket, bucket_widths)
+    return run_bucketed(grid, run_bucket, bucket_widths, checkpoint,
+                        prepare=race)
 
 
 def _fed_horizon(horizon: Horizon, grid: SweepGrid, buffer_size: int,
                  n_steps: Optional[int], reference: bool, device,
-                 bucket_widths: Optional[Sequence[int]], races):
+                 bucket_widths: Optional[Sequence[int]], races,
+                 faults=None):
     """(concrete H, the bucket races to reuse or None): ``'auto'`` sizes H
-    from the races the sweep then runs its servers over."""
+    from the races the sweep then runs its servers over.  Under
+    ``faults`` the bound comes from the fault-free races, as in the
+    reference, and the sweep races its buckets anew with the faults."""
     if horizon != "auto" or reference:
         return resolve_grid_horizon(horizon, grid, fed=True,
                                     buffer_size=buffer_size, n_steps=n_steps,
@@ -491,7 +634,8 @@ def _fed_horizon(horizon: Horizon, grid: SweepGrid, buffer_size: int,
     if races is None:
         races = fed_bucket_races(grid, buffer_size, n_steps, device,
                                  bucket_widths)
-    return auto_horizon(races_tau_bar(races), 1), races
+    H = auto_horizon(races_tau_bar(races), 1)
+    return H, (None if faults is not None else races)
 
 
 def sweep_fedasync(client_update: Callable, x0, client_data, grid: SweepGrid,
@@ -503,7 +647,8 @@ def sweep_fedasync(client_update: Callable, x0, client_data, grid: SweepGrid,
                    record_every: int = 1,
                    engine: str = "fused",
                    races: Optional[Sequence] = None,
-                   telemetry=None) -> FedResult:
+                   telemetry=None, faults=None,
+                   checkpoint=None) -> FedResult:
     """FedAsync on every cell of a grid whose topologies are
     ``ClientModel`` lists, one batched pass per bucket on ``x0``'s device:
     the client round-trip race, then the server loop (one kernel launch
@@ -511,21 +656,25 @@ def sweep_fedasync(client_update: Callable, x0, client_data, grid: SweepGrid,
     ``reference=True`` takes the events from the heapq twin instead
     (bitwise the same events).  ``horizon='auto'`` sizes the weight buffer
     from the grid's measured upload staleness.  ``races``: the buckets'
-    ``fed_bucket_races`` (same ``bucket_widths``), when already run."""
+    ``fed_bucket_races`` (same ``bucket_widths`` and ``faults``), when
+    already run.  ``faults`` / ``checkpoint`` as in ``sweep_piag``."""
     dev = x0.device
+    faults = normalize_faults(faults)
     horizon, races = _fed_horizon(horizon, grid, buffer_size, n_steps,
-                                  reference, dev, bucket_widths, races)
+                                  reference, dev, bucket_widths, races,
+                                  faults)
 
     def make_server(cd):
         return make_sweep_fedasync(client_update, x0, cd, objective, horizon,
-                                   record_every, engine, telemetry)
+                                   record_every, engine, telemetry, faults)
 
     key = ("fedasync", grid.n_events, buffer_size, horizon, record_every,
-           telemetry, engine, IdKey(client_update), tree_key(x0),
+           telemetry, engine, faults, IdKey(client_update), tree_key(x0),
            tree_key(client_data), IdKey(objective))
     return _sweep_fed(make_server, grid, client_data, buffer_size,
                       reference, n_steps, dev, bucket_widths=bucket_widths,
-                      races=races, cache_key=key)
+                      races=races, cache_key=key, faults=faults,
+                      checkpoint=checkpoint)
 
 
 def sweep_fedbuff(client_update: Callable, x0, client_data, grid: SweepGrid,
@@ -537,25 +686,29 @@ def sweep_fedbuff(client_update: Callable, x0, client_data, grid: SweepGrid,
                   record_every: int = 1,
                   engine: str = "fused",
                   races: Optional[Sequence] = None,
-                  telemetry=None) -> FedResult:
+                  telemetry=None, faults=None,
+                  checkpoint=None) -> FedResult:
     """FedBuff on every cell: the batched race + buffered delta
     aggregation, one pass per bucket; ``reference`` / ``horizon`` /
-    ``races`` as in ``sweep_fedasync``."""
+    ``races`` / ``faults`` / ``checkpoint`` as in ``sweep_fedasync``."""
     dev = x0.device
+    faults = normalize_faults(faults)
     horizon, races = _fed_horizon(horizon, grid, buffer_size, n_steps,
-                                  reference, dev, bucket_widths, races)
+                                  reference, dev, bucket_widths, races,
+                                  faults)
 
     def make_server(cd):
         return _fedbuff_scan_adapter(client_update, x0, cd, objective,
                                      horizon, eta, buffer_size, record_every,
-                                     engine, telemetry)
+                                     engine, telemetry, faults)
 
     key = ("fedbuff", grid.n_events, eta, buffer_size, horizon, record_every,
-           telemetry, engine, IdKey(client_update), tree_key(x0),
+           telemetry, engine, faults, IdKey(client_update), tree_key(x0),
            tree_key(client_data), IdKey(objective))
     return _sweep_fed(make_server, grid, client_data, buffer_size,
                       reference, n_steps, dev, bucket_widths=bucket_widths,
-                      races=races, cache_key=key)
+                      races=races, cache_key=key, faults=faults,
+                      checkpoint=checkpoint)
 
 
 def sweep_fedasync_problem(problem, grid: SweepGrid, prox: ProxOp,

@@ -272,21 +272,35 @@ def test_horizon_validation_matches_reference():
     (dict(solver=tapi.SolverSpec(name="fedbuff"),
           execution=tapi.ExecutionSpec(backend="sharded", device="cpu")), 12),
     (dict(solver=tapi.SolverSpec(name="fedasync"), faults=object(),
-          execution=tapi.ExecutionSpec(engine="scan", device="cpu")), 10),
+          execution=tapi.ExecutionSpec(engine="scan", device="cpu")), None),
     (dict(execution=tapi.ExecutionSpec(backend="sharded", device="cpu")), 12),
     (dict(faults=object(), execution=tapi.ExecutionSpec(engine="scan",
-                                                        device="cpu")), 10),
+                                                        device="cpu")), None),
 ])
 def test_unported_paths_raise_naming_their_roadmap_item(change, item):
+    """The sharded backend still names its ROADMAP item; faults are ported
+    (item 10), so a ``faults`` that is not a ``FaultSpec`` now meets the
+    reference's ``TypeError`` when the spec is built."""
+    if item is None:
+        with pytest.raises(TypeError, match="faults must be a FaultSpec"):
+            _spec(tapi, "batched", "fused", device="cpu").replace(**change)
+        with pytest.raises(TypeError, match="faults must be a FaultSpec"):
+            _spec(japi, "batched", "scan").replace(faults=object())
+        return
     spec = _spec(tapi, "batched", "fused", device="cpu").replace(**change)
     with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
         tapi.run(spec)
 
 
-def test_resume_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        tapi.run(_spec(tapi, "batched", "fused", device="cpu"),
-                 resume="somewhere")
+def test_resume_is_not_ported(tmp_path):
+    """Checkpointed resume is ported (item 11); what stays unported is
+    the sharded backend it would resume (item 12), refused before any
+    checkpoint is written."""
+    spec = _spec(tapi, "batched", "fused", device="cpu").replace(
+        execution=tapi.ExecutionSpec(backend="sharded", device="cpu"))
+    with pytest.raises(NotImplementedError, match="queue A item 12"):
+        tapi.run(spec, resume=str(tmp_path / "ck"))
+    assert not (tmp_path / "ck").exists()
 
 
 def test_run_without_device_needs_a_card():

@@ -209,7 +209,7 @@ def test_run_async_bcd_solo_matches_reference(small):
     assert int(got.clipped) == int(ref.clipped) == 0
     o_r = np.asarray(ref.objective)
     assert np.all(np.abs(got.objective.numpy() - o_r) <= OBJ_REL * o_r[0])
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
+    with pytest.raises(TypeError, match="faults must be a FaultSpec"):
         bcd.run_async_bcd(tp.grad_f, tp.P, torch.zeros(30), 7, tr, blocks,
                           Adaptive1(gamma_prime=gp), L1(lam=tp.lam1),
                           faults=object())

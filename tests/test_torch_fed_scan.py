@@ -207,9 +207,13 @@ def test_generate_federated_trace_autogrows_budget_like_the_reference():
 
 
 def test_generate_federated_trace_refuses_faults():
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
+    """Faults are ported: a ``faults`` that is not a ``FaultSpec`` is
+    refused with the reference's ``TypeError``, in both packages."""
+    with pytest.raises(TypeError, match="faults must be a FaultSpec"):
         te.generate_federated_trace(4, 10, seed=0, device="cpu",
                                     faults=object())
+    with pytest.raises(TypeError, match="faults must be a FaultSpec"):
+        je.generate_federated_trace(4, 10, seed=0, faults=object())
 
 
 def test_default_fed_steps_matches_reference():

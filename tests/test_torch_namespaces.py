@@ -3,8 +3,9 @@ registry.
 
 Every name in the ``__all__`` of the reference's ``core``, ``sweep``,
 ``federated``, ``api``, ``models``, ``serving``, ``configs``,
-``kernels`` and ``telemetry`` either resolves in the port's package of the same name or is
-listed in ``UNPORTED`` under the numbered ROADMAP queue A item that will
+``kernels``, ``telemetry``, ``faults`` and ``checkpoint`` either
+resolves in the port's package of the same name or is listed in
+``UNPORTED`` under the numbered ROADMAP queue A item that will
 bring it, or with the reason it has no counterpart.
 A name that resolves must not also be listed.  ``get_config`` matches the
 reference field by field for every architecture, except the port's
@@ -34,7 +35,7 @@ from repro_torch.sweep import runners as trun
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGES = ("core", "sweep", "federated", "api", "models", "serving",
-            "configs", "kernels", "telemetry")
+            "configs", "kernels", "telemetry", "faults", "checkpoint")
 
 # name -> the ROADMAP queue A item that ports it
 _ITEMS = {
