@@ -25,12 +25,22 @@ PyTorch version on the card, and drives the port's main paths:
   prefill runs the flash-attention kernel B6 on its tensor-core route
   (float32 and bf16 at d 48 take its SIMT route, swept in phase 16).
 
+* training: ``launch.train.run_training`` and ``launch.train_bcd`` on the
+  100m preset at full width and depth (TR1, TR3), card against CPU at a
+  tiny config (TR2), the threaded ``PIAGServer`` and ``SharedMemoryBCD``
+  on real threads with a stream each (RT1, RT2), their crash and respawn
+  contract (RT3), and ``run_piag_lipschitz`` (L1); no hand-written kernel
+  runs there.  ``python3 chip_smoke.py --only-training`` runs these alone
+  and prints no result.
+
 Each phase prints one line; any failure raises and the script exits
 non-zero.  The last three lines are the kernels' JSON, the card's name and
 power limit, and ``{"ok": true, "device": ...}``.  Exits non-zero without
 a result when no CUDA device is present.
 """
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -56,7 +66,11 @@ from repro_torch.core.bcd import run_bcd_logreg  # noqa: E402
 from repro_torch.core.engine import (heterogeneous_workers,  # noqa: E402
                                      simulate_parameter_server,
                                      simulate_shared_memory, trace_scan)
-from repro_torch.core.piag import run_piag_logreg  # noqa: E402
+from repro_torch.core.piag import (run_piag_lipschitz,  # noqa: E402
+                                   run_piag_logreg)
+from repro_torch.core.runtime import (PIAGServer,  # noqa: E402
+                                      SharedMemoryBCD, WorkerCrash)
+from repro_torch.core.theory import check_principle  # noqa: E402
 from repro_torch.core.problems import (make_logreg,  # noqa: E402
                                        solve_centralized)
 from repro_torch.core.prox import L1, make_prox  # noqa: E402
@@ -81,10 +95,13 @@ from repro_torch.kernels.fused_step import (  # noqa: E402
     fused_policy_buff_step, fused_policy_buff_step_ref,
     fused_policy_mix_step, fused_policy_mix_step_ref, fused_policy_prox_step,
     fused_policy_prox_step_ref, _launch_floor)
+from repro_torch.launch import train as ttrain  # noqa: E402
+from repro_torch.launch import train_bcd as tbcd  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import forward, init_params, prefill  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
-from repro_torch.models.transformer import Layer  # noqa: E402
+from repro_torch.models.transformer import (Layer,  # noqa: E402
+                                            Transformer)
 from repro_torch.serving import ContinuousBatcher, Request  # noqa: E402
 from repro_torch.sweep.policies import POLICY_IDS, PolicyParams  # noqa: E402
 from repro_torch.sweep.cache import clear_program_cache  # noqa: E402
@@ -1439,6 +1456,355 @@ def _fixed_h(spec):
                                                    horizon=256))
 
 
+# -------------------------- training and the threaded runtimes ----
+
+# the trainers' losses card vs CPU, relative to the first loss (float32
+# sums in other orders; AdamW maps a near-zero gradient element's
+# rounding to an update of up to lr: tests/test_torch_train.py)
+TRAIN_LOSS_REL = 1e-4
+TRAIN_TINY = dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                  head_dim=32, d_ff=256, vocab=512)
+
+
+def _quiet(fn, *args, **kw):
+    """``fn`` with its per-step prints kept off the smoke's output."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kw)
+
+
+def _train_cfg(preset: str, **shape):
+    return ttrain.PRESETS[preset].replace(attention_impl="chunked", **shape)
+
+
+def phase_tr1_train_100m() -> None:
+    """``launch.train.run_training`` on the 100m preset at full width and
+    depth with the CLI's defaults (batch 8, seq 256, 4 workers, adaptive1,
+    lr 3e-3), 60 steps: the loss falls; rates, peak memory, and the idle
+    share over 10 profiled steps.  No hand-written kernel runs (training
+    takes the chunked attention)."""
+    t_phase = time.perf_counter()
+    cfg = _train_cfg("100m")
+    kw = dict(batch=8, seq=256, policy_name="adaptive1", lr=3e-3,
+              n_workers=4, device=DEV)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log = _quiet(ttrain.run_training, cfg, steps=60, log_every=10, **kw)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if any(fn.launches for fn in COUNTERS):
+        raise AssertionError("TR1: training launched a hand-written kernel")
+    losses = [r["loss"] for r in log]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] - 0.3:
+        raise AssertionError(f"TR1: the loss did not fall: {losses}")
+    # the loop's wall (the 4 initial gradients come before t0)
+    wall = log[-1]["wall_s"]
+    steps = log[-1]["step"] + 1
+    # the idle share of 10 steps: a 10-step run less a 0-step run (the
+    # model's initialization and the 4 initial gradients), both profiled
+    w0, b0 = _busy_wall(lambda: _quiet(ttrain.run_training, cfg, steps=0,
+                                       **kw))
+    w10, b10 = _busy_wall(lambda: _quiet(ttrain.run_training, cfg, steps=10,
+                                         log_every=10, **kw))
+    busy, wall10 = b10 - b0, w10 - w0
+    idle = f"{1 - busy / wall10:.3f}" if busy > 0 else "not measured"
+    n_params = sum(p.numel() for p in
+                   Transformer(cfg, None, torch.device("meta")).parameters())
+    # model FLOPs: a forward is 2 per matmul weight per token (the token
+    # table is a gather) plus QK^T and PV over all S x S positions (the
+    # chunked attention computes the masked half too); a step is four
+    # forwards' worth (forward, remat's second forward, the backward's two)
+    B, S = kw["batch"], kw["seq"]
+    fwd = (2 * (n_params - cfg.vocab * cfg.d_model) * B * S
+           + cfg.n_layers * 4 * B * cfg.n_heads * S * S * cfg.head_dim)
+    flops10 = 10 * 4 * fwd + 2 * fwd
+    say("TR1 train 100m", f"run_training {cfg.name} ({n_params / 1e6:.1f} M "
+        f"params, {cfg.n_layers} layers, d_model {cfg.d_model}, float32, "
+        f"attention chunked), batch 8 x seq 256, 4 workers, adaptive1, lr "
+        f"3e-3: {steps} steps in {wall:.3f} s, {steps / wall:.3f} steps/s, "
+        f"{steps * 8 * 256 / wall:.1f} tokens/s (7 loss evaluations "
+        f"included), peak {peak:.3f} GiB; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} ({', '.join(f'{v:.3f}' for v in losses)}); taus "
+        f"{[r['tau'] for r in log]}; 10 profiled steps (2 loss evaluations "
+        f"included, the initialization not): wall {wall10:.3f} s, device "
+        f"busy {busy:.3f} s, idle share {idle}, {flops10 / 1e12:.2f} model "
+        f"TFLOP, "
+        + (f"{flops10 / busy / 1e12:.1f}" if busy > 0 else "not measured")
+        + f" TFLOP/s of busy time (float32, TF32 off; peak "
+        f"{F32_OPS_PER_S / 1e12:.0f}); "
+        f"no kernel launches; phase wall {time.perf_counter() - t_phase:.1f} "
+        "s")
+
+
+def _busy_wall(run) -> Tuple[float, float]:
+    """Wall seconds of one call of ``run`` and the card's busy seconds in
+    it: the sum of the device events of a profile that records the card
+    only, read from the profiler's raw results (no host-op records to
+    build, which took tens of seconds for a training run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA)
+    return wall, busy / 1e9
+
+
+def _cpu_init(cfg, generator=None, device=None):
+    """The port's initializer drawn on the CPU and moved to ``device``, so
+    the card and the CPU start from the same parameters."""
+    return init_params(cfg, torch.Generator().manual_seed(0),
+                       device="cpu").to(device)
+
+
+def phase_tr2_train_card_vs_cpu() -> None:
+    """``run_training`` and ``run_bcd_training`` at the tiny config of
+    ``tests/test_system.py`` on the card and on the CPU from the same
+    parameters: taus, blocks exact, gammas bitwise, losses within
+    ``TRAIN_LOSS_REL`` of the first."""
+    t_phase = time.perf_counter()
+    cfg = _train_cfg("25m", name="lm-tiny", **TRAIN_TINY)
+    worst = {}
+    saved = (ttrain.init_params, tbcd.init_params)
+    ttrain.init_params = tbcd.init_params = _cpu_init
+    try:
+        for name, run in (
+                ("train", lambda dev: _quiet(
+                    ttrain.run_training, cfg, steps=20, batch=4, seq=64,
+                    n_workers=3, log_every=1, device=dev)),
+                ("bcd", lambda dev: _quiet(
+                    tbcd.run_bcd_training, cfg,
+                    Adaptive1(gamma_prime=0.5), steps=20, batch=4, seq=64,
+                    m_blocks=4, n_workers=3, log_every=1, device=dev))):
+            lc, lh = run(DEV), run("cpu")
+            for a, b in zip(lc, lh):
+                keys = ("step", "tau", "block") if name == "bcd" else \
+                    ("step", "tau")
+                if any(a[k] != b[k] for k in keys) or np.float32(
+                        a["gamma"]).view(np.int32) != np.float32(
+                        b["gamma"]).view(np.int32):
+                    raise AssertionError(f"TR2 {name}: card {a} cpu {b}")
+            err = max(abs(a["loss"] - b["loss"]) for a, b in zip(lc, lh)) \
+                / abs(lh[0]["loss"])
+            if not err <= TRAIN_LOSS_REL:
+                raise AssertionError(f"TR2 {name}: losses {err:.3e} apart")
+            worst[name] = err
+    finally:
+        ttrain.init_params, tbcd.init_params = saved
+    say("TR2 train card vs cpu", f"lm-tiny (2 layers, d_model 128), 20 "
+        f"steps each: run_training and run_bcd_training taus and blocks "
+        f"exact, gammas bitwise, losses within {worst['train']:.2e} and "
+        f"{worst['bcd']:.2e} of the first (envelope {TRAIN_LOSS_REL}); "
+        f"phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_tr3_bcd_100m() -> None:
+    """``run_bcd_training`` on the 100m preset at full width and depth, m
+    4 blocks, 3 workers, Adaptive1(gamma' = 0.5) as the reference's test,
+    30 steps: finite losses that fall."""
+    t_phase = time.perf_counter()
+    cfg = _train_cfg("100m")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    log = _quiet(tbcd.run_bcd_training, cfg, Adaptive1(gamma_prime=0.5),
+                 steps=30, batch=8, seq=256, m_blocks=4, n_workers=3,
+                 log_every=10, device=DEV)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r["loss"] for r in log]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"TR3: the loss did not fall: {losses}")
+    say("TR3 bcd 100m", f"run_bcd_training {cfg.name}, m 4 blocks, 3 "
+        f"workers, batch 8 x seq 256: 30 steps in {wall:.3f} s (init "
+        f"included), {30 / log[-1]['wall_s']:.3f} steps/s, peak "
+        f"{peak:.3f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"blocks {[r['block'] for r in log]}, taus "
+        f"{[r['tau'] for r in log]}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def _principle(log, gp: float) -> bool:
+    """Eq. (8) on a runtime's log, to the float32 resolution of the
+    policy's running sum S_k (the window sums are differences of it: at
+    S_k ~ 500 one float32 ulp is 6e-5, above ``check_principle``'s default
+    1e-5 gamma')."""
+    total = np.float32(np.sum(np.asarray(log.gammas, np.float64)))
+    atol = max(1e-5 * max(gp, 1.0), 4.0 * float(np.spacing(total)))
+    return check_principle(log.gammas, log.taus, np.float32(gp), atol=atol)
+
+
+def _tau_profile(taus) -> str:
+    t = np.asarray(taus)
+    q = np.percentile(t, [50, 90, 99]).tolist()
+    return (f"tau max {int(t.max())}, share <= 5 {np.mean(t <= 5):.3f}, "
+            f"p50/p90/p99 {q[0]:.0f}/{q[1]:.0f}/{q[2]:.0f}, counts "
+            f"{np.bincount(t, minlength=1)[:12].tolist()}")
+
+
+def _mnist_problem():
+    """mnist-96's 60 000 x 784 problem (10 workers' shards), the resolve
+    memo's entry (its block smoothness at m = 20 memoized in phase 4b)."""
+    return api.resolve(main_spec(n_events=10)).problem
+
+
+def phase_rt1_piag_server(prob) -> None:
+    """The threaded PIAG parameter server (10 worker threads, each on its
+    own stream) on mnist-96's problem, 2000 events, adaptive1 and adaptive2:
+    Eq. (8) holds on the logs, the objective falls; events/s, the delays,
+    the overlap."""
+    t_phase = time.perf_counter()
+    gp = 0.99 / prob.L
+    notes = []
+    for name, pol in (("adaptive1", Adaptive1(gamma_prime=gp)),
+                      ("adaptive2", Adaptive2(gamma_prime=gp))):
+        srv = PIAGServer(prob, pol, L1(lam=prob.lam1), n_workers=10,
+                         device=DEV)
+        t0 = time.perf_counter()
+        log = srv.run(2000)
+        wall = time.perf_counter() - t0
+        if not _principle(log, gp):
+            raise AssertionError(f"RT1 {name}: Eq. (8) violated")
+        obj = log.objective
+        if not (np.isfinite(obj).all() and obj[-1] < obj[0]):
+            raise AssertionError(f"RT1 {name}: objective {obj[0]} -> "
+                                 f"{obj[-1]}")
+        notes.append(f"{name}: {2000 / wall:.1f} events/s, P {obj[0]:.6f} "
+                     f"-> {obj[-1]:.6f}, {_tau_profile(log.taus)}, "
+                     f"gradients in flight at once {log.in_flight_max}, "
+                     f"crashes {log.crashes}, join failures "
+                     f"{log.join_failures}")
+    say("RT1 piag server", "PIAGServer 60000 x 784, 10 workers, 2000 "
+        "events, Eq. (8) holds on both logs; " + "; ".join(notes)
+        + f"; phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_rt2_shared_memory_bcd(prob) -> None:
+    """Threaded shared-memory Async-BCD (8 worker threads, m 20) on
+    mnist-96's problem, 1500 events, ``examples/async_bcd_lasso.py``'s
+    policies: adaptive1 measures the delays, the fixed step-sizes take its
+    max; Eq. (8) holds on the adaptive logs (and is reported for the fixed
+    ones, which are not built on it: Sun-Deng's gamma'/(tau_bound + 1/2)
+    exceeds Eq. (8)'s gamma'/(tau + 1) at tau = tau_bound, and a delay
+    past the bound breaks any fixed step-size)."""
+    t_phase = time.perf_counter()
+    m = 20
+    lh = prob.block_smoothness(m)
+    gp = 0.99 / lh
+    prox = L1(lam=prob.lam1)
+
+    def run(pol):
+        # every event recorded: Eq. (8) needs every gamma of a window
+        bcd = SharedMemoryBCD(prob, pol, prox, n_workers=8, m_blocks=m,
+                              device=DEV)
+        t0 = time.perf_counter()
+        log = bcd.run(1500)
+        return log, time.perf_counter() - t0
+
+    runs = {"adaptive1": run(Adaptive1(gamma_prime=gp))}
+    tau_max = max(runs["adaptive1"][0].taus)
+    ratio = float(2.0 * prob.L / (lh * np.sqrt(m)))
+    runs["adaptive2"] = run(Adaptive2(gamma_prime=gp))
+    runs["sun_deng"] = run(SunDengFixed(gamma_prime=gp, tau_bound=tau_max))
+    runs["davis"] = run(DavisFixed(gamma_prime=gp, tau_bound=tau_max,
+                                   ratio=ratio))
+    notes = []
+    for name, (log, wall) in runs.items():
+        # the adaptive policies hold Eq. (8) at any delay; the fixed ones
+        # are not built on it (see the docstring)
+        held = _principle(log, gp)
+        if name.startswith("adaptive") and not held:
+            raise AssertionError(f"RT2 {name}: Eq. (8) violated")
+        obj = log.objective
+        if len(obj) != 1500 or not np.isfinite(obj).all() \
+                or not obj[-1] < obj[0]:
+            raise AssertionError(f"RT2 {name}: {len(obj)} rows, objective "
+                                 f"{obj[0]} -> {obj[-1]}")
+        notes.append(f"{name}: {1500 / wall:.1f} events/s, P {obj[0]:.6f} "
+                     f"-> {obj[-1]:.6f}, {_tau_profile(log.taus)}, in "
+                     f"flight at once {log.in_flight_max}, Eq. (8) "
+                     f"{'holds' if held else 'violated'}")
+    say("RT2 shared-memory bcd", f"SharedMemoryBCD 60000 x 784, 8 workers, "
+        f"m {m}, 1500 events, gamma' 0.99/Lhat, fixed tau bound {tau_max} "
+        "(adaptive1's max); Eq. (8) holds on both adaptive logs; "
+        + "; ".join(notes)
+        + f"; phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_rt3_runtime_chaos(prob) -> None:
+    """On the card: a killed PIAG worker surfaces as ``WorkerCrash`` within
+    its heartbeat, and with ``respawn=True`` a killed worker is revived and
+    the run completes."""
+    t_phase = time.perf_counter()
+    pol, prox = Adaptive1(gamma_prime=0.99 / prob.L), L1(lam=prob.lam1)
+    calls = {"n": 0}
+
+    def killer(i):
+        calls["n"] += 1
+        if i == 1 and calls["n"] > 30:
+            raise RuntimeError("injected kill")
+        return 0.0
+
+    srv = PIAGServer(prob, pol, prox, n_workers=10, worker_sleep=killer,
+                     heartbeat=0.5, device=DEV)
+    t0 = time.perf_counter()
+    try:
+        srv.run(2000)
+    except WorkerCrash as e:
+        surfaced = time.perf_counter() - t0
+        if "injected kill" not in str(e.__cause__):
+            raise
+    else:
+        raise AssertionError("RT3: the killed worker went unnoticed")
+    killed = {"done": False}
+
+    def kill_once(i):
+        if i == 3 and not killed["done"]:
+            killed["done"] = True
+            raise RuntimeError("transient death")
+        return 0.0
+
+    log = PIAGServer(prob, pol, prox, n_workers=10, worker_sleep=kill_once,
+                     respawn=True, heartbeat=0.5, device=DEV).run(300)
+    if (log.crashes, log.respawns) != (1, 1) or len(log.objective) != 300 \
+            or not np.isfinite(log.objective).all():
+        raise AssertionError(f"RT3: crashes {log.crashes}, respawns "
+                             f"{log.respawns}, {len(log.objective)} rows")
+    say("RT3 runtime chaos", f"killed worker raised WorkerCrash after "
+        f"{surfaced:.3f} s (heartbeat 0.5 s) with its exception chained; "
+        f"respawn revived a killed worker: 300 events, crashes 1, "
+        f"respawns 1, tau max {max(log.taus)}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_l1_lipschitz(prob) -> None:
+    """``run_piag_lipschitz`` (neither the delay bound nor L) on mnist-96's
+    problem and one 10-worker trace of 2500 events: finite, the objective
+    falls, L_est never decreases."""
+    t_phase = time.perf_counter()
+    trace = simulate_parameter_server(10, 2500, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_piag_lipschitz(prob, trace, L1(lam=prob.lam1), gamma0=1000.0,
+                             device=DEV)
+    obj = res.objective.cpu().numpy()
+    L = res.opt_residual.cpu().numpy()
+    wall = time.perf_counter() - t0
+    if not (np.isfinite(obj).all() and obj[-1] < obj[0]
+            and np.all(np.diff(L) >= 0)):
+        raise AssertionError(f"L1: objective {obj[0]} -> {obj[-1]}, L_est "
+                             f"{L[0]} -> {L[-1]}")
+    say("L1 lipschitz", f"run_piag_lipschitz 60000 x 784, 10 workers, 2500 "
+        f"events (max delay {trace.max_delay()}), gamma0 1000: "
+        f"{2500 / wall:.1f} events/s, P {obj[0]:.6f} -> {obj[-1]:.6f}, "
+        f"L_est {L[0]:.6f} -> {L[-1]:.6f} (the problem's L {prob.L:.6f}), "
+        f"clipped {int(res.clipped)}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 # ------------------------------------------------- B6 and serving ----
 
 def _fa_check(got, want) -> float:
@@ -2167,7 +2533,34 @@ def phase_ops_timing(inp, name: str, errs: dict) -> dict:
     return rows
 
 
+def phases_training() -> None:
+    """TR1-TR3 (the trainers at 100m), RT1-RT3 (the threaded runtimes on
+    mnist-96's problem) and L1, with their wall time."""
+    t_train = time.perf_counter()
+    phase_tr1_train_100m()
+    phase_tr2_train_card_vs_cpu()
+    phase_tr3_bcd_100m()
+    torch.cuda.empty_cache()
+    prob = _mnist_problem()
+    phase_rt1_piag_server(prob)
+    phase_rt2_shared_memory_bcd(prob)
+    phase_rt3_runtime_chaos(prob)
+    phase_l1_lipschitz(prob)
+    del prob
+    torch.cuda.empty_cache()
+    say("TR-L1", f"training, runtime and Lipschitz phases took "
+        f"{time.perf_counter() - t_train:.1f} s")
+
+
 def main() -> None:
+    if sys.argv[1:] == ["--only-training"]:
+        # the training and runtime phases alone (no kernel is built: none
+        # runs there); prints no result line
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        phase_device()
+        phases_training()
+        return
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2213,6 +2606,9 @@ def main() -> None:
     phase_f3_fig_faults()
     phase_f4_other_solvers()
     resumed = phase_r1_resume()
+    # training (the trainers take the chunked attention, no kernel) and the
+    # threaded runtimes, before the serving phases allocate qwen2.5-32b
+    phases_training()
     # the serving path (B6): the kernel alone first, then the full model
     fa_err = phase_fa_vs_plain()
     t_fa = phase_fa_timing(name, 4, 64, fa_err)

@@ -16,7 +16,8 @@ the hand-written kernel per event for all cells
 ops.  ``telemetry=`` threads the in-loop delay accumulators
 (``repro_torch.telemetry``) through a separate step body, and
 ``faults=`` switches in the guarded step body (``repro_torch.faults``).
-Not ported yet: ``run_piag_lipschitz``.
+``run_piag_lipschitz`` runs PIAG with neither the delay bound nor L
+known (``AdaptiveLipschitz``), one solo run as a loop over events.
 """
 from __future__ import annotations
 
@@ -31,10 +32,12 @@ from ..faults.inject import update_fault_codes
 from ..faults.spec import normalize_faults
 from .engine import EventTrace, solver_loop
 from .prox import ProxOp
-from .stepsize import (StepsizePolicy, auto_horizon, clipped_count,
-                       init_state)
+from ..kernels.dispatch import resolve_device
+from .stepsize import (AdaptiveLipschitz, StepsizePolicy, auto_horizon,
+                       clipped_count, init_state)
 
-__all__ = ["PIAGResult", "piag_scan", "run_piag", "run_piag_logreg"]
+__all__ = ["PIAGResult", "piag_scan", "run_piag", "run_piag_logreg",
+           "run_piag_lipschitz"]
 
 ENGINES = ("scan", "fused")
 
@@ -256,6 +259,56 @@ def run_piag(
                     engine=engine, grad_fn=grad_fn, faults=faults,
                     fault_codes=codes)
     return _solo(res)
+
+
+def run_piag_lipschitz(problem, trace, prox, h: float = 0.9,
+                       alpha: float = 0.9, gamma0: float = 1.0,
+                       horizon: int = 4096, device=None) -> PIAGResult:
+    """BEYOND-PAPER: PIAG needing neither the delay bound nor L.
+
+    Uses core.stepsize.AdaptiveLipschitz: per write event, the returning
+    worker's (old grad, new grad, old iterate, new iterate) quadruple yields
+    a secant curvature sample ||dg||/||dx||; the running max estimates L and
+    sets the Eq.-(8) budget gamma' = h / L_est on-line (the paper's §5
+    future work, made concrete).  Runs on ``device`` (the CUDA card unless
+    ``"cpu"``); ``opt_residual`` holds L_est after each event."""
+    dev = resolve_device(device)
+    Aw, bw = (t.to(dev) for t in problem.worker_slices())
+    n = Aw.shape[0]
+    grad_i = getattr(problem, "worker_grad", None)
+    if grad_i is None:
+        from torch.func import grad
+        grad_i = grad(problem.worker_loss)
+    pol = AdaptiveLipschitz(gamma_prime=gamma0, h=h, alpha=alpha)
+    x = torch.zeros((problem.dim,), dtype=torch.float32, device=dev)
+
+    gtab = torch.stack([grad_i(x, Aw[i], bw[i]) for i in range(n)])
+    x_read = x.expand(n, -1).clone()
+    x_prev = x_read.clone()
+    workers = np.asarray(trace.worker, np.int64)
+    taus = torch.as_tensor(np.asarray(trace.tau_max, np.int32), device=dev)
+    lip = pol.init(horizon, device=dev)
+    obj, gam, L_est = [], [], []
+    for k, w in enumerate(workers.tolist()):
+        tau = taus[k]
+        xw = x_read[w]
+        gw = grad_i(xw, Aw[w], bw[w])
+        # secant curvature sample from worker w's consecutive gradients
+        dg = torch.linalg.vector_norm(gw - gtab[w])
+        dx = torch.linalg.vector_norm(xw - x_prev[w])
+        lip = pol.observe_curvature(lip, dg, dx)
+        gtab[w] = gw
+        x_prev[w] = xw
+        g = torch.mean(gtab, dim=0)
+        gamma, lip = pol.step(lip, tau)
+        x = prox.prox(x - gamma * g, gamma)
+        x_read[w] = x
+        obj.append(problem.P(x))
+        gam.append(gamma)
+        L_est.append(lip.L_est)
+    return PIAGResult(x=x, objective=torch.stack(obj), gammas=torch.stack(gam),
+                      taus=taus, opt_residual=torch.stack(L_est),
+                      clipped=clipped_count(lip))
 
 
 def run_piag_logreg(problem, trace, policy, prox, horizon: int = 4096,

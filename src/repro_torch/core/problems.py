@@ -1,6 +1,7 @@
 """Benchmark problems (counterpart of ``repro.core.problems``):
 l1-regularized logistic regression (the paper's §4 workload, rcv1-like
-sparse and MNIST-like dense synthetic data) and the lasso.
+sparse and MNIST-like dense synthetic data), the lasso, and Example 1's
+quadratic.
 
 The data generators are the reference's numpy code verbatim, so the same
 seed gives bitwise-equal data; the arrays then move to the device as
@@ -130,6 +131,14 @@ class LogRegProblem:
         return (torch.mean(_logaddexp0(-z), dim=-1)
                 + 0.5 * f32(self.lam2, x) * torch.sum(x * x, dim=-1))
 
+    def worker_grad(self, x: torch.Tensor, Aw: torch.Tensor,
+                    bw: torch.Tensor) -> torch.Tensor:
+        """The gradient of ``worker_loss`` at one iterate ``x`` (d,), in
+        closed form (what the threaded runtimes' workers compute)."""
+        z = bw * (Aw @ x)
+        s = -bw * torch.sigmoid(-z) / Aw.shape[0]
+        return s @ Aw + f32(self.lam2, x) * x
+
     def worker_grads(self):
         """``grad_fn(xw (B, d), w (B,)) -> (B, d)``: the gradient of f_{w_b}
         at ``xw_b`` for every cell b, in closed form.
@@ -243,6 +252,10 @@ class LassoProblem:
         r = x @ Aw.T - yw
         return 0.5 * torch.mean(r * r, dim=-1)
 
+    def worker_grad(self, x, Aw, yw):
+        """The gradient of ``worker_loss`` at one iterate, closed form."""
+        return (Aw @ x - yw) @ Aw / Aw.shape[0]
+
     def P(self, x):
         return self.f(x) + f32(self.lam1, x) * torch.sum(torch.abs(x), dim=-1)
 
@@ -298,3 +311,20 @@ def solve_centralized(problem, prox, iters: int = 3000):
         x, t = x_new, t_new
         objs.append(problem.P(x_new))
     return x, torch.stack(objs)
+
+
+@dataclasses.dataclass(frozen=True)
+class Quadratic:
+    """f(x) = 0.5 ||x||^2 scaled -- Example 1's problem (n = d = 1 scalar)."""
+
+    curvature: float = 1.0
+
+    def f(self, x: torch.Tensor) -> torch.Tensor:
+        return f32(0.5 * self.curvature, x) * torch.sum(x * x, dim=-1)
+
+    def grad_f(self, x: torch.Tensor) -> torch.Tensor:
+        return f32(self.curvature, x) * x
+
+    @property
+    def L(self):
+        return self.curvature

@@ -6,7 +6,9 @@ R(y) + ||y - x||^2 / (2 gamma)`` in closed form.  The iterate is one 1-D
 leaf: ``x`` is ``(d,)`` or ``(..., d)`` with leading cell axes, ``gamma``
 has the leading shape (one step-size per cell), ``value`` reduces over the
 last axis, and ``GroupL2`` treats each cell's leaf as one group.  Python
-constants enter as float32, as they do in the reference.
+constants enter as float32, as they do in the reference.  ``tree_prox``
+applies an operator to a pytree of tensors (a model's parameters), as the
+reference's operators do: leafwise, each leaf one group for ``GroupL2``.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import dataclasses
 
 import torch
 
+from .pytree import tree_map
 from .stepsize import f32
 
 
@@ -133,6 +136,18 @@ PROX_OPS = {
     "box": Box,
     "group_l2": GroupL2,
 }
+
+
+def tree_prox(op: ProxOp, tree, gamma):
+    """``op.prox`` over every leaf of ``tree`` with one step-size
+    ``gamma`` (a 0-d tensor or a number); ``GroupL2`` takes each whole
+    leaf as one group."""
+    if isinstance(op, Zero):
+        return tree
+    if isinstance(op, GroupL2):
+        return tree_map(lambda v: op.prox(v.reshape(-1), gamma).view(v.shape),
+                        tree)
+    return tree_map(lambda v: op.prox(v, gamma), tree)
 
 
 def make_prox(name: str, **kwargs) -> ProxOp:

@@ -6,7 +6,8 @@ so a test can hand both packages identical state: a problem's data and
 constants, an iterate, a step-size state, policy parameters, an event
 trace, the federated state -- client models given as plain numbers,
 pre-sampled client rounds, federated traces (host or device columns) and
-a federated result's leaves -- and a model's parameters.
+a federated result's leaves -- a model's parameters, and a trainer's
+state (parameters and delay-adaptive optimizer).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from .core.engine import EventTrace, WorkerModel
+from .core.pytree import tree_map
 from .core.problems import LogRegProblem
 from .federated.events import (ClientModel, ClientRounds, FederatedTrace,
                                FederatedTraceArrays)
@@ -25,7 +27,7 @@ from .sweep.policies import PolicyParams
 __all__ = ["logreg_problem", "iterate", "stepsize_state", "policy_params",
            "event_trace", "client_models", "client_rounds",
            "federated_trace", "federated_trace_arrays", "fed_result",
-           "model_params", "model_tree"]
+           "model_params", "model_tree", "train_state"]
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -199,3 +201,46 @@ def model_tree(model) -> dict:
                             .cpu().numpy() for layer in model.layers])
             for name in getattr(model.layers[0], part)}
     return tree
+
+
+def _float_tree(tree, device):
+    """A tree of numpy (or JAX) leaves as float32 tensors on ``device``."""
+    return tree_map(lambda a: _tensor(a, np.float32, device), tree)
+
+
+def train_state(jax_state, cfg, device=None):
+    """The port's ``launch.steps.TrainState`` from the reference's.
+
+    ``jax_state`` is a reference ``TrainState`` (or anything with its
+    ``params`` and ``opt`` fields) whose leaves are arrays: ``params`` go
+    through :func:`model_params` into the port's reference-layout tree
+    (``models.param_tree``); ``opt`` is a ``DelayAdaptiveState`` whose
+    ``step``, ``ss`` (``StepsizeState``), ``worker_stamp`` and inner
+    optimizer state (AdamW's ``count``/``mu``/``nu``, Momentum's ``mu``,
+    or SGD's empty tuple) become the port's."""
+    from .launch.steps import TrainState
+    from .models.transformer import param_tree
+    from .optim.optimizers import AdamState, DelayAdaptiveState, MomentumState
+    dev = resolve_device(device)
+    params_np = tree_map(np.asarray, jax_state.params)
+    params = param_tree(model_params(params_np, cfg, device=dev))
+    opt = jax_state.opt
+    inner = opt.inner
+    fields = getattr(inner, "_fields", None)
+    if fields == ("count", "mu", "nu"):
+        inner = AdamState(count=_tensor(inner.count, np.int32, dev),
+                          mu=_float_tree(inner.mu, dev),
+                          nu=_float_tree(inner.nu, dev))
+    elif fields == ("mu",):
+        inner = MomentumState(mu=_float_tree(inner.mu, dev))
+    elif inner == () or inner is None:
+        inner = ()
+    else:
+        raise ValueError(f"unknown inner optimizer state {type(inner)}")
+    ss = opt.ss
+    return TrainState(params=params, opt=DelayAdaptiveState(
+        step=_tensor(opt.step, np.int32, dev),
+        ss=stepsize_state(ss.k, ss.total, ss.cumbuf, ss.clipped, device=dev),
+        inner=inner,
+        worker_stamp=_tensor(opt.worker_stamp, np.int32, dev)))
+

@@ -45,6 +45,16 @@ OBJ_REL = 1e-5
 EXACT = ("adaptive1", "adaptive2", "fixed", "naive", "constant")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's programs here are tiny: torch's intra-op threads would
+    only contend with the other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _spec(mod, backend, engine, **ex):
     if backend == "solo":
         topo = mod.TopologySpec(names=("hetero2",), n_workers=(4,))

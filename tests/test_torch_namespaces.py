@@ -3,9 +3,9 @@ registry.
 
 Every name in the ``__all__`` of the reference's ``core``, ``sweep``,
 ``federated``, ``api``, ``models``, ``serving``, ``configs``,
-``kernels``, ``telemetry``, ``faults`` and ``checkpoint`` either
-resolves in the port's package of the same name or is listed in
-``UNPORTED`` under the numbered ROADMAP queue A item that will
+``kernels``, ``telemetry``, ``faults``, ``checkpoint``, ``optim`` and
+``data`` either resolves in the port's package of the same name or is
+listed in ``UNPORTED`` under the numbered ROADMAP queue A item that will
 bring it, or with the reason it has no counterpart.
 A name that resolves must not also be listed.  ``get_config`` matches the
 reference field by field for every architecture, except the port's
@@ -35,7 +35,8 @@ from repro_torch.sweep import runners as trun
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGES = ("core", "sweep", "federated", "api", "models", "serving",
-            "configs", "kernels", "telemetry", "faults", "checkpoint")
+            "configs", "kernels", "telemetry", "faults", "checkpoint",
+            "optim", "data")
 
 # name -> the ROADMAP queue A item that ports it
 _ITEMS = {
@@ -46,15 +47,6 @@ _ITEMS = {
         "sweep.sharded_sweep_bcd", "sweep.sharded_sweep_fedasync",
         "sweep.sharded_sweep_fedbuff", "sweep.sharded_sweep_piag",
         "sweep.sharded_sweep_piag_logreg"],
-    "item 13 (threaded runtimes, theory, remaining core)": [
-        "core.AsyncOptState", "core.AsyncSGD", "core.async_sgd",
-        "core.DELAY_MODELS", "core.DelayTracker", "core.delay",
-        "core.make_delays", "core.PIAGServer", "core.RunLog",
-        "core.SharedMemoryBCD", "core.runtime", "core.Quadratic",
-        "core.run_piag_lipschitz", "core.check_principle", "core.example1",
-        "core.example1_divergence_threshold", "core.prop1_lower_bounds",
-        "core.verify_theorem1", "core.theory"],
-    "item 14c (trainers, the other model families)": ["models.loss_fn"],
     "item 15 (XLA/TPU tooling: dry-run)": [
         "models.param_specs", "configs.SHAPES", "configs.InputShape",
         "configs.applicable", "configs.input_specs"],
@@ -136,7 +128,10 @@ def test_queue_c_fault_is_repaired(fresh_import):
 
 NEW_MODULES = ("repro_torch.kernels.ops", "repro_torch.kernels.ref",
                "repro_torch.kernels.prox_step", "repro_torch.kernels.rmsnorm",
-               "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm")
+               "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
+               "repro_torch.core.runtime", "repro_torch.core.async_sgd",
+               "repro_torch.optim.optimizers", "repro_torch.data.synthetic",
+               "repro_torch.launch.train_bcd", "repro_torch.launch.steps")
 
 
 def test_every_port_module_imports_without_jax_or_the_reference(

@@ -35,6 +35,16 @@ PRODUCT_FORM = ("adaptive1", "hinge", "poly")
 GAMMA_MOMENT_REL = 1e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's programs here are tiny: torch's intra-op threads would
+    only contend with the other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ------------------------------------------------------- accumulators ----
 
 def _streams(B, K, seed, tau_hi=90):
