@@ -9,6 +9,10 @@ PyTorch version on the card, and drives the port's main paths:
 * ``repro_torch.api.run`` for PIAG, Async-BCD (m 20 blocks), FedAsync and
   FedBuff (batched, default engine) at the paper's MNIST shape, through
   kernels B1-B3, and each of the four with the in-loop telemetry on;
+* the sharded backend (``api.run(backend="sharded")``, ``sweep.shard``)
+  for all four solvers on meshes of the card (once, listed twice, and
+  with a data axis of 2), the 512-cell mega grid and the
+  ``launch.sweep`` CLI, each row launching B1-B3 on its card (S1-S4);
 * fault injection (``repro_torch.faults``: the reference's threefry bits
   drawn on the card, the guarded step of all four solvers under
   ``engine='scan'``, fig_faults's chaos figure) and checkpointed resume
@@ -95,6 +99,7 @@ from repro_torch.kernels.fused_step import (  # noqa: E402
     fused_policy_buff_step, fused_policy_buff_step_ref,
     fused_policy_mix_step, fused_policy_mix_step_ref, fused_policy_prox_step,
     fused_policy_prox_step_ref, _launch_floor)
+from repro_torch.launch import sweep as tsweep  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.launch import train_bcd as tbcd  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
@@ -107,8 +112,10 @@ from repro_torch.sweep.policies import POLICY_IDS, PolicyParams  # noqa: E402
 from repro_torch.sweep.cache import clear_program_cache  # noqa: E402
 from repro_torch.sweep.grid import make_grid  # noqa: E402
 from repro_torch.sweep.runners import fed_bucket_races  # noqa: E402
+from repro_torch.mesh import cell_mesh, grid_mesh  # noqa: E402
 
 DEV = torch.device("cuda")
+CARD = torch.device("cuda", 0)  # the card of the sharded phases' meshes
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12        # H100 SXM TF32 dense tensor cores
@@ -1456,6 +1463,225 @@ def _fixed_h(spec):
                                                    horizon=256))
 
 
+# ------------------------------------------------- the sharded backend ----
+
+def _sharded_rows(tag: str, batched, sharded, bitwise: bool) -> float:
+    """Raise unless the sharded rows equal the batched rows: integer
+    leaves and gammas (weights) exact; every float leaf too when
+    ``bitwise``, else the objective within OBJ_REL_ENVELOPE of its
+    start.  Returns the objective's largest difference over its start."""
+    a, b = batched.raw, sharded.raw
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if not isinstance(x, torch.Tensor):
+            continue
+        exact = bitwise or not x.dtype.is_floating_point \
+            or f in ("gammas", "weights")
+        if exact and not torch.equal(x, y):
+            raise AssertionError(f"{tag}: sharded {f} differs from batched")
+    start = a.objective[:, :1].abs()
+    rel = float(((a.objective - b.objective).abs() / start).max())
+    if not (rel <= OBJ_REL_ENVELOPE):
+        raise AssertionError(f"{tag}: objective {rel:.3g} of its start "
+                             "from batched")
+    return rel
+
+
+def _sharded_pair(spec, mesh, counter):
+    """(batched result, sharded result on ``mesh``, the sharded run's
+    launches of ``counter``: counts set to 0 just before it, read just
+    after).  Each result carries ``wall``: its ``api.run`` call, resolve
+    included (a batched federated run races its buckets there, a sharded
+    one in each row's dispatch)."""
+    t0 = time.perf_counter()
+    batched = api.run(spec)
+    batched.wall = time.perf_counter() - t0
+    sharded_spec = spec.replace(execution=dataclasses.replace(
+        spec.execution, backend="sharded", mesh=mesh))
+    reset_counts()
+    t0 = time.perf_counter()
+    sharded = api.run(sharded_spec)
+    sharded.wall = time.perf_counter() - t0
+    return batched, sharded, counter.launches
+
+
+def _rate(res) -> float:
+    return len(res) * res.n_events / res.elapsed_s
+
+
+def phase_s1_sharded_main_path(devices=None, tag: str = "S1 sharded"):
+    """mnist-96 through ``api.run(backend="sharded")`` on a mesh of the
+    card alone (or of ``devices``, one row each): one B1 launch an event
+    a row; on one device the rows are bitwise the batched run's."""
+    t_phase = time.perf_counter()
+    devs = [CARD] if devices is None else devices
+    mesh = cell_mesh(devs)
+    batched, sharded, n = _sharded_pair(main_spec(), mesh,
+                                        fused_policy_prox_step)
+    K, buckets = sharded.n_events, len(sharded.grid.buckets())
+    if n != K * buckets * len(devs):
+        raise AssertionError(f"{tag}: {n} B1 launches, expected {K} x "
+                             f"{buckets} buckets x {len(devs)} rows")
+    rel = _sharded_rows(tag, batched, sharded, bitwise=len(set(devs)) == 1)
+    say(tag, f"mnist-96 (96 cells, {K} events) on mesh {mesh.shape} of "
+        f"{[str(d) for d in devs]}: rows "
+        f"{'bitwise' if len(set(devs)) == 1 else 'integer leaves and gammas exact'}"
+        f" to batched (objective {rel:.3g} of its start), B1 launches {n} "
+        f"(= {K} events x {buckets} bucket x {len(devs)} row); sharded "
+        f"{_rate(sharded):.1f} cell-events/s (dispatch "
+        f"{sharded.elapsed_s:.3f} s) vs batched {_rate(batched):.1f} "
+        f"({batched.elapsed_s:.3f} s); record devices="
+        f"{sharded.telemetry.devices} mesh_shape="
+        f"{sharded.telemetry.mesh_shape}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return n
+
+
+def phase_s2_sharded_repeated_card() -> dict:
+    """mnist-96 at 500 events on a mesh that lists the card twice, as (2,)
+    (two rows: twice the B1 launches) and as (1, 2) (one row, a data axis
+    of 2: the gradient in two sample halves summed in order)."""
+    t_phase = time.perf_counter()
+    card0 = [CARD] * 2
+    out, notes = {}, []
+    for name, mesh, rows in (("(2,)", cell_mesh(card0), 2),
+                             ("(1, 2)", grid_mesh((1, 2), card0), 1)):
+        batched, sharded, n = _sharded_pair(main_spec(n_events=500), mesh,
+                                            fused_policy_prox_step)
+        K, buckets = sharded.n_events, len(sharded.grid.buckets())
+        if n != K * buckets * rows:
+            raise AssertionError(f"S2 {name}: {n} B1 launches, expected "
+                                 f"{K * buckets * rows}")
+        rel = _sharded_rows(f"S2 {name}", batched, sharded, bitwise=False)
+        out[name] = n
+        notes.append(f"{name}: B1 launches {n}, objective {rel:.3g} of its "
+                     f"start, sharded {_rate(sharded):.1f} vs batched "
+                     f"{_rate(batched):.1f} cell-events/s")
+    say("S2 sharded x2", "mnist-96, 500 events, the card listed twice; "
+        "integer leaves and gammas exact to batched; " + "; ".join(notes)
+        + f"; phase wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_s3_sharded_other_solvers() -> dict:
+    """Async-BCD (mnist-96-bcd), FedAsync and FedBuff (mnist-fed-24) at
+    500 events on the (2,) mesh of the card listed twice: rows against
+    batched, and the B1, B2 and B3 launches (two rows each)."""
+    t_phase = time.perf_counter()
+    mesh = cell_mesh([CARD] * 2)
+    out, notes = {}, []
+    for name, spec, counter in (
+            ("bcd", bcd_spec(n_events=500), fused_policy_prox_step),
+            ("fedasync", fed_spec("fedasync", n_events=500),
+             fused_policy_mix_step),
+            ("fedbuff", fed_spec("fedbuff", n_events=500),
+             fused_policy_buff_step)):
+        batched, sharded, n = _sharded_pair(spec, mesh, counter)
+        K, buckets = sharded.n_events, len(sharded.grid.buckets())
+        if n != 2 * K * buckets:
+            raise AssertionError(f"S3 {name}: {n} launches, expected "
+                                 f"{2 * K * buckets}")
+        others = sum(c.launches for c in COUNTERS if c is not counter)
+        if others:
+            raise AssertionError(f"S3 {name}: another event kernel launched")
+        rel = _sharded_rows(f"S3 {name}", batched, sharded, bitwise=False)
+        out[name] = n
+        notes.append(f"{name} {len(sharded)} cells: "
+                     f"{counter.__name__} launches {n}, objective {rel:.3g} "
+                     f"of its start, sharded {_rate(sharded):.1f} vs batched "
+                     f"{_rate(batched):.1f} cell-events/s of dispatch, call "
+                     f"wall {sharded.wall:.3f} vs {batched.wall:.3f} s")
+    say("S3 sharded solvers", "(2,) mesh of the card; integer leaves and "
+        "gammas exact to batched; " + "; ".join(notes)
+        + f"; phase wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def mega_spec(**ex):
+    """``benchmarks/mega_grid.py``'s 512-cell PIAG grid: 480 x 60 logreg,
+    4 policies (adaptive1 at alpha 0.9, adaptive2, fixed and Sun-Deng at
+    the measured tau-bar) x 16 seeds x 4 standard topologies x widths 4
+    and 8, 300 events, horizon from the measured tau-bar."""
+    return api.ExperimentSpec(
+        problem=api.ProblemSpec(kind="logreg", params=dict(
+            n_samples=480, dim=60, seed=0, n_workers=8)),
+        solver=api.SolverSpec(name="piag", horizon="auto"),
+        topology=api.TopologySpec(kind="standard", n_workers=(4, 8)),
+        policies=api.PolicyGridSpec(
+            names=("adaptive1", "adaptive2", "fixed", "sun_deng"),
+            seeds=tuple(range(16)), policy_kwargs={"adaptive1":
+                                                   dict(alpha=0.9)}),
+        execution=api.ExecutionSpec(**{"backend": "batched", **ex}),
+        n_events=300)
+
+
+def phase_s4_mega_grid() -> int:
+    """The mega grid sharded on the card's (1,) mesh and batched: rows
+    bitwise, the rates of warm runs and each one's idle share; then the
+    ``launch.sweep --backend sharded`` CLI once.  Returns the sharded
+    run's B1 launches."""
+    t_phase = time.perf_counter()
+    mesh = cell_mesh([CARD])
+    specs = {"batched": mega_spec(),
+             "sharded": mega_spec(backend="sharded", mesh=mesh)}
+    res, idle = {}, {}
+    for name, spec in specs.items():
+        api.run(spec)  # warm: the problem memo, the programs, the allocator
+        reset_counts()
+        res[name] = api.run(spec)
+        res[name + "_launches"] = fused_policy_prox_step.launches
+        # the card's busy share of one more call, resolve included
+        wall, busy = _busy_wall(lambda: api.run(spec))
+        idle[name] = f"{1 - busy / wall:.3f}" if busy > 0 else "not measured"
+    B, K = len(res["sharded"]), res["sharded"].n_events
+    buckets = len(res["sharded"].grid.buckets())
+    if B != 512 or res["sharded_launches"] != K * buckets:
+        raise AssertionError(f"S4: {B} cells, "
+                             f"{res['sharded_launches']} B1 launches")
+    _sharded_rows("S4 mega", res["batched"], res["sharded"], bitwise=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        tsweep.main(["--solver", "piag", "--backend", "sharded", "--seeds",
+                     "2", "--events", "200", "--n-workers", "4,8"])
+    cli = buf.getvalue().splitlines()
+    if not cli or not cli[0].startswith("sweep[piag/sharded]: 48 cells"):
+        raise AssertionError(f"S4 CLI printed {cli[:2]}")
+    say("S4 mega grid", f"{B} cells (4 policies x 16 seeds x 4 topologies "
+        f"x widths 4, 8), 480 x 60 logreg, {K} events, H="
+        f"{res['sharded'].horizon} (tau_bar={res['sharded'].tau_bar}): "
+        f"sharded (1,) {_rate(res['sharded']):.1f} cell-events/s (dispatch "
+        f"{res['sharded'].elapsed_s:.3f} s, idle {idle['sharded']}) vs "
+        f"batched {_rate(res['batched']):.1f} ({res['batched'].elapsed_s:.3f}"
+        f" s, idle {idle['batched']}); rows bitwise; B1 launches "
+        f"{res['sharded_launches']} (= {K} x {buckets} buckets); CLI: "
+        f"{cli[0]} | {cli[1]}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return res["sharded_launches"]
+
+
+def phases_sharded() -> dict:
+    """S1-S4, and S1 across every card where the host has several."""
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        say("S0 cards", f"the host has {n_cards} CUDA card: no multi-card "
+            "mesh ran; the sharded phases run on meshes of the one card "
+            "(listed once or twice)")
+    else:
+        say("S0 cards", f"the host has {n_cards} CUDA cards: S1 runs on "
+            "the first alone and across every card")
+    out = {"S1": phase_s1_sharded_main_path()}
+    if n_cards >= 2:
+        out["S1 all cards"] = phase_s1_sharded_main_path(
+            [torch.device("cuda", i) for i in range(n_cards)],
+            tag="S1 sharded all cards")
+    out["S2"] = phase_s2_sharded_repeated_card()
+    out["S3"] = phase_s3_sharded_other_solvers()
+    out["S4"] = phase_s4_mega_grid()
+    say("S1-S4", f"sharded phases took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 # -------------------------- training and the threaded runtimes ----
 
 # the trainers' losses card vs CPU, relative to the first loss (float32
@@ -2606,6 +2832,8 @@ def main() -> None:
     phase_f3_fig_faults()
     phase_f4_other_solvers()
     resumed = phase_r1_resume()
+    # the sharded backend (B1-B3 launched by every row on its card)
+    sharded = phases_sharded()
     # training (the trainers take the chunked attention, no kernel) and the
     # threaded runtimes, before the serving phases allocate qwen2.5-32b
     phases_training()
@@ -2640,12 +2868,18 @@ def main() -> None:
                       32),
                   f"generate {cfg.name} batch 4, prompt 64, gen 32 (one "
                   "prefill and 32 decode steps)")
-    timing["launches_by_path"] = {"piag": launches, "bcd": bcd_launches,
-                                  "resume": resumed["piag"]}
+    timing["launches_by_path"] = {
+        "piag": launches, "bcd": bcd_launches, "resume": resumed["piag"],
+        "sharded_s1": sharded["S1"], "sharded_s2_2": sharded["S2"]["(2,)"],
+        "sharded_s2_1x2": sharded["S2"]["(1, 2)"],
+        "sharded_s3_bcd": sharded["S3"]["bcd"],
+        "sharded_s4_mega": sharded["S4"]}
     t_mix["launches_by_path"] = {"fedasync": fed["fedasync"][1],
-                                 "resume": resumed["fedasync"]}
+                                 "resume": resumed["fedasync"],
+                                 "sharded_s3": sharded["S3"]["fedasync"]}
     t_buff["launches_by_path"] = {"fedbuff": fed["fedbuff"][1],
-                                  "resume": resumed["fedbuff"]}
+                                  "resume": resumed["fedbuff"],
+                                  "sharded_s3": sharded["S3"]["fedbuff"]}
     rows = [("fused_policy_prox_step", KERNEL_SOURCE, REPLACES,
              launches + bcd_launches, timing),
             ("fused_policy_mix_step", KERNEL_SOURCE, REPLACES_MIX,

@@ -17,7 +17,7 @@ import importlib
 
 __all__ = ["api", "analysis", "core", "federated", "sweep", "models",
            "kernels", "serving", "configs", "launch", "interop",
-           "telemetry", "faults", "checkpoint", "optim", "data"]
+           "telemetry", "faults", "checkpoint", "optim", "data", "mesh"]
 
 
 def __getattr__(name):

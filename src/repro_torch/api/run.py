@@ -6,25 +6,27 @@ policies (with the paper's tau-bar tuning protocol for the fixed family),
 topology factories, the ``SweepGrid`` -- on the spec's device and performs
 the build-time horizon validation.  ``run(spec)`` then dispatches:
 
-========  ==================================  ================================
-solver    solo                                batched
-========  ==================================  ================================
-piag      ``core.piag.run_piag``              ``sweep.runners.sweep_piag``
-bcd       ``core.bcd.run_async_bcd``          ``sweep.runners.sweep_bcd``
-fedasync  ``federated.server.run_fedasync``   ``sweep.runners.sweep_fedasync``
-fedbuff   ``federated.server.run_fedbuff``    ``sweep.runners.sweep_fedbuff``
-========  ==================================  ================================
+========  ===========================  ========================  ==============================
+solver    solo                         batched                   sharded
+========  ===========================  ========================  ==============================
+piag      ``core.piag.run_piag``       ``sweep.sweep_piag``      ``shard.sharded_sweep_piag``
+bcd       ``core.bcd.run_async_bcd``   ``sweep.sweep_bcd``       ``shard.sharded_sweep_bcd``
+fedasync  ``federated.run_fedasync``   ``sweep.sweep_fedasync``  ``shard.sharded_sweep_fedasync``
+fedbuff   ``federated.run_fedbuff``    ``sweep.sweep_fedbuff``   ``shard.sharded_sweep_fedbuff``
+========  ===========================  ========================  ==============================
 
 Every run also builds a ``telemetry.RunRecord`` (on ``Results.telemetry``;
 appended to the JSONL ledger when one is set).  ``spec.faults`` (a
 ``faults.FaultSpec``, under ``engine='scan'``) injects faults into every
-solver, solo and batched, with the counters on ``RunRecord.faults``;
+solver and backend, with the counters on ``RunRecord.faults``;
 ``run(spec, resume=dir)`` resumes a killed run from its bucket (or cell)
-checkpoints.  What is not ported yet raises ``NotImplementedError`` naming
-its ROADMAP queue A item: the sharded backend (item 12).
+checkpoints.  The sharded backend runs on a mesh (``repro_torch.mesh``)
+from ``ExecutionSpec.mesh``, ``mesh_shape`` or ``devices``, else over
+every device of the spec's kind: every CUDA card, or the one CPU.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, NamedTuple, Optional
 
@@ -34,7 +36,7 @@ import torch
 from .. import analysis
 from ..core.bcd import run_async_bcd, sample_blocks
 from ..core.engine import generate_trace, sample_service_times
-from ..core.piag import run_piag
+from ..core.piag import default_grad_fn, run_piag
 from ..core.problems import make_lasso, make_logreg
 from ..core.prox import make_prox
 from ..core.stepsize import make_policy
@@ -43,14 +45,20 @@ from ..faults.guards import summarize_faults
 from ..faults.inject import inject_service_times
 from ..federated.events import (generate_federated_trace,
                                 heterogeneous_clients)
-from ..federated.server import _problem_pieces, run_fedasync, run_fedbuff
+from ..federated.server import (_problem_pieces, local_prox_sgd,
+                                run_fedasync, run_fedbuff)
 from ..kernels.dispatch import resolve_device
+from ..mesh import (cell_mesh, data_axis_size, data_parallel_grad,
+                    default_devices, grid_mesh, maybe_init_distributed)
 from ..sweep.grid import (SweepGrid, make_grid, measure_tau_bar,
                           standard_topology_factories)
 from ..sweep.cache import LRU, IdKey, program_cache_stats
 from ..sweep.runners import (fed_bucket_races, races_tau_bar,
                              resolve_grid_horizon, sweep_bcd, sweep_fedasync,
                              sweep_fedbuff, sweep_piag)
+from ..sweep.shard import (PerDevice, replicate, sharded_sweep_bcd,
+                           sharded_sweep_fedasync, sharded_sweep_fedbuff,
+                           sharded_sweep_piag)
 from ..telemetry.accumulators import TelemetryConfig, summarize_telemetry
 from ..telemetry.ledger import (RunRecord, append_record, cache_delta,
                                 estimate_carry_bytes, spec_fingerprint)
@@ -70,12 +78,6 @@ _PROX_MEMO = LRU(32)
 _PIECES_MEMO = LRU(32)
 
 
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue A item "
-        f"{item}); run it with the reference package `repro`")
-
-
 class Resolved(NamedTuple):
     """The concrete objects a spec compiles to (pre-dispatch); ``horizon``
     is the concrete window-buffer size."""
@@ -88,6 +90,7 @@ class Resolved(NamedTuple):
     horizon: int
     device: torch.device
     races: Optional[list] = None  # a batched federated run's bucket races
+    mesh: Any = None              # the sharded backend's mesh
 
 
 # -------------------------------------------------------------- resolve ----
@@ -189,10 +192,27 @@ def _validate_horizon(spec: ExperimentSpec, tau_bar: Optional[int]) -> None:
     check_horizon(spec.solver.horizon, tau_bar if exp is None else exp)
 
 
-def _check_ported(spec: ExperimentSpec) -> None:
-    """Refuse, before any work, what the port cannot run yet."""
-    if spec.execution.backend == "sharded":
-        raise _not_ported("backend='sharded'", 12)
+def _mesh_for(spec: ExperimentSpec, device: torch.device):
+    """The sharded backend's mesh: ``ExecutionSpec.mesh`` as given, else
+    over the devices of ``device``'s kind (every CUDA card, or the one
+    CPU; every process's, once ``torch.distributed`` is up, which a set
+    ``coordinator`` brings up first): ``mesh_shape`` over the first
+    ``devices`` of them or all, else a 1-D mesh over the first
+    ``devices`` or all.  Too few devices raise."""
+    ex = spec.execution
+    maybe_init_distributed(ex, device)
+    if ex.mesh is not None:
+        return ex.mesh
+    devs, procs = default_devices(device.type)
+    if ex.devices is not None:
+        n = int(ex.devices)
+        if len(devs) < n:
+            raise ValueError(f"ExecutionSpec.devices={n} but only "
+                             f"{len(devs)} {device.type} device(s) exist")
+        devs, procs = devs[:n], procs[:n]
+    if ex.mesh_shape is not None:
+        return grid_mesh(ex.mesh_shape, devs, procs)
+    return cell_mesh(devs, procs)
 
 
 def _resolve_horizon(spec: ExperimentSpec, grid: SweepGrid,
@@ -228,9 +248,10 @@ def _resolve_horizon(spec: ExperimentSpec, grid: SweepGrid,
 def resolve(spec: ExperimentSpec) -> Resolved:
     """Materialize problem, prox, policies and grid on the spec's device
     (``ExecutionSpec.device``; None = the CUDA card, raising when there is
-    none); validate the horizon."""
-    _check_ported(spec)
+    none); validate the horizon; build the sharded backend's mesh."""
     device = resolve_device(spec.execution.device)
+    mesh = _mesh_for(spec, device) \
+        if spec.execution.backend == "sharded" else None
     problem = _build_problem(spec, device)
     prox = _build_prox(spec, problem)
 
@@ -239,7 +260,7 @@ def resolve(spec: ExperimentSpec) -> Resolved:
             _validate_horizon(spec, None)
         horizon, races = _resolve_horizon(spec, spec.grid, None, device)
         return Resolved(spec, problem, prox, spec.grid, None, horizon, device,
-                        races)
+                        races, mesh)
 
     topos = _build_topologies(spec)
     pg = spec.policies
@@ -269,7 +290,7 @@ def resolve(spec: ExperimentSpec) -> Resolved:
     horizon, races = _resolve_horizon(
         spec, grid, tau_bar if worker_solver else None, device)
     return Resolved(spec, problem, prox, grid, tau_bar, horizon, device,
-                    races)
+                    races, mesh)
 
 
 # ------------------------------------------------------------- dispatch ----
@@ -289,6 +310,25 @@ def _piag_pieces(problem):
     return _PIECES_MEMO.get(("piag", IdKey(problem)), build)
 
 
+def _dp_worker_grads(problem):
+    """The sharded backend's batched worker gradient (``PerDevice``): the
+    problem's closed form (``worker_grads``; autograd of ``worker_loss``
+    where it has none) on each row's replica of the worker shards,
+    data-parallel over the row's data devices (each takes a contiguous
+    slice of every worker's samples), memoized per problem."""
+    def slice_grad(*part):
+        if hasattr(problem, "worker_grads"):
+            return problem.worker_grads(part)
+        return default_grad_fn(replicate(problem.worker_loss,
+                                         part[0].device), part)
+
+    def build():
+        return PerDevice(lambda row: data_parallel_grad(
+            slice_grad, problem.worker_slices(), row, sample_axis=1))
+
+    return _PIECES_MEMO.get(("piag/dp", IdKey(problem)), build)
+
+
 def _bcd_pieces(problem):
     """(grad_f, objective, x0) for Async-BCD, memoized per problem."""
     def build():
@@ -299,15 +339,45 @@ def _bcd_pieces(problem):
     return _PIECES_MEMO.get(("bcd", IdKey(problem)), build)
 
 
-def _fed_pieces(problem, prox, local_lr):
+def _bcd_dp_grad(problem):
+    """Data-parallel full gradient for sharded BCD on a (cells, data)
+    mesh (``PerDevice``): on each data device the problem's own
+    closed-form ``grad_f`` over a contiguous slice of its samples (a copy
+    of the problem holding the slice), summed in order on the row's
+    device.  None -- the runner then warns and computes it on the row's
+    first device -- for problems that are not dataclasses with ``A`` and
+    ``b`` (or ``y``)."""
+    def build():
+        target = next((n for n in ("b", "y") if hasattr(problem, n)), None)
+        if not dataclasses.is_dataclass(problem) or target is None \
+                or not hasattr(problem, "A"):
+            return None
+
+        def slice_grad(A, t):
+            return dataclasses.replace(problem, A=A, **{target: t}).grad_f
+
+        return PerDevice(lambda row: data_parallel_grad(
+            slice_grad, (problem.A, getattr(problem, target)), row))
+
+    return _PIECES_MEMO.get(("bcd/dp", IdKey(problem)), build)
+
+
+def _fed_pieces(problem, prox, local_lr, sharded: bool = False):
     """(update, x0, client_data, objective), memoized per problem, prox
-    and local step size."""
+    and local step size.  ``sharded``: the update is a ``PerDevice``
+    local prox-SGD built on each row's device over ``_dp_worker_grads``."""
     def build():
         update, x0, data = _problem_pieces(problem, prox, local_lr)
+        if sharded:
+            lr = (0.9 / problem.L) if local_lr is None else local_lr
+            grads = _dp_worker_grads(problem)
+            update = PerDevice(lambda row: local_prox_sgd(
+                replicate(problem.worker_loss, row[0]),
+                replicate(prox, row[0]), lr, grad_fn=grads.build(row)))
         return update, x0, data, problem.P
 
-    return _PIECES_MEMO.get(("fed", IdKey(problem), IdKey(prox), local_lr),
-                            build)
+    return _PIECES_MEMO.get(("fed", IdKey(problem), IdKey(prox), local_lr,
+                             sharded), build)
 
 
 def _telemetry_cfg(spec: ExperimentSpec) -> Optional[TelemetryConfig]:
@@ -357,6 +427,13 @@ def _run_piag(r: Resolved, ckpt=None):
                           bucket_widths=spec.execution.bucket_widths,
                           record_every=s, telemetry=tel, engine=eng,
                           grad_fn=grad_fn, faults=fl, checkpoint=ckpt)
+    if spec.execution.backend == "sharded":
+        return sharded_sweep_piag(
+            loss, x0, wd, r.grid, r.prox, objective=objective, horizon=h,
+            use_tau_max=utm, mesh=r.mesh,
+            bucket_widths=spec.execution.bucket_widths, record_every=s,
+            telemetry=tel, engine=eng, faults=fl, checkpoint=ckpt,
+            grad_fn=_dp_worker_grads(r.problem))
 
     def run_cell(c):
         T = sample_service_times(c.workers, r.grid.n_events + 1, seed=c.seed)
@@ -385,6 +462,14 @@ def _run_bcd(r: Resolved, ckpt=None):
                          horizon=h, bucket_widths=spec.execution.bucket_widths,
                          record_every=s, telemetry=tel, engine=eng,
                          faults=fl, checkpoint=ckpt)
+    if spec.execution.backend == "sharded":
+        return sharded_sweep_bcd(
+            grad_f, objective, x0, m, r.grid, r.prox, horizon=h,
+            mesh=r.mesh, bucket_widths=spec.execution.bucket_widths,
+            record_every=s, telemetry=tel, engine=eng, faults=fl,
+            checkpoint=ckpt,
+            dp_grad_f=(_bcd_dp_grad(r.problem)
+                       if data_axis_size(r.mesh) > 1 else None))
 
     def run_cell(c):
         T = sample_service_times(c.workers, r.grid.n_events + 1, seed=c.seed)
@@ -403,14 +488,16 @@ def _run_bcd(r: Resolved, ckpt=None):
 def _run_fed(r: Resolved, ckpt=None):
     spec = r.spec
     sv = spec.solver
-    update, x0, data, objective = _fed_pieces(r.problem, r.prox, sv.local_lr)
+    backend = spec.execution.backend
+    update, x0, data, objective = _fed_pieces(
+        r.problem, r.prox, sv.local_lr, sharded=backend == "sharded")
     h, n_steps = r.horizon, sv.n_steps
     bs = sv.buffer_size if sv.name == "fedbuff" else 1
     s = spec.execution.record_every
     tel = _telemetry_cfg(spec)
     eng = spec.execution.engine
     fl = spec.faults
-    if spec.execution.backend == "batched":
+    if backend == "batched":
         if sv.name == "fedasync":
             return sweep_fedasync(update, x0, data, r.grid,
                                   objective=objective, horizon=h,
@@ -426,6 +513,16 @@ def _run_fed(r: Resolved, ckpt=None):
                              bucket_widths=spec.execution.bucket_widths,
                              record_every=s, engine=eng, races=r.races,
                              telemetry=tel, faults=fl, checkpoint=ckpt)
+    if backend == "sharded":
+        common = dict(objective=objective, horizon=h, n_steps=n_steps,
+                      mesh=r.mesh, bucket_widths=spec.execution.bucket_widths,
+                      record_every=s, telemetry=tel, engine=eng, faults=fl,
+                      checkpoint=ckpt)
+        if sv.name == "fedasync":
+            return sharded_sweep_fedasync(update, x0, data, r.grid,
+                                          buffer_size=1, **common)
+        return sharded_sweep_fedbuff(update, x0, data, r.grid, eta=sv.eta,
+                                     buffer_size=bs, **common)
 
     def run_cell(c):
         tr = generate_federated_trace(c.n_workers, r.grid.n_events,
@@ -501,8 +598,9 @@ def _build_record(spec: ExperimentSpec, r: Resolved, raw: Any,
         record_every=int(spec.execution.record_every),
         horizon=int(r.horizon),
         tau_bar=None if r.tau_bar is None else int(r.tau_bar),
-        devices=1,
-        mesh_shape=None,
+        devices=1 if r.mesh is None else int(r.mesh.size),
+        mesh_shape=(None if r.mesh is None
+                    else [int(n) for n in r.mesh.devices.shape]),
         carry_bytes=estimate_carry_bytes(spec.solver.name,
                                          int(getattr(r.problem, "dim", 0)),
                                          width, r.horizon, len(grid.cells)),
@@ -567,6 +665,7 @@ def run(spec: ExperimentSpec, resume=None) -> Results:
 # -------------------------------------------------- component escape ----
 
 def component_spec(solver: str, backend: str, *, problem, grid, prox,
+                   mesh=None, mesh_shape=None,
                    reference: bool = False, record_every: int = 1,
                    telemetry: bool = False, telemetry_bins: int = 64,
                    engine: str = "fused", device=None, faults=None,
@@ -580,7 +679,8 @@ def component_spec(solver: str, backend: str, *, problem, grid, prox,
     return ExperimentSpec(
         problem=ProblemSpec(kind="custom", problem=problem, prox_op=prox),
         solver=SolverSpec(name=solver, **solver_kwargs),
-        execution=ExecutionSpec(backend=backend, reference=reference,
+        execution=ExecutionSpec(backend=backend, mesh=mesh,
+                                mesh_shape=mesh_shape, reference=reference,
                                 record_every=record_every,
                                 telemetry=telemetry,
                                 telemetry_bins=telemetry_bins, engine=engine,
@@ -594,13 +694,15 @@ def component_spec(solver: str, backend: str, *, problem, grid, prox,
 
 
 def run_components(solver: str, backend: str, *, problem, grid, prox,
+                   mesh=None, mesh_shape=None,
                    reference: bool = False, record_every: int = 1,
                    telemetry: bool = False, telemetry_bins: int = 64,
                    engine: str = "fused", device=None, faults=None,
                    resume=None, **solver_kwargs) -> Results:
     """``run`` over prebuilt components (see ``component_spec``)."""
     return run(component_spec(solver, backend, problem=problem, grid=grid,
-                              prox=prox, reference=reference,
+                              prox=prox, mesh=mesh, mesh_shape=mesh_shape,
+                              reference=reference,
                               record_every=record_every, telemetry=telemetry,
                               telemetry_bins=telemetry_bins, engine=engine,
                               device=device, faults=faults,

@@ -257,11 +257,30 @@ class ExecutionSpec:
     ``backend``: ``"solo"``    -- one run per cell (the per-cell path);
                  ``"batched"`` -- one batched pass per bucket
                  (``sweep.runners``);
-                 ``"sharded"`` -- the cell axis across devices (not ported
-                 yet, ROADMAP queue A item 12).
-    ``devices`` / ``mesh`` / ``mesh_shape`` / ``coordinator`` /
-                 ``num_processes`` / ``process_id``: sharded-backend knobs,
-                 kept so specs read as in the reference.
+                 ``"sharded"`` -- the batched program with the cell axis
+                 cut across the rows of a device mesh
+                 (``sweep.shard``).
+    ``devices``: use the first N devices of the spec's kind for the
+                 sharded mesh (None = all); raises when fewer exist.
+    ``mesh``:    a prebuilt ``repro_torch.mesh.Mesh`` (overrides
+                 ``devices``); an explicit device list may repeat a device
+                 (``cell_mesh([torch.device("cpu")] * 2)``).
+    ``mesh_shape``: build a ``(cells,)`` or 2-D ``(cells, data)`` mesh over
+                 the first ``prod(mesh_shape)`` devices
+                 (``repro_torch.mesh.grid_mesh``; raises when fewer exist).
+                 A data axis > 1 computes each cell's gradients
+                 data-parallel over the row's data devices; integer leaves
+                 and gammas stay equal to the 1-D and solo paths.  The
+                 per-worker sample count must divide by the data axis.
+                 Mutually exclusive with ``mesh``.
+    ``coordinator`` / ``num_processes`` / ``process_id``: multi-host
+                 bootstrap -- when ``coordinator`` ("host:port") is set the
+                 sharded backend brings ``torch.distributed`` up once (NCCL
+                 on the cards, gloo on the CPU) before building the mesh,
+                 so a default mesh spans every process's devices; each
+                 process runs its rows and the rows are all-gathered.  The
+                 knobs reach no program; their only cache-key footprint is
+                 the process count in ``repro_torch.mesh.mesh_topology``.
     ``bucket_widths``: explicit ragged-bucket width menu (None = pow-2).
     ``reference``: federated batched sweeps only: take the events from
                  the heapq twin (``simulate_federated`` on the same
@@ -282,9 +301,12 @@ class ExecutionSpec:
                  of the reference's default scan engine.  On the CPU both
                  run plain PyTorch.  ``AdaptiveLipschitz`` is refused under
                  ``"fused"``.
-    ``device``:  port-only: where the run happens.  ``None`` means the CUDA
-                 card and raises when there is none; ``"cpu"`` is the only
-                 way onto the CPU (``kernels.dispatch``).
+    ``device``:  port-only: where the problem is built and which kind of
+                 device a default sharded mesh takes.  ``None`` means the
+                 CUDA cards and raises when there is none; ``"cpu"`` is
+                 the only way onto the CPU (``kernels.dispatch``).  A mesh
+                 of several devices comes only from ``devices``,
+                 ``mesh_shape`` or an explicit ``mesh``.
     """
 
     backend: str = "batched"

@@ -139,16 +139,19 @@ class LogRegProblem:
         s = -bw * torch.sigmoid(-z) / Aw.shape[0]
         return s @ Aw + f32(self.lam2, x) * x
 
-    def worker_grads(self):
+    def worker_grads(self, worker_data=None):
         """``grad_fn(xw (B, d), w (B,)) -> (B, d)``: the gradient of f_{w_b}
-        at ``xw_b`` for every cell b, in closed form.
+        at ``xw_b`` for every cell b, in closed form, over the problem's
+        worker shards or the ``(Aw (W, n, d), bw (W, n))`` given (a slice
+        of their samples, on the data axis of a sharded sweep: the mean
+        then runs over the slice).
 
         The shared ``(W, n_per, d)`` shards are never gathered per cell:
         one product of every cell's iterate with all samples gives each
         cell's logits on every shard, the cell's own shard is selected, and
         its sample weights (zero elsewhere) go back through one product
         with all samples."""
-        Aw, bw = self.worker_slices()
+        Aw, bw = self.worker_slices() if worker_data is None else worker_data
         W, n_per, d = Aw.shape
         A2 = Aw.reshape(W * n_per, d)
         lam2 = self.lam2

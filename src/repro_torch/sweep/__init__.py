@@ -1,7 +1,8 @@
 """Batched sweeps: policies as tensors, grids of cells, the PIAG,
 Async-BCD, FedAsync and FedBuff runners that advance every cell of a
-bucket with one kernel launch per event, and the cache of built bucket
-programs (counterpart of ``repro.sweep``).
+bucket with one kernel launch per event, their sharded twins that cut
+the cell axis across the rows of a device mesh (``shard``), and the
+cache of built bucket programs (counterpart of ``repro.sweep``).
 
 Quick taste::
 
@@ -16,8 +17,6 @@ Quick taste::
                      topologies=standard_topology_factories(),
                      n_events=2000, n_workers=[4, 8])
     res = sweep_piag_logreg(prob, grid, L1(lam=prob.lam1))
-
-Not ported yet (ROADMAP queue A): the sharded runners (item 12).
 """
 from .cache import clear_program_cache, program_cache_stats
 from .grid import (SweepBucket, SweepCell, SweepGrid, make_grid,
@@ -32,6 +31,11 @@ from .runners import (make_sweep_bcd, make_sweep_fedasync,
                       sweep_bcd_logreg, sweep_fedasync,
                       sweep_fedasync_problem, sweep_fedbuff,
                       sweep_fedbuff_problem, sweep_piag, sweep_piag_logreg)
+from .shard import (cell_mesh, grid_mesh, make_sharded_sweep_bcd,
+                    make_sharded_sweep_piag, mesh_topology, round_robin_pad,
+                    shard_cells, sharded_sweep_bcd, sharded_sweep_fedasync,
+                    sharded_sweep_fedbuff, sharded_sweep_piag,
+                    sharded_sweep_piag_logreg)
 
 __all__ = [
     "SweepBucket", "SweepCell", "SweepGrid", "make_grid", "measure_tau_bar",
@@ -45,4 +49,9 @@ __all__ = [
     "run_bucketed", "sweep_fedasync", "sweep_fedasync_problem",
     "sweep_fedbuff", "sweep_fedbuff_problem", "sweep_piag",
     "sweep_piag_logreg",
+    "cell_mesh", "grid_mesh", "mesh_topology",
+    "make_sharded_sweep_bcd", "make_sharded_sweep_piag",
+    "round_robin_pad", "shard_cells", "sharded_sweep_bcd",
+    "sharded_sweep_fedasync", "sharded_sweep_fedbuff", "sharded_sweep_piag",
+    "sharded_sweep_piag_logreg",
 ]

@@ -24,8 +24,8 @@ or client round durations before the race and draws its per-event fault
 codes, both keyed by the cell's seed (so a batched row equals its solo
 run), and switches the solver loops to their guarded step bodies.
 ``checkpoint`` (a ``checkpoint.SweepCheckpoint``) makes the bucket loop
-resumable.  Not ported yet: the sharded runners (ROADMAP queue A item
-12).
+resumable.  ``sweep.shard`` runs these bucket programs once per row of a
+device mesh.
 """
 from __future__ import annotations
 

@@ -278,39 +278,68 @@ def test_horizon_validation_matches_reference():
             solver=japi.SolverSpec(horizon=4)))
 
 
-@pytest.mark.parametrize("change, item", [
-    (dict(solver=tapi.SolverSpec(name="fedbuff"),
-          execution=tapi.ExecutionSpec(backend="sharded", device="cpu")), 12),
-    (dict(solver=tapi.SolverSpec(name="fedasync"), faults=object(),
-          execution=tapi.ExecutionSpec(engine="scan", device="cpu")), None),
-    (dict(execution=tapi.ExecutionSpec(backend="sharded", device="cpu")), 12),
-    (dict(faults=object(), execution=tapi.ExecutionSpec(engine="scan",
-                                                        device="cpu")), None),
+@pytest.mark.parametrize("change", [
+    dict(solver=tapi.SolverSpec(name="fedasync"), faults=object(),
+         execution=tapi.ExecutionSpec(engine="scan", device="cpu")),
+    dict(faults=object(), execution=tapi.ExecutionSpec(engine="scan",
+                                                       device="cpu")),
 ])
-def test_unported_paths_raise_naming_their_roadmap_item(change, item):
-    """The sharded backend still names its ROADMAP item; faults are ported
-    (item 10), so a ``faults`` that is not a ``FaultSpec`` now meets the
+def test_unported_paths_raise_naming_their_roadmap_item(change):
+    """Every path of ``api.run`` is ported now (the sharded backend, item
+    12, last); a ``faults`` that is not a ``FaultSpec`` meets the
     reference's ``TypeError`` when the spec is built."""
-    if item is None:
-        with pytest.raises(TypeError, match="faults must be a FaultSpec"):
-            _spec(tapi, "batched", "fused", device="cpu").replace(**change)
-        with pytest.raises(TypeError, match="faults must be a FaultSpec"):
-            _spec(japi, "batched", "scan").replace(faults=object())
-        return
-    spec = _spec(tapi, "batched", "fused", device="cpu").replace(**change)
-    with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
-        tapi.run(spec)
+    with pytest.raises(TypeError, match="faults must be a FaultSpec"):
+        _spec(tapi, "batched", "fused", device="cpu").replace(**change)
+    with pytest.raises(TypeError, match="faults must be a FaultSpec"):
+        _spec(japi, "batched", "scan").replace(faults=object())
 
 
-def test_resume_is_not_ported(tmp_path):
-    """Checkpointed resume is ported (item 11); what stays unported is
-    the sharded backend it would resume (item 12), refused before any
-    checkpoint is written."""
+@pytest.mark.parametrize("solver", ["piag", "fedbuff"])
+def test_sharded_backend_runs_through_api(solver):
+    """The sharded backend on the CPU's one-device default mesh gives the
+    batched rows: integer leaves and gammas exact, the objective within
+    OBJ_REL of its start; the record names the mesh."""
+    if solver == "piag":
+        spec = _spec(tapi, "batched", "fused", device="cpu")
+    else:
+        spec = _fed_spec(tapi, solver, "batched", "fused", device="cpu")
+    batched = tapi.run(spec)
+    sharded = tapi.run(spec.replace(execution=dataclasses.replace(
+        spec.execution, backend="sharded")))
+    for f in ("taus", "clipped", "gammas"):
+        assert torch.equal(getattr(batched, f), getattr(sharded, f)), f
+    diff = float((batched.objective - sharded.objective).abs().max())
+    assert diff <= OBJ_REL * float(batched.objective[:, 0].abs().min())
+    assert sharded.telemetry.backend == "sharded"
+    assert (sharded.telemetry.devices, sharded.telemetry.mesh_shape) == \
+        (1, [1])
+
+
+def test_sharded_resume_is_bitwise(tmp_path):
+    """``resume=`` under the sharded backend: a run into an empty
+    directory writes one file a bucket; after one is deleted a rerun
+    recomputes only that bucket (the program cache sees one build) and
+    gives the first run's rows bitwise; a batched spec into the same
+    directory is refused."""
+    from repro_torch.mesh import cell_mesh
+    from repro_torch.sweep import clear_program_cache, program_cache_stats
     spec = _spec(tapi, "batched", "fused", device="cpu").replace(
-        execution=tapi.ExecutionSpec(backend="sharded", device="cpu"))
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        tapi.run(spec, resume=str(tmp_path / "ck"))
-    assert not (tmp_path / "ck").exists()
+        execution=tapi.ExecutionSpec(backend="sharded", device="cpu",
+                                     record_every=4, bucket_widths=(3, 4),
+                                     mesh=cell_mesh(["cpu"] * 2)))
+    ck = tmp_path / "ck"
+    first = tapi.run(spec, resume=str(ck))
+    files = sorted(os.listdir(ck))
+    assert files == ["piag_sharded_w3_b0.npz", "piag_sharded_w4_b1.npz"]
+    os.remove(ck / files[-1])
+    clear_program_cache()
+    again = tapi.run(spec, resume=str(ck))
+    assert program_cache_stats()["misses"] == 1
+    for f in first.raw._fields:
+        if isinstance(getattr(first.raw, f), torch.Tensor):
+            assert torch.equal(getattr(first.raw, f), getattr(again.raw, f))
+    with pytest.raises(ValueError, match="different spec"):
+        tapi.run(spec.replace(n_events=32), resume=str(ck))
 
 
 def test_run_without_device_needs_a_card():

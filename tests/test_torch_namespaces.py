@@ -40,13 +40,6 @@ PACKAGES = ("core", "sweep", "federated", "api", "models", "serving",
 
 # name -> the ROADMAP queue A item that ports it
 _ITEMS = {
-    "item 12 (mesh + sweep.shard)": [
-        "sweep.cell_mesh", "sweep.grid_mesh", "sweep.mesh_topology",
-        "sweep.make_sharded_sweep_bcd", "sweep.make_sharded_sweep_piag",
-        "sweep.round_robin_pad", "sweep.shard_cells",
-        "sweep.sharded_sweep_bcd", "sweep.sharded_sweep_fedasync",
-        "sweep.sharded_sweep_fedbuff", "sweep.sharded_sweep_piag",
-        "sweep.sharded_sweep_piag_logreg"],
     "item 15 (XLA/TPU tooling: dry-run)": [
         "models.param_specs", "configs.SHAPES", "configs.InputShape",
         "configs.applicable", "configs.input_specs"],
