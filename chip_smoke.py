@@ -27,7 +27,15 @@ PyTorch version on the card, and drives the port's main paths:
   random weights from the port's initializer on the card) through
   ``launch.serve.generate`` and ``serving.ContinuousBatcher``, whose
   prefill runs the flash-attention kernel B6 on its tensor-core route
-  (float32 and bf16 at d 48 take its SIMT route, swept in phase 16).
+  (float32 and bf16 at d 48 take its SIMT route, swept in phase 16);
+  then, with it freed, mamba2-780m (48 Mamba2 layers, no kernel: the
+  block calls the SSD scan in torch ops, as the reference's does) and
+  qwen2-moe-a2.7b (24 layers, 60 experts, capacity dispatch; B6 in every
+  prefill) at full width and depth the same way (M1, M2), and both
+  families' reduced configs card against CPU (M3);
+* the federated trainer ``launch.train_federated``: CI's convex run, 400
+  uploads through B2 and with ``buffer_size=4`` through B3, card against
+  CPU (FT1), and the 25m transformer preset's host loop (FT2, no kernel).
 
 * training: ``launch.train.run_training`` and ``launch.train_bcd`` on the
   100m preset at full width and depth (TR1, TR3), card against CPU at a
@@ -102,6 +110,7 @@ from repro_torch.kernels.fused_step import (  # noqa: E402
 from repro_torch.launch import sweep as tsweep  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.launch import train_bcd as tbcd  # noqa: E402
+from repro_torch.launch import train_federated as tfed  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import forward, init_params, prefill  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
@@ -162,6 +171,8 @@ RMS_BF16_UNEQUAL = 1e-3
 SSD_REL_ENVELOPE = 1e-5
 PROX_L1_FLOPS = 5              # per element: the FMA, |y| - t, max, sign
 SERVE_ARCH = "qwen2.5-32b"
+SSM_ARCH = "mamba2-780m"
+MOE_ARCH = "qwen2-moe-a2.7b"
 COUNTERS = (fused_policy_prox_step, fused_policy_mix_step,
             fused_policy_buff_step, fa.flash_attention_bhsd, px.prox_step,
             rn.rmsnorm, ss.ssd_intra_chunk)
@@ -918,9 +929,14 @@ def phase_timing(horizon: int, name: str, max_err: float) -> dict:
     return t
 
 
-def _profile(run) -> Tuple[float, dict]:
-    """One profiled call of ``run`` (after a warm one): its wall seconds
-    and the device time of each kernel name, in us."""
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaLaunchKernelExC")
+
+
+def _profile(run) -> Tuple[float, dict, int]:
+    """One profiled call of ``run`` (after a warm one): its wall seconds,
+    the device time of each kernel name, in us, and the host's kernel
+    launch calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     run()  # warm: problem memo, caching allocator
@@ -931,18 +947,21 @@ def _profile(run) -> Tuple[float, dict]:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name = {}
+    by_name, launch_calls = {}, 0
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             us = ev.time_range.end - ev.time_range.start
             by_name[ev.name] = by_name.get(ev.name, 0.0) + us
-    return wall, by_name
+        elif ev.name in LAUNCH_CALLS:
+            launch_calls += 1
+    return wall, by_name, launch_calls
 
 
 def phase_profile(tag: str, run, what: str) -> None:
     """Profile one call of ``run`` (after a warm one): wall, device busy
-    and idle share, and the top device ops by time."""
-    wall, by_name = _profile(run)
+    and idle share, the host's kernel launch calls, and the top device
+    ops by time."""
+    wall, by_name, launch_calls = _profile(run)
     if not by_name:
         say(tag, f"{what}: wall {wall:.3f} s; the profiler recorded no "
             "device events, device busy share not measured")
@@ -951,7 +970,8 @@ def phase_profile(tag: str, run, what: str) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     say(tag, f"{what}: wall {wall:.3f} s, device "
         f"busy {busy:.3f} s ({busy / wall:.3f}), idle share "
-        f"{1 - busy / wall:.3f}; top device ops (s): "
+        f"{1 - busy / wall:.3f}; {launch_calls} kernel launch calls on the "
+        "host; top device ops (s): "
         + "; ".join(f"{n[:60]} {us / 1e6:.4f}" for n, us in top))
 
 
@@ -1219,7 +1239,7 @@ def phase_f2_faulted_main_path() -> None:
         raise AssertionError("F2: non-finite output under the guard")
     # the profiler's own cost grows with the launches it records, so the
     # idle share is read over the first 100 events of the same spec
-    wall, by_name = _profile(lambda: api.run(spec.replace(n_events=100)))
+    wall, by_name, _ = _profile(lambda: api.run(spec.replace(n_events=100)))
     busy = sum(by_name.values()) / 1e6
     idle = f"{1 - busy / wall:.3f}" if by_name else "not measured"
     pick = [0, B - 1]
@@ -1827,6 +1847,102 @@ def phase_tr2_train_card_vs_cpu() -> None:
         f"phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+FED_CI = dict(uploads=400, policy_name="hinge")   # .github/workflows/ci.yml
+
+
+def phase_ft1_federated_convex() -> dict:
+    """FT1: ``launch.train_federated.run_convex_federated`` at CI's settings
+    (logreg 500 x 50, 8 clients, 400 uploads, hinge) and with
+    ``buffer_size=4``, on the card with every count set to 0 just before
+    and read just after (one B2 or B3 launch an upload, no other kernel),
+    each held against the same run on the CPU: max_tau, the trace's
+    clients, taus and weights equal, p_star and the suboptimality within
+    ``OBJ_REL_ENVELOPE`` of the starting objective P(0)."""
+    t_phase = time.perf_counter()
+    p0 = float(make_logreg(500, 50, n_workers=8, seed=0, device="cpu").P(
+        torch.zeros(50)))
+    launches, parts = {}, []
+    for buf, mine in ((1, fused_policy_mix_step), (4, fused_policy_buff_step)):
+        reset_counts()
+        card = _quiet(tfed.run_convex_federated, "logreg", buffer_size=buf,
+                      device=DEV, **FED_CI)
+        n = mine.launches
+        stray = sum(fn.launches for fn in COUNTERS) - n
+        if n != FED_CI["uploads"] or stray:
+            raise AssertionError(f"FT1 buffer {buf}: {n} launches (+{stray} "
+                                 "of other kernels)")
+        host = _quiet(tfed.run_convex_federated, "logreg", buffer_size=buf,
+                      device="cpu", **FED_CI)
+        rc, rh = card["result"], host["result"]
+        if card["max_tau"] != host["max_tau"] or not np.array_equal(
+                card["trace"].client, host["trace"].client):
+            raise AssertionError(f"FT1 buffer {buf}: traces differ")
+        for f in ("taus", "versions", "weights"):
+            if not torch.equal(getattr(rc, f).cpu(), getattr(rh, f)):
+                raise AssertionError(f"FT1 buffer {buf}: {f} not equal")
+        diff = max(abs(card[k] - host[k]) for k in
+                   ("p_star", "final_subopt", "best_subopt"))
+        obj = float((rc.objective.cpu() - rh.objective).abs().max())
+        if not max(diff, obj) <= OBJ_REL_ENVELOPE * p0:
+            raise AssertionError(f"FT1 buffer {buf}: objective {obj}, "
+                                 f"suboptimality {diff} apart")
+        launches["fedasync" if buf == 1 else "fedbuff"] = n
+        parts.append(
+            f"buffer {buf}: {'B2' if buf == 1 else 'B3'} launches {n}, "
+            f"max_tau {card['max_tau']}, P* {card['p_star']:.6f}, final P-P* "
+            f"{card['final_subopt']:.6f} (cpu {host['final_subopt']:.6f}), "
+            f"best {card['best_subopt']:.6f}, "
+            f"{FED_CI['uploads'] / card['wall_s']:.1f} uploads/s on the "
+            f"card ({card['wall_s']:.3f} s; cpu "
+            f"{host['wall_s']:.3f} s); objective and suboptimality "
+            f"{max(diff, obj) / p0:.3g} of P(0) apart")
+    say("FT1 federated convex", "run_convex_federated logreg, 8 clients, "
+        "400 uploads, hinge, card vs cpu (clients, taus, versions, weights "
+        f"equal; envelope {OBJ_REL_ENVELOPE:g} of P(0) = {p0:.6f}): "
+        + " | ".join(parts) + f"; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_ft2_federated_transformer() -> None:
+    """FT2: ``run_transformer_federated`` on the 25m preset at full width
+    and depth (chunked attention), CLI defaults with 30 uploads, 4
+    clients, 2 local steps: the loss first and last, uploads/s, peak
+    memory, and the idle share of a second, profiled run.  No
+    hand-written kernel runs."""
+    t_phase = time.perf_counter()
+    cfg = _train_cfg("25m")
+    kw = dict(uploads=30, n_clients=4, local_steps=2, batch=4, seq=128,
+              log_every=5, device=DEV)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log = _quiet(tfed.run_transformer_federated, cfg, **kw)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if any(fn.launches for fn in COUNTERS):
+        raise AssertionError("FT2: a hand-written kernel launched")
+    losses = [r["loss"] for r in log]
+    if len(log) != 7 or not all(np.isfinite(losses)):
+        raise AssertionError(f"FT2: log {log}")
+    wall, busy = _busy_wall(lambda: _quiet(
+        tfed.run_transformer_federated, cfg, **kw))
+    idle = f"{1 - busy / wall:.3f}" if busy > 0 else "not measured"
+    n_params = sum(p.numel() for p in
+                   Transformer(cfg, None, torch.device("meta")).parameters())
+    say("FT2 federated transformer", f"run_transformer_federated "
+        f"{cfg.name} ({n_params / 1e6:.1f} M params, {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, float32, attention chunked), 4 clients, 30 "
+        f"uploads x 2 local SGD steps, batch 4 x 128, hinge: "
+        f"{30 / log[-1]['wall_s']:.3f} uploads/s ({log[-1]['wall_s']:.3f} s,"
+        f" 7 loss evaluations included), peak {peak:.3f} GiB; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; gammas "
+        f"{[round(r['gamma'], 4) for r in log]}, taus "
+        f"{[r['tau'] for r in log]}; profiled run (initialization "
+        f"included): wall {wall:.3f} s, device busy {busy:.3f} s, idle "
+        f"share {idle}; no kernel launches; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_tr3_bcd_100m() -> None:
     """``run_bcd_training`` on the 100m preset at full width and depth, m
     4 blocks, 3 workers, Adaptive1(gamma' = 0.5) as the reference's test,
@@ -2194,74 +2310,69 @@ def phase_fa_timing(name: str, B: int, S: int, max_err: float) -> dict:
                 max_abs_err=max(max_err, err))
 
 
-def phase_card_vs_cpu() -> None:
-    """qwen2.5-32b.reduced() in float32, the same parameters on both
-    devices through ``interop``: greedy ``generate`` on the card (B6) and
-    on the CPU (its plain version)."""
-    cfg = get_config(SERVE_ARCH).reduced()
-    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    card = interop.model_params(interop.model_tree(cpu), cfg, device=DEV)
-    toks = torch.randint(0, cfg.vocab, (2, 40),
-                         generator=torch.Generator().manual_seed(1))
-    reset_counts()
-    lg, _ = prefill(card, cfg, {"tokens": toks.to(DEV)})
-    launches = fa.flash_attention_bhsd.launches
-    if fa.flash_attention_bhsd.launches_tc:
-        raise AssertionError("card vs cpu: a float32 prefill left the SIMT "
-                             "route")
-    lc, _ = prefill(cpu, cfg, {"tokens": toks})
-    fg, _ = forward(card, cfg, {"tokens": toks.to(DEV)})
-    fc, _ = forward(cpu, cfg, {"tokens": toks})
-    diff = max(float((lg.cpu() - lc).abs().max()),
-               float((fg.cpu() - fc).abs().max()))
-    if launches != cfg.n_layers or diff > LOGIT_F32_ENVELOPE:
-        raise AssertionError(f"card vs cpu: {launches} B6 launches, logits "
-                             f"differ by {diff}")
-    og, _ = generate(cfg, card, toks.to(DEV), 16)
-    oc, _ = generate(cfg, cpu, toks, 16)
-    same = torch.equal(og.cpu(), oc)
-    if not same:
-        raise AssertionError("card vs cpu: greedy tokens differ")
-    say("18 card vs cpu", f"{cfg.name} (f32, {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, attention_impl {cfg.attention_impl}), params "
-        f"carried by interop: prefill and forward logits max abs diff "
-        f"{diff:.3g} (envelope {LOGIT_F32_ENVELOPE:g}), B6 launches per "
-        f"prefill {launches} (float32: the SIMT route); greedy generate "
-        "2 x (40 + 16) tokens equal: "
-        f"{same}")
+SERVE_EXPECT = {
+    SERVE_ARCH: dict(n_layers=64, d_model=5120, param_dtype="bfloat16",
+                     attention_impl="pallas"),
+    SSM_ARCH: dict(n_layers=48, d_model=1536, ssm_heads=48,
+                   param_dtype="bfloat16"),
+    MOE_ARCH: dict(n_layers=24, d_model=2048, n_experts=60, top_k=4,
+                   head_dim=128, param_dtype="bfloat16",
+                   attention_impl="pallas", moe_impl="capacity")}
 
 
-def phase_serve_model(name: str):
-    """The full qwen2.5-32b on the card from the port's initializer."""
-    cfg = get_config(SERVE_ARCH)
-    if (cfg.n_layers, cfg.d_model, cfg.param_dtype, cfg.attention_impl) != \
-            (64, 5120, "bfloat16", "pallas"):
+def _b6_per_prefill(cfg) -> int:
+    """B6 launches one prefill makes: one a layer, none without attention."""
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def _b6_text(tag: str, cfg, launches: int) -> str:
+    if cfg.family == "ssm":
+        if fa.flash_attention_bhsd.launches or launches:
+            raise AssertionError(f"{tag}: B6 launched on an ssm model")
+        return "no B6 launch (attention-free)"
+    return _fa_routes(tag, launches)
+
+
+def phase_serve_model(tag: str, arch: str, name: str):
+    """The full ``arch`` on the card from the port's initializer; the
+    memory allocated once it is built."""
+    cfg = get_config(arch)
+    want = SERVE_EXPECT[arch]
+    if {k: getattr(cfg, k) for k in want} != want:
         raise AssertionError(f"unexpected serving config {cfg}")
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = init_params(cfg, torch.Generator(device=DEV).manual_seed(0),
                         device=DEV)
     torch.cuda.synchronize()
     n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
     torch.cuda.empty_cache()
-    say("19 model", f"{cfg.name}: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads,"
-        f" d_ff {cfg.d_ff}, vocab {cfg.vocab}, bf16: {n} params "
-        f"({n * 2 / 1e9:.2f} GB) initialized on the card in "
-        f"{time.perf_counter() - t0:.3f} s; allocated "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; card {name}")
+    shape = (f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, d_ff "
+             f"{cfg.d_ff}" if cfg.family == "dense" else
+             f"{cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, state "
+             f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}" if cfg.family == "ssm"
+             else f"{cfg.n_heads} heads, {cfg.n_experts} experts (top "
+             f"{cfg.top_k}) of {cfg.moe_ff} + shared {cfg.shared_ff}")
+    say(tag, f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{shape}, vocab {cfg.vocab}, bf16: {n} params ({nbytes / 1e9:.2f} "
+        f"GB) initialized on the card in {time.perf_counter() - t0:.3f} s; "
+        f"allocated {before / 2**30:.2f} GiB before the build, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after; card "
+        f"{name}")
     return cfg, model
 
 
 def phase_generate(tag: str, cfg, model, batch: int, prompt: int,
                    gen: int, b6_share: bool = False) -> int:
     """``generate`` with every count set to 0 just before and read just
-    after: one B6 launch per layer for the one prefill, each on the
-    tensor-core route, no other kernel.  With ``b6_share`` the same prompts'
-    ``prefill`` runs once more under the profiler (after a warm call), and
-    the line gives B6's device time in it and its share of that prefill's
-    wall."""
+    after: one B6 launch per attention layer for the one prefill, each on
+    the tensor-core route, no other kernel.  With ``b6_share`` the same
+    prompts' ``prefill`` runs once more under the profiler (after a warm
+    call), and the line gives B6's device time in it and its share of
+    that prefill's wall."""
     prompts = torch.randint(0, cfg.vocab, (batch, prompt),
                             generator=torch.Generator(device=DEV)
                             .manual_seed(prompt), device=DEV,
@@ -2272,10 +2383,10 @@ def phase_generate(tag: str, cfg, model, batch: int, prompt: int,
     launches = fa.flash_attention_bhsd.launches
     stray = sum(fn.launches for fn in COUNTERS
                 if fn is not fa.flash_attention_bhsd)
-    if launches != cfg.n_layers or stray:
+    if launches != _b6_per_prefill(cfg) or stray:
         raise AssertionError(f"{tag}: {launches} B6 launches for one "
                              f"prefill (+{stray} of other kernels)")
-    routes = _fa_routes(tag, launches)
+    routes = _b6_text(tag, cfg, launches)
     new = out[:, prompt:]
     if tuple(out.shape) != (batch, prompt + gen) or \
             not torch.equal(out[:, :prompt], prompts) or \
@@ -2283,7 +2394,7 @@ def phase_generate(tag: str, cfg, model, batch: int, prompt: int,
         raise AssertionError(f"{tag}: bad output {tuple(out.shape)}")
     share = ""
     if b6_share:
-        wall, by_name = _profile(
+        wall, by_name, _ = _profile(
             lambda: prefill(model, cfg, {"tokens": prompts}))
         b6 = [us for n, us in by_name.items() if "fa_tc_kernel" in n]
         share = (f", profiled prefill: wall {wall:.3f} s, B6 device time "
@@ -2292,7 +2403,7 @@ def phase_generate(tag: str, cfg, model, batch: int, prompt: int,
                  ", profiled prefill: no B6 device events recorded, its "
                  "share not measured")
     say(tag, f"generate {cfg.name} batch {batch}, prompt {prompt}, gen "
-        f"{gen}: prefill {stats['prefill_s']:.3f} s "
+        f"{gen}: prefill (the first token) {stats['prefill_s']:.3f} s "
         f"({batch * prompt / stats['prefill_s']:.1f} tok/s), decode "
         f"{stats['decode_s']:.3f} s ({stats['tok_per_s']:.2f} tok/s, "
         f"{stats['decode_s'] / gen * 1e3:.2f} ms/step); per prefill: "
@@ -2301,21 +2412,24 @@ def phase_generate(tag: str, cfg, model, batch: int, prompt: int,
     return launches
 
 
-def phase_logits_finite(cfg, model) -> None:
+def phase_logits_finite(tag: str, cfg, model) -> None:
     toks = torch.randint(0, cfg.vocab, (2, 64), device=DEV,
                          generator=torch.Generator(device=DEV).manual_seed(9))
     logits, cache = prefill(model, cfg, {"tokens": toks})
+    name, want = (("h", (cfg.n_layers, 2, cfg.ssm_heads, cfg.ssm_head_dim,
+                         cfg.ssm_state)) if cfg.family == "ssm" else
+                  ("k", (cfg.n_layers, 2, 64, cfg.n_kv_heads, cfg.head_dim)))
     if tuple(logits.shape) != (2, 1, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()) or \
-            tuple(cache["k"].shape) != (cfg.n_layers, 2, 64, cfg.n_kv_heads,
-                                        cfg.head_dim):
-        raise AssertionError("prefill logits or cache malformed")
-    say("22 logits", f"prefill (2, 64): logits {tuple(logits.shape)} finite, "
-        f"|logit| max {float(logits.float().abs().max()):.3f}, cache k "
-        f"{tuple(cache['k'].shape)}")
+            tuple(cache[name].shape) != want or \
+            not bool(torch.isfinite(cache[name]).all()):
+        raise AssertionError(f"{tag}: prefill logits or cache malformed")
+    say(tag, f"prefill (2, 64): logits {tuple(logits.shape)} finite, "
+        f"|logit| max {float(logits.float().abs().max()):.3f}, cache "
+        f"{name} {tuple(cache[name].shape)} finite")
 
 
-def phase_batcher(cfg, model) -> None:
+def phase_batcher(tag: str, cfg, model) -> None:
     """8 requests (prompts 32-1024, max_new 8-32) through 4 slots of 2048;
     each greedy output equals a single-request generate of it."""
     rng = np.random.default_rng(0)
@@ -2323,29 +2437,104 @@ def phase_batcher(cfg, model) -> None:
         rng.integers(32, 1025))).astype(np.int32),
         max_new=int(rng.integers(8, 33))) for i in range(8)]
     cb = ContinuousBatcher(cfg, model, max_slots=4, max_len=2048)
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     for r in reqs:
         cb.submit(r)
     stats = cb.run_until_idle()
     launches = fa.flash_attention_bhsd.launches
-    if stats["completed"] != 8 or launches != 8 * cfg.n_layers:
-        raise AssertionError(f"batcher: {stats}, B6 launches {launches}")
-    routes = _fa_routes("21 batcher", launches)
+    if stats["completed"] != 8 or launches != 8 * _b6_per_prefill(cfg):
+        raise AssertionError(f"{tag}: {stats}, B6 launches {launches}")
+    routes = _b6_text(tag, cfg, launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     ttft = np.array([r.t_first_token - r.arrived_at for r in reqs])
     for r in reqs:
         out, _ = generate(cfg, model, r.prompt[None, :], r.max_new)
         if not np.array_equal(out[0, len(r.prompt):].cpu().numpy(),
                               r.output):
-            raise AssertionError(f"batcher request {r.rid} differs from "
+            raise AssertionError(f"{tag}: request {r.rid} differs from "
                                  "single-request generate")
-    say("21 batcher", f"ContinuousBatcher {cfg.name}, 4 slots x 2048: "
+    say(tag, f"ContinuousBatcher {cfg.name}, 4 slots x 2048: "
         f"completed {stats['completed']}, tokens {stats['tokens']}, ticks "
         f"{stats['ticks']}, wall {stats['wall_s']:.3f} s, "
         f"{stats['tok_per_s']:.2f} tok/s; time to first token median "
         f"{np.median(ttft):.3f} s, max {ttft.max():.3f} s; prompts "
         f"{sorted(len(r.prompt) for r in reqs)}, max_new "
-        f"{[r.max_new for r in reqs]}; {routes} (8 prefills); every output "
-        "equals its single-request generate")
+        f"{[r.max_new for r in reqs]}; {routes} (8 prefills); peak "
+        f"{peak:.2f} GiB; every output equals its single-request generate")
+
+
+def phase_serve_profile(tag: str, cfg, model) -> None:
+    phase_profile(tag, lambda: generate(cfg, model, torch.randint(
+        0, cfg.vocab, (4, 64), device=DEV,
+        generator=torch.Generator(device=DEV).manual_seed(3)), 32),
+        f"generate {cfg.name} batch 4, prompt 64, gen 32 (one prefill and "
+        "32 decode steps)")
+
+
+def phases_serve_family(prefix: str, arch: str, name: str) -> int:
+    """M1 / M2: ``arch`` at full width and depth, (a) batch 4, prompt 64,
+    gen 32, (b) one 8192-token prompt, (c) ``ContinuousBatcher``, then a
+    finite prefill and the idle share of (a); the model is freed after.
+    Returns the B6 launches of one prefill of (a)."""
+    t_phase = time.perf_counter()
+    cfg, model = phase_serve_model(f"{prefix} model", arch, name)
+    launches = phase_generate(f"{prefix} generate a", cfg, model, 4, 64, 32)
+    phase_generate(f"{prefix} generate b", cfg, model, 1, 8192, 8,
+                   b6_share=cfg.family != "ssm")
+    phase_batcher(f"{prefix} batcher", cfg, model)
+    phase_logits_finite(f"{prefix} logits", cfg, model)
+    phase_serve_profile(f"{prefix} profile", cfg, model)
+    del model
+    torch.cuda.empty_cache()
+    say(prefix, f"{cfg.name} serving phases took "
+        f"{time.perf_counter() - t_phase:.1f} s; allocated after freeing "
+        f"the model {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def phase_card_vs_cpu(tag: str, archs) -> None:
+    """Each of ``archs``' ``.reduced()`` configs in float32, the same
+    parameters on both devices through ``interop``: prefill (logits and
+    cache) and forward (logits and aux) within ``LOGIT_F32_ENVELOPE``,
+    B6 once a prefill per attention layer on its SIMT route (float32),
+    and greedy ``generate`` tokens equal."""
+    parts = []
+    for arch in archs:
+        cfg = get_config(arch).reduced()
+        cpu = init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+        card = interop.model_params(interop.model_tree(cpu), cfg, device=DEV)
+        toks = torch.randint(0, cfg.vocab, (2, 40),
+                             generator=torch.Generator().manual_seed(1))
+        reset_counts()
+        lg, cg = prefill(card, cfg, {"tokens": toks.to(DEV)})
+        launches = fa.flash_attention_bhsd.launches
+        if launches != _b6_per_prefill(cfg) or \
+                fa.flash_attention_bhsd.launches_tc:
+            raise AssertionError(f"{tag} {arch}: {launches} B6 launches")
+        lc, cc = prefill(cpu, cfg, {"tokens": toks})
+        fg, ag = forward(card, cfg, {"tokens": toks.to(DEV)})
+        fc, ac = forward(cpu, cfg, {"tokens": toks})
+        diff = max(float((lg.cpu() - lc).abs().max()),
+                   float((fg.cpu() - fc).abs().max()),
+                   max(float((cg[n].cpu() - cc[n]).abs().max()) for n in cc))
+        aux = abs(float(ag) - float(ac))
+        if not (diff <= LOGIT_F32_ENVELOPE and aux <= 1e-6):
+            raise AssertionError(f"{tag} {arch}: logits differ by {diff}, "
+                                 f"aux by {aux}")
+        og, _ = generate(cfg, card, toks.to(DEV), 16)
+        oc, _ = generate(cfg, cpu, toks, 16)
+        if not torch.equal(og.cpu(), oc):
+            raise AssertionError(f"{tag} {arch}: greedy tokens differ")
+        parts.append(f"{cfg.name} ({cfg.n_layers} layers, d_model "
+                     f"{cfg.d_model}, attention_impl {cfg.attention_impl}):"
+                     f" logits and cache max abs diff {diff:.3g}, aux "
+                     f"{aux:.3g}, B6 launches per prefill {launches}"
+                     + (" (SIMT route)" if launches else ""))
+    say(tag, "float32, params carried by interop, prefill and forward "
+        f"(envelope {LOGIT_F32_ENVELOPE:g}), greedy generate 2 x (40 + 16) "
+        "tokens equal: " + "; ".join(parts))
 
 
 # ------------------------------------------- B4, B5, B7 and kernels.ops ----
@@ -2835,14 +3024,18 @@ def main() -> None:
     # the sharded backend (B1-B3 launched by every row on its card)
     sharded = phases_sharded()
     # training (the trainers take the chunked attention, no kernel) and the
-    # threaded runtimes, before the serving phases allocate qwen2.5-32b
+    # threaded runtimes, then the federated trainer (FT1: B2/B3; FT2: no
+    # kernel), before the serving phases allocate qwen2.5-32b
     phases_training()
+    fed_cli_runs = phase_ft1_federated_convex()
+    phase_ft2_federated_transformer()
+    torch.cuda.empty_cache()
     # the serving path (B6): the kernel alone first, then the full model
     fa_err = phase_fa_vs_plain()
     t_fa = phase_fa_timing(name, 4, 64, fa_err)
     t_fa_long = phase_fa_timing(name, 1, 8192, fa_err)
     t_fa["max_abs_err"] = max(t_fa["max_abs_err"], t_fa_long["max_abs_err"])
-    phase_card_vs_cpu()
+    phase_card_vs_cpu("18 card vs cpu", (SERVE_ARCH,))
     # kernels.ops (B4, B5, B7): the kernels alone, then the entry points at
     # kernel_bench's shapes and full model width, before the model is built
     prox_err = phase_prox_vs_plain()
@@ -2856,18 +3049,18 @@ def main() -> None:
     del ops_inp
     clear_program_cache()  # the cached sweep programs hold their problems
     torch.cuda.empty_cache()
-    cfg, model = phase_serve_model(name)
+    cfg, model = phase_serve_model("19 model", SERVE_ARCH, name)
     fa_launches = phase_generate("20 generate a", cfg, model, 4, 64, 32)
     phase_generate("20 generate b", cfg, model, 1, 8192, 8, b6_share=True)
-    phase_batcher(cfg, model)
-    phase_logits_finite(cfg, model)
-    phase_profile("23 serve profile",
-                  lambda: generate(cfg, model, torch.randint(
-                      0, cfg.vocab, (4, 64), device=DEV,
-                      generator=torch.Generator(device=DEV).manual_seed(3)),
-                      32),
-                  f"generate {cfg.name} batch 4, prompt 64, gen 32 (one "
-                  "prefill and 32 decode steps)")
+    phase_batcher("21 batcher", cfg, model)
+    phase_logits_finite("22 logits", cfg, model)
+    phase_serve_profile("23 serve profile", cfg, model)
+    # qwen2.5-32b (65.5 GB) is freed before the MoE model (28.6 GB) is built
+    del model
+    torch.cuda.empty_cache()
+    phases_serve_family("M1", SSM_ARCH, name)
+    moe_launches = phases_serve_family("M2", MOE_ARCH, name)
+    phase_card_vs_cpu("M3 card vs cpu", (SSM_ARCH, MOE_ARCH))
     timing["launches_by_path"] = {
         "piag": launches, "bcd": bcd_launches, "resume": resumed["piag"],
         "sharded_s1": sharded["S1"], "sharded_s2_2": sharded["S2"]["(2,)"],
@@ -2876,10 +3069,14 @@ def main() -> None:
         "sharded_s4_mega": sharded["S4"]}
     t_mix["launches_by_path"] = {"fedasync": fed["fedasync"][1],
                                  "resume": resumed["fedasync"],
-                                 "sharded_s3": sharded["S3"]["fedasync"]}
+                                 "sharded_s3": sharded["S3"]["fedasync"],
+                                 "train_federated": fed_cli_runs["fedasync"]}
     t_buff["launches_by_path"] = {"fedbuff": fed["fedbuff"][1],
                                   "resume": resumed["fedbuff"],
-                                  "sharded_s3": sharded["S3"]["fedbuff"]}
+                                  "sharded_s3": sharded["S3"]["fedbuff"],
+                                  "train_federated": fed_cli_runs["fedbuff"]}
+    t_fa["launches_by_path"] = {SERVE_ARCH: fa_launches,
+                                MOE_ARCH: moe_launches}
     rows = [("fused_policy_prox_step", KERNEL_SOURCE, REPLACES,
              launches + bcd_launches, timing),
             ("fused_policy_mix_step", KERNEL_SOURCE, REPLACES_MIX,

@@ -149,12 +149,17 @@ def model_params(params_np, cfg, device=None):
     ``repro.models``) with numpy leaves (``np.asarray`` of each JAX
     array; bfloat16 leaves may stay ``ml_dtypes`` arrays): ``embed``,
     ``final_norm`` and ``layers`` with every leaf stacked on a leading L
-    axis.  Layer ``i`` takes slice ``i`` of each leaf; layouts are the
-    reference's, so nothing is transposed.  Values pass through float32,
-    which holds bfloat16 and float16 exactly, and land in ``cfg``'s param
-    dtype.  Raises on a missing, extra or misshapen leaf."""
-    from .models.transformer import Transformer
+    axis -- a layer's parts are ``models.transformer.layer_parts(cfg)``
+    (``ln1``, ``attn``, ``ln2`` and ``mlp`` or ``moe``; ``ln`` and
+    ``mixer`` for an ssm model).  Layer ``i`` takes slice ``i`` of each
+    leaf; layouts are the reference's, so nothing is transposed.  Values
+    pass through float32, which holds bfloat16 and float16 exactly, and
+    land in the dtype of the port's leaf (float32 for the MoE router and
+    the Mamba2 ``A_log``, ``D`` and ``dt_bias``, as in the reference).
+    Raises on a missing, extra or misshapen leaf."""
+    from .models.transformer import Transformer, layer_parts
     dev = resolve_device(device)
+    parts = layer_parts(cfg)
     with torch.no_grad():
         model = Transformer(cfg, None, dev)
 
@@ -174,15 +179,15 @@ def model_params(params_np, cfg, device=None):
 
         if set(params_np) != {"embed", "layers", "final_norm"}:
             raise ValueError(f"parameter tree has {sorted(params_np)}; the "
-                             "dense trunk takes embed, layers, final_norm")
+                             "port's trunk takes embed, layers, final_norm")
         put(model.embed, params_np["embed"], "embed")
         put(model.final_norm, params_np["final_norm"], "final_norm")
         layers = params_np["layers"]
-        if set(layers) != {"ln1", "attn", "ln2", "mlp"}:
-            raise ValueError(f"layers has {sorted(layers)}; a dense layer is "
-                             "ln1, attn, ln2, mlp")
+        if set(layers) != set(parts):
+            raise ValueError(f"layers has {sorted(layers)}; a layer of "
+                             f"{cfg.name} is {', '.join(parts)}")
         for i, layer in enumerate(model.layers):
-            for part in ("ln1", "attn", "ln2", "mlp"):
+            for part in parts:
                 put(getattr(layer, part), layers[part], f"layers.{part}", i)
     return model
 
@@ -195,7 +200,7 @@ def model_tree(model) -> dict:
     for part in ("embed", "final_norm"):
         for name, p in getattr(model, part).items():
             tree[part][name] = p.detach().float().cpu().numpy()
-    for part in ("ln1", "attn", "ln2", "mlp"):
+    for part in model.layers[0].part_names:
         tree["layers"][part] = {
             name: np.stack([getattr(layer, part)[name].detach().float()
                             .cpu().numpy() for layer in model.layers])

@@ -6,6 +6,9 @@
 
 runs on the CUDA card (prefill through the hand-written flash-attention
 kernel); ``--device cpu --reduced`` runs a reduced model on the CPU.
+The dense, MoE (``--arch qwen2-moe-a2.7b``) and Mamba2 (``--arch
+mamba2-780m``) families serve; MLA, hybrid and frontend models wait for
+ROADMAP item 14c parts 4-5.
 
 Sampling: greedy (``temperature=0``) is the reference's argmax.  With
 ``temperature > 0`` the port draws from a seeded ``torch.Generator`` on

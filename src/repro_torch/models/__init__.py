@@ -1,11 +1,12 @@
 """Model substrate (counterpart of ``repro.models``): configs, layers,
-attention and the dense transformer with its serving entry points, and
-the SSD scans of ``models.ssm`` (the oracles of the SSD kernel).
+attention, the MoE layer (``moe``), the Mamba2 block and its SSD scans
+(``ssm``), and the transformer of the dense, moe and ssm families with
+its serving entry points.
 
 ``loss_fn`` is the trainers' loss over a ``Transformer`` or the
 reference-layout parameter tree (``param_tree``).  Not ported yet:
-``param_specs`` (the dry-run's abstract shapes, item 15), and the MoE,
-SSM (the Mamba2 block), hybrid, audio, VLM and MLA paths (item 14c).
+``param_specs`` (the dry-run's abstract shapes, item 15), and MLA, the
+hybrid trunk and the audio and VLM frontends (item 14c parts 4-5).
 """
 from .config import ModelConfig
 from .transformer import (Transformer, decode_step, forward, init_params,

@@ -1,5 +1,5 @@
-"""Attention for the dense GQA family: train / prefill / decode paths with
-plain and ring (sliding-window) KV caches (counterpart of
+"""GQA attention (the dense and MoE families): train / prefill / decode
+paths with plain and ring (sliding-window) KV caches (counterpart of
 ``repro.models.attention``).
 
 ``attend``'s ``impl``:
@@ -15,7 +15,7 @@ plain and ring (sliding-window) KV caches (counterpart of
 
 Caches are updated in place (the reference returns new arrays); the
 functions still return the cache, as the reference does.  MLA
-(DeepSeek-V2) comes with ROADMAP item 14c.
+(DeepSeek-V2) comes with ROADMAP item 14c part 4.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ NEG_INF = -1e30
 def _mla_not_ported():
     return NotImplementedError(
         "MLA attention (use_mla=True) is not ported yet: ROADMAP queue A "
-        "item 14c")
+        "item 14c part 4")
 
 
 # ------------------------------------------------------------------ params

@@ -25,8 +25,10 @@ __all__ = ["act_constraint", "rmsnorm", "layernorm", "apply_norm",
 
 def act_constraint(x: torch.Tensor, cfg: ModelConfig,
                    seq_dim: int = 1) -> torch.Tensor:
-    """The reference pins activation shardings on a device mesh here; the
-    port has no mesh yet (ROADMAP item 12), so this is the identity."""
+    """The reference pins activation shardings on a device mesh here.  The
+    port's mesh shards sweep cells (``repro_torch.mesh``, ``sweep.shard``)
+    but not a model's activations, which wait for the model-sharding
+    planner (ROADMAP item 12b); so this is the identity."""
     return x
 
 

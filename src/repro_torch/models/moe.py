@@ -1,0 +1,137 @@
+"""Mixture-of-Experts layer: a top-k router with the auxiliary
+load-balance loss, shared (always-on) experts and routed experts
+(counterpart of ``repro.models.moe``).
+
+Two dispatches, as in the reference:
+
+* :func:`moe_block` -- the dense oracle: every expert on every token,
+  masked by the (tokens, experts) combine matrix (no token dropped);
+* :func:`moe_block_capacity` -- the capacity-bucketed gather / scatter
+  (the config default, ``moe_impl="capacity"``): each expert takes at
+  most C = int(T * k / E * capacity_factor) tokens, slots given in
+  token-major (T*k) order, and the tokens past C are dropped.
+
+Ties in the top-k go to the lower expert index, as ``jax.lax.top_k``
+orders them (a stable descending sort; ``torch.topk`` promises no
+order).  The bucket scatter writes each kept (token, slot) row once and
+every dropped one into a spare row that is then cut off, so the kept
+rows do not depend on the order of a scatter with repeated indices.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .layers import _normal
+
+__all__ = ["moe_params", "router_topk", "moe_block", "moe_block_capacity"]
+
+
+def moe_params(gen: Optional[torch.Generator], cfg: ModelConfig,
+               device=None) -> dict:
+    """``router`` (D, E) in float32; experts ``w1`` / ``w3`` (E, D, F) and
+    ``w2`` (E, F, D), and the shared experts ``shared_w1`` / ``shared_w3``
+    (D, Fs) and ``shared_w2`` (Fs, D), in the param dtype."""
+    D, E, F_ = cfg.d_model, cfg.n_experts, cfg.moe_ff
+    std = D ** -0.5
+    p = {"router": _normal(gen, (D, E), std, cfg.replace(
+            param_dtype="float32"), device),
+         "w1": _normal(gen, (E, D, F_), std, cfg, device),
+         "w3": _normal(gen, (E, D, F_), std, cfg, device),
+         "w2": _normal(gen, (E, F_, D), F_ ** -0.5, cfg, device)}
+    if cfg.shared_ff:
+        Fs = cfg.shared_ff
+        p["shared_w1"] = _normal(gen, (D, Fs), std, cfg, device)
+        p["shared_w3"] = _normal(gen, (D, Fs), std, cfg, device)
+        p["shared_w2"] = _normal(gen, (Fs, D), Fs ** -0.5, cfg, device)
+    return p
+
+
+def _topk(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k`` of the rows of ``probs``: the k largest, ties to
+    the lower index."""
+    top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return top_w[..., :k], top_i[..., :k]
+
+
+def _route(logits: torch.Tensor, k: int):
+    """(probs, renormalized top-k weights, top-k ids, aux loss) of float32
+    router logits (T, E).  Aux follows Switch/GShard: E * sum_e f_e * p_e."""
+    E = logits.shape[-1]
+    probs = torch.softmax(logits.float(), dim=-1)
+    top_w, top_i = _topk(probs, k)
+    top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    chosen = torch.zeros_like(probs).scatter_(-1, top_i, 1.0)  # max over k
+    aux = E * torch.sum(chosen.mean(dim=0) * probs.mean(dim=0))
+    return probs, top_w, top_i, aux
+
+
+def router_topk(logits: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """logits (T, E) -> (combine (T, E) holding the top-k softmax weights,
+    aux loss, top-k ids (T, k))."""
+    probs, top_w, top_i, aux = _route(logits, k)
+    combine = torch.zeros_like(probs).scatter_(-1, top_i, top_w)
+    return combine, aux, top_i
+
+
+def _shared(p, t: torch.Tensor, dt) -> torch.Tensor:
+    hs = F.silu(t @ p["shared_w3"].to(dt)) * (t @ p["shared_w1"].to(dt))
+    return hs @ p["shared_w2"].to(dt)
+
+
+def moe_block(p, x: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense oracle.  x (B, S, D) -> (y, aux loss)."""
+    B, S, D = x.shape
+    dt = cfg.cdtype
+    t = x.reshape(B * S, D)
+    combine, aux, _ = router_topk(t.float() @ p["router"], cfg.top_k)
+    combine = combine.to(dt)
+    h1 = torch.einsum("td,edf->tef", t, p["w1"].to(dt))
+    h3 = torch.einsum("td,edf->tef", t, p["w3"].to(dt))
+    h = F.silu(h3) * h1
+    y = torch.einsum("tef,efd,te->td", h, p["w2"].to(dt), combine)
+    if cfg.shared_ff:
+        y = y + _shared(p, t, dt)
+    return y.reshape(B, S, D), aux
+
+
+def moe_block_capacity(p, x: torch.Tensor, cfg: ModelConfig,
+                       capacity_factor: float = 1.25
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-bucketed dispatch: each expert runs on at most C tokens,
+    so the work follows the active experts, not all of them.  x (B, S, D)
+    -> (y, aux loss)."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    dt = cfg.cdtype
+    t = x.reshape(B * S, D)
+    T = t.shape[0]
+    C = max(1, int(T * k / E * capacity_factor))
+
+    _, top_w, top_i, aux = _route(t.float() @ p["router"], k)
+
+    # each (token, slot)'s place in its expert's bucket, token-major
+    flat_e = top_i.reshape(-1)                                  # (T*k,)
+    onehot = F.one_hot(flat_e, E)                               # (T*k, E)
+    slot = (torch.cumsum(onehot, dim=0) * onehot).amax(dim=-1) - 1
+    dest = torch.where(slot < C, flat_e * C + slot,
+                       torch.full_like(flat_e, E * C))          # spare row
+
+    src = torch.arange(T * k, device=x.device) // k
+    buckets = torch.zeros((E * C + 1, D), dtype=dt, device=x.device)
+    buckets.index_copy_(0, dest, t[src])
+    xb = buckets[:E * C].reshape(E, C, D)
+    h = F.silu(torch.bmm(xb, p["w3"].to(dt))) * torch.bmm(xb, p["w1"].to(dt))
+    yb = torch.bmm(h, p["w2"].to(dt)).reshape(E * C, D)
+    yb = torch.cat([yb, yb.new_zeros((1, D))], dim=0)
+    y_slots = yb[dest] * top_w.reshape(-1, 1).to(dt)
+    y = y_slots.reshape(T, k, D).sum(dim=1)
+
+    if cfg.shared_ff:
+        y = y + _shared(p, t, dt)
+    return y.reshape(B, S, D), aux

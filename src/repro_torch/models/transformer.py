@@ -1,21 +1,31 @@
-"""Model assembly for the dense family (counterpart of
-``repro.models.transformer``).
+"""Model assembly for the dense, MoE and Mamba2 (ssm) families
+(counterpart of ``repro.models.transformer``).
 
 ``Transformer`` is an ``nn.Module`` trunk: the embedding tables, an
-``nn.ModuleList`` of pre-norm attention + MLP layers and the final norm,
-each holding the reference's parameter names in its ``(in, out)`` layout
+``nn.ModuleList`` of layers and the final norm, each holding the
+reference's parameter names in its ``(in, out)`` layout
 (``layers[i].attn["wq"]`` is the reference's ``layers["attn"]["wq"][i]``),
 so weights carry across by an unstack (``interop.model_params``), never a
-transpose.  The reference scans over layers stacked on a leading L axis;
-the port loops over the module list.
+transpose.  A layer's parts follow the family, as the reference's
+``_layer_params``: pre-norm attention + MLP (``ln1``, ``attn``, ``ln2``,
+``mlp``), with ``moe`` in place of ``mlp`` where ``cfg.n_experts`` is
+set, or a pre-norm Mamba2 mixer (``ln``, ``mixer``) for ``family="ssm"``.
+The reference scans over layers stacked on a leading L axis; the port
+loops over the module list.
 
 Entry points, as in the reference:
-  forward()      -- logits over all positions (training / encoding)
-  loss_fn()      -- the training loss (dense or chunked cross-entropy),
+  forward()      -- logits over all positions (training / encoding) and
+                    the MoE balance loss summed over the layers
+  loss_fn()      -- the training loss (dense or chunked cross-entropy,
+                    plus ``router_aux_coef`` times that sum),
                     differentiable through ``torch.autograd``
   prefill()      -- full-sequence forward that returns the cache and the
                     last position's logits
   decode_step()  -- one token against the cache (updated in place)
+
+The cache is the stacked ``k``/``v`` of the attention layers, or for an
+ssm model the stacked Mamba2 state (``h`` (L, B, H, P, N) float32,
+``conv`` (L, B, K-1, C)), which has no length axis.
 
 ``forward`` and ``loss_fn`` also take the reference's parameter tree
 (``param_tree``: ``embed``, ``final_norm`` and ``layers`` with every leaf
@@ -28,9 +38,9 @@ chunked cross-entropy recomputes each chunk's logits, as the reference's
 refuses ``attention_impl="pallas"``: the flash-attention kernel has no
 backward.
 
-The serving entry points run under ``torch.inference_mode()``.  The
-families moe, ssm, hybrid, audio and vlm, and MLA attention, come with
-ROADMAP item 14c; they raise ``NotImplementedError`` here.
+The serving entry points run under ``torch.inference_mode()``.  MLA
+attention, the hybrid trunk and the audio and VLM frontends come with
+ROADMAP item 14c parts 4-5; they raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -46,23 +56,44 @@ from .attention import attention_block, attn_params, init_cache
 from .config import ModelConfig
 from .layers import (apply_norm, embed, embed_params, make_positions, mlp,
                      mlp_params, norm_params, rope_cos_sin, unembed)
+from .moe import moe_block, moe_block_capacity, moe_params
+from .ssm import init_ssm_state, mamba2_block, ssm_params
 
 __all__ = ["Transformer", "init_params", "forward", "loss_fn", "param_tree",
-           "make_cache", "prefill", "decode_step", "check_ported"]
+           "make_cache", "prefill", "decode_step", "check_ported",
+           "layer_parts"]
 
-LAYER_PARTS = ("ln1", "attn", "ln2", "mlp")
+PORTED_FAMILIES = ("dense", "moe", "ssm")
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if cfg.family != "dense" or cfg.use_mla or cfg.n_experts \
+    if cfg.family not in PORTED_FAMILIES or cfg.use_mla \
             or cfg.embed_inputs:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r}"
             + (" with MLA" if cfg.use_mla else "")
-            + " is not ported yet; the port runs the dense GQA family "
-            "(ROADMAP queue A item 14c brings MLA, MoE, SSM, hybrid, audio "
-            "and VLM)")
+            + " is not ported yet; the port runs the dense, moe and ssm "
+            "families (ROADMAP queue A item 14c parts 4-5 bring MLA, the "
+            "hybrid trunk and the audio and VLM frontends)")
+
+
+def layer_parts(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The parts of one layer, as the reference's ``_layer_params``."""
+    if cfg.family == "ssm":
+        return ("ln", "mixer")
+    return ("ln1", "attn", "ln2", "moe" if cfg.n_experts else "mlp")
+
+
+def _layer_tensors(gen, cfg: ModelConfig, device) -> dict:
+    if cfg.family == "ssm":
+        return {"ln": norm_params(cfg, device=device),
+                "mixer": ssm_params(gen, cfg, device=device)}
+    ffn = moe_params if cfg.n_experts else mlp_params
+    return {"ln1": norm_params(cfg, device=device),
+            "attn": attn_params(gen, cfg, device=device),
+            "ln2": norm_params(cfg, device=device),
+            layer_parts(cfg)[3]: ffn(gen, cfg, device=device)}
 
 
 def _params(tensors: dict) -> nn.ParameterDict:
@@ -72,29 +103,40 @@ def _params(tensors: dict) -> nn.ParameterDict:
 
 def layer_apply(p, x, cfg: ModelConfig, rope_cs, positions, mode: str,
                 cache=None, pos=None, window=None, ring=False):
-    """One pre-norm attention + MLP layer on parameters ``p`` (``ln1``,
-    ``attn``, ``ln2``, ``mlp`` mappings of leaves); returns (x, cache)."""
+    """One layer on parameters ``p`` (the mappings of ``layer_parts``);
+    returns (x, cache, aux).  ``cache`` is the layer's attention cache or
+    Mamba2 state; ``aux`` is its MoE balance loss, None without experts."""
+    if cfg.family == "ssm":
+        h, state = mamba2_block(p["mixer"], apply_norm(p["ln"], x, cfg),
+                                cfg, mode, state=cache)
+        return x + h, state, None
     h, new_cache = attention_block(p["attn"], apply_norm(p["ln1"], x, cfg),
                                    cfg, rope_cs, positions, mode,
                                    cache=cache, pos=pos, window=window,
                                    ring=ring)
     x = x + h
-    return x + mlp(p["mlp"], apply_norm(p["ln2"], x, cfg), cfg), new_cache
+    z = apply_norm(p["ln2"], x, cfg)
+    if not cfg.n_experts:
+        return x + mlp(p["mlp"], z, cfg), new_cache, None
+    if cfg.moe_impl == "dense":
+        y, aux = moe_block(p["moe"], z, cfg)
+    else:
+        y, aux = moe_block_capacity(p["moe"], z, cfg, cfg.capacity_factor)
+    return x + y, new_cache, aux
 
 
 class Layer(nn.Module):
-    """One pre-norm attention + MLP layer: ``ln1``, ``attn``, ``ln2``,
-    ``mlp`` parameter dictionaries with the reference's leaf names."""
+    """One layer: the parameter dictionaries of ``layer_parts(cfg)`` with
+    the reference's leaf names."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
         super().__init__()
-        self.ln1 = _params(norm_params(cfg, device=device))
-        self.attn = _params(attn_params(gen, cfg, device=device))
-        self.ln2 = _params(norm_params(cfg, device=device))
-        self.mlp = _params(mlp_params(gen, cfg, device=device))
+        self.part_names = layer_parts(cfg)
+        for part, tensors in _layer_tensors(gen, cfg, device).items():
+            setattr(self, part, _params(tensors))
 
     def parts(self) -> dict:
-        return {part: getattr(self, part) for part in LAYER_PARTS}
+        return {part: getattr(self, part) for part in self.part_names}
 
     def forward(self, x, cfg: ModelConfig, rope_cs, positions, mode: str,
                 cache=None, pos=None, window=None, ring=False):
@@ -103,7 +145,7 @@ class Layer(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The dense trunk: ``embed`` (``tok``, ``unembed``), ``layers`` and
+    """The trunk: ``embed`` (``tok``, ``unembed``), ``layers`` and
     ``final_norm``.  ``forward(batch)`` is :func:`forward`."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
@@ -148,14 +190,18 @@ def _run_trunk(model: Transformer, x: torch.Tensor, cfg: ModelConfig, *,
                window: Optional[int] = None, ring: bool = False):
     """Apply all layers; returns (x, cache).  ``cache`` is the stacked
     cache (leading L axis) that prefill fills or decode reads and
-    updates; each layer works on its own views of it."""
+    updates; each layer works on its own views of it (a Mamba2 layer's
+    new state is copied into them)."""
     rope_cs = rope_cos_sin(cfg, positions)
     layer_caches = []
     for i, layer in enumerate(model.layers):
         c = None if cache is None else {n: t[i] for n, t in cache.items()}
-        x, c = layer(x, cfg, rope_cs, positions, mode, cache=c, pos=pos,
-                     window=window, ring=ring)
-        layer_caches.append(c)
+        x, new, _ = layer(x, cfg, rope_cs, positions, mode, cache=c,
+                          pos=pos, window=window, ring=ring)
+        if cfg.family == "ssm" and c is not None:
+            for n in c:
+                c[n].copy_(new[n])
+        layer_caches.append(new)
     if mode == "prefill" and cache is None:
         cache = {n: torch.stack([c[n] for c in layer_caches])
                  for n in layer_caches[0]}
@@ -188,53 +234,60 @@ def param_tree(model: Transformer) -> dict:
             part: {n: torch.stack([getattr(layer, part)[n].detach()
                                    for layer in model.layers])
                    for n in getattr(model.layers[0], part)}
-            for part in LAYER_PARTS}
+            for part in model.layers[0].part_names}
     return tree
 
 
-def _parts(params):
+def _parts(params, cfg: ModelConfig):
     """``(embed, [layer parameters], final_norm)`` of a ``Transformer`` or
     of a reference-layout tree (layer ``i`` is slice ``i`` of each
     stacked leaf)."""
     if isinstance(params, Transformer):
         return (params.embed, [layer.parts() for layer in params.layers],
                 params.final_norm)
+    parts = layer_parts(cfg)
     if set(params) != {"embed", "layers", "final_norm"} \
-            or set(params["layers"]) != set(LAYER_PARTS):
-        raise ValueError("a parameter tree of the dense trunk has embed, "
-                         "final_norm and layers (ln1, attn, ln2, mlp); got "
-                         f"{sorted(params)}")
+            or set(params["layers"]) != set(parts):
+        raise ValueError(
+            f"a parameter tree of {cfg.name} has embed, final_norm and "
+            f"layers ({', '.join(parts)}); got {sorted(params)} with layers "
+            f"{sorted(params.get('layers', ()))}")
     stacked = params["layers"]
-    n_layers = stacked["ln1"]["scale"].shape[0]
+    n_layers = stacked[parts[0]]["scale"].shape[0]
     layers = [{part: {n: t[i] for n, t in stacked[part].items()}
-               for part in LAYER_PARTS} for i in range(n_layers)]
+               for part in parts} for i in range(n_layers)]
     return params["embed"], layers, params["final_norm"]
 
 
 def _hidden(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             window: Optional[int]):
-    """The trunk in training mode up to the final norm: ``(x, embed)``."""
+    """The trunk in training mode up to the final norm: ``(x, embed,
+    aux)``, aux the MoE balance loss summed over the layers in order."""
     check_ported(cfg)
-    embed_p, layers, final = _parts(params)
+    embed_p, layers, final = _parts(params, cfg)
     x, positions = _inputs_to_x(embed_p, final["scale"].device, cfg, batch)
     window = window if window is not None else cfg.sliding_window
     rope_cs = rope_cos_sin(cfg, positions)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in layers:
         def run(x, p=p):
-            return layer_apply(p, x, cfg, rope_cs, positions, "train",
-                               window=window)[0]
-        x = checkpoint(run, x, use_reentrant=False) if remat else run(x)
-    return apply_norm(final, x, cfg), embed_p
+            x, _, aux_l = layer_apply(p, x, cfg, rope_cs, positions,
+                                      "train", window=window)
+            return x, aux_l
+        x, aux_l = (checkpoint(run, x, use_reentrant=False) if remat
+                    else run(x))
+        if aux_l is not None:
+            aux = aux + aux_l
+    return apply_norm(final, x, cfg), embed_p, aux
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             window: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward over a ``Transformer`` or a parameter tree.
-    Returns (logits, aux); aux is the MoE balance loss, zero for the
-    dense family."""
-    x, embed_p = _hidden(params, cfg, batch, window)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    Returns (logits, aux); aux is the MoE balance loss summed over the
+    layers, zero without experts."""
+    x, embed_p, aux = _hidden(params, cfg, batch, window)
     return unembed(embed_p, x, cfg), aux
 
 
@@ -263,9 +316,8 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             "cfg.replace(attention_impl='chunked'), the reference trainer's "
             "attention")
     labels = batch["targets"]
-    x, embed_p = _hidden(params, cfg, batch, window)
+    x, embed_p, aux = _hidden(params, cfg, batch, window)
     labels = labels.to(x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     C = cfg.ce_chunk
     if C and labels.shape[1] % C == 0:
         def chunk_ce(xc, lc):
@@ -288,10 +340,12 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                ring: bool = False, device=None) -> dict:
     """Stacked decode cache for all layers: ``k``/``v`` of shape
     (L, B, max_len, KV, hd) in the compute dtype (``positions`` (L,
-    max_len), all -1, for a ring)."""
+    max_len), all -1, for a ring); for an ssm model the zero Mamba2
+    state of every layer (``max_len`` and ``ring`` do not enter it)."""
     check_ported(cfg)
     dev = resolve_device(device)
-    c = init_cache(cfg, batch, max_len, ring, device=dev)
+    c = (init_ssm_state(cfg, batch, device=dev) if cfg.family == "ssm"
+         else init_cache(cfg, batch, max_len, ring, device=dev))
     return {n: t[None].repeat((cfg.n_layers,) + (1,) * t.ndim)
             for n, t in c.items()}
 
@@ -307,12 +361,14 @@ def prefill(params: Transformer, cfg: ModelConfig,
     ``window`` entries) or, with ``max_len``, a plain ``max_len`` cache
     holding the prompt in slots [0, S) -- what the reference gets by
     grafting its prefill cache into ``make_cache(..., max_len)``, without
-    the intermediate copy."""
+    the intermediate copy.  An ssm model's cache is its Mamba2 state after
+    the prompt, with or without ``max_len`` (the reference's graft keeps
+    such a state whole)."""
     check_ported(cfg)
     x, positions = _inputs_to_x(params.embed, params.device, cfg, batch)
     window = window if window is not None else cfg.sliding_window
     cache = None
-    if max_len is not None:
+    if max_len is not None and cfg.family != "ssm":
         if ring:
             raise ValueError("max_len is for plain caches; a ring prefill "
                              "returns its own window-long cache")

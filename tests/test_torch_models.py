@@ -8,7 +8,12 @@ Two kinds of check, at small sizes on the CPU:
 * cross-package parity: the reference's parameters carried into the port
   by ``interop.model_params``, then ``forward``, ``prefill`` and a
   teacher-forced sequence of ``decode_step`` on both packages, for
-  ``qwen2.5-32b.reduced()`` and the ``25m`` preset.
+  ``qwen2.5-32b.reduced()`` and the ``25m`` preset, and for the Mamba2
+  and MoE families at ``mamba2-780m.reduced()`` and
+  ``qwen2-moe-a2.7b.reduced()`` (capacity dispatch; a router flip past
+  ``tests/test_torch_moe.py``'s margin would show in the logits);
+* the reference's ssm decode test and its batch-permutation property
+  (``tests/test_model_properties.py:48``) for the ssm and moe families.
 
 Envelopes on the logits (values of size ~1-5), per test:
   float32: 1e-4 absolute (at most the reference's own 2e-3); the two
@@ -53,6 +58,16 @@ BASE = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
             d_ff=128, vocab=97, q_chunk=8)
 F32_ENV = 1e-4
 BF16_ENV = 0.1
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's programs here are tiny: torch's intra-op threads would
+    only contend with the other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _port_cfg(jcfg, **over):
@@ -186,10 +201,13 @@ def test_encoder_has_no_decode_and_other_families_name_their_item():
     with pytest.raises(ValueError, match="encoder-only"):
         decode_step(None, enc, None, torch.zeros((1, 1), dtype=torch.int32),
                     0)
-    for arch in ("deepseek-v2-236b", "mamba2-780m", "zamba2-2.7b",
-                 "qwen2-moe-a2.7b", "qwen2-vl-72b"):
-        with pytest.raises(NotImplementedError, match="item 14c"):
+    for arch in ("deepseek-v2-236b", "zamba2-2.7b", "qwen2-vl-72b"):
+        with pytest.raises(NotImplementedError, match="item 14c parts 4-5"):
             init_params(get_config(arch).reduced(), device="cpu")
+    for arch, parts in (("mamba2-780m", ("ln", "mixer")),
+                        ("qwen2-moe-a2.7b", ("ln1", "attn", "ln2", "moe"))):
+        model = init_params(get_config(arch).reduced(), device="cpu")
+        assert model.layers[0].part_names == parts
 
 
 def test_init_params_is_seeded_and_shaped_like_the_reference():
@@ -353,3 +371,121 @@ def test_model_tree_round_trips_the_reference_tree():
     for a, b in zip(jax.tree_util.tree_leaves(got),
                     jax.tree_util.tree_leaves(want)):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------- the Mamba2 and MoE families
+
+NEW_FAMILIES = ("mamba2-780m", "qwen2-moe-a2.7b")
+
+
+def test_decode_matches_forward_ssm():
+    """``tests/test_models.py:79`` on the port (atol 3e-3 there)."""
+    _decode_matches_forward(ModelConfig(
+        name="s", family="ssm", n_layers=2, d_model=64, vocab=97,
+        ssm_state=16, ssm_head_dim=16, ssm_chunk=8, d_ff=0, rope="none"),
+        atol=3e-3)
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_new_families_match_reference_f32(arch):
+    """forward (logits, aux), prefill (logits, cache) and 12
+    teacher-forced decode steps after a 12-token prefill into a 24-token
+    cache, at the ``.reduced()`` config in float32."""
+    jcfg = j_get_config(arch).reduced()
+    jp, model, tcfg = _carry(jcfg)
+    assert tcfg.param_dtype == "float32"
+    toks = np.random.default_rng(6).integers(0, jcfg.vocab, (2, 24)).astype(
+        np.int32)
+    jl, jaux = _j_call(j_forward, jcfg, jp, toks)
+    tl, taux = forward(model, tcfg, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=F32_ENV)
+    assert abs(float(taux) - float(jaux)) <= 1e-6
+    sure, agree = _greedy_agreement(np.asarray(jl), tl.numpy(), F32_ENV)
+    assert sure >= 0.9 * toks.size and agree == sure, (sure, agree)
+
+    P, L = 12, 24
+    jl1, jpf = _j_call(j_prefill, jcfg, jp, toks[:, :P])
+    tl1, tcache = prefill(model, tcfg, {"tokens": torch.from_numpy(
+        toks[:, :P])}, max_len=L)
+    np.testing.assert_allclose(tl1.numpy(), np.asarray(jl1), atol=F32_ENV)
+    if tcfg.family == "ssm":   # the state has no length axis: kept whole
+        jcache = jpf
+        assert set(tcache) == {"h", "conv"}
+        np.testing.assert_allclose(tcache["h"].numpy(), np.asarray(jpf["h"]),
+                                   atol=F32_ENV)
+    else:
+        jcache = jax.tree_util.tree_map(
+            lambda buf, c: jax.lax.dynamic_update_slice_in_dim(
+                buf, c, 0, axis=2), j_make_cache(jcfg, 2, L), jpf)
+    jstep = jax.jit(lambda p, c, t, pos: j_decode_step(p, jcfg, c, t, pos))
+    j_all, t_all = [], []
+    for t in range(P, L):
+        jl, jcache = jstep(jp, jcache, jnp.asarray(toks[:, t:t + 1]),
+                           jnp.int32(t))
+        tl, tcache = decode_step(model, tcfg, tcache,
+                                 torch.from_numpy(toks[:, t:t + 1]), t)
+        j_all.append(np.asarray(jl))
+        t_all.append(tl.numpy())
+    j_all, t_all = np.stack(j_all), np.stack(t_all)
+    np.testing.assert_allclose(t_all, j_all, atol=F32_ENV)
+    sure, agree = _greedy_agreement(j_all, t_all, F32_ENV)
+    assert sure >= 0.9 * j_all.shape[0] * 2 and agree == sure, (sure, agree)
+    for n in tcache:
+        np.testing.assert_allclose(tcache[n].float().numpy(),
+                                   np.asarray(jcache[n], np.float32),
+                                   atol=F32_ENV)
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_new_families_param_tree_round_trip(arch):
+    """``param_tree`` is the reference's stacked tree (the MoE router and
+    the Mamba2 A_log / D / dt_bias in float32) and ``forward`` on it
+    equals ``forward`` on the model; ``model_tree`` gives the reference's
+    tree back leaf for leaf."""
+    from repro_torch.models import param_tree
+    jcfg = j_get_config(arch).reduced()
+    jp, model, tcfg = _carry(jcfg)
+    tree = param_tree(model)
+    want = jax.tree_util.tree_map(np.asarray, jp)
+    assert jax.tree_util.tree_structure(
+        jax.tree_util.tree_map(lambda t: 0, tree)) == \
+        jax.tree_util.tree_structure(jax.tree_util.tree_map(lambda a: 0,
+                                                            want))
+    for a, b in zip(jax.tree_util.tree_leaves(interop.model_tree(model)),
+                    jax.tree_util.tree_leaves(want)):
+        np.testing.assert_array_equal(a, b)
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, jcfg.vocab, (1, 9)).astype(np.int32))
+    a, _ = forward(model, tcfg, {"tokens": toks})
+    b, _ = forward(tree, tcfg, {"tokens": toks})
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="layers"):
+        forward(dict(tree, layers={"ln1": tree["layers"].get("ln1", {})}),
+                tcfg, {"tokens": toks})
+
+
+FAMILY_CFGS = {
+    "ssm": ModelConfig(name="s", family="ssm", n_layers=2, d_model=64,
+                       vocab=61, ssm_state=16, ssm_head_dim=16, ssm_chunk=8,
+                       d_ff=0, rope="none"),
+    "moe": ModelConfig(name="m", family="moe", n_experts=4, top_k=2,
+                       moe_ff=32, moe_impl="dense",
+                       **dict(BASE, vocab=61)),
+}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("fam", sorted(FAMILY_CFGS))
+def test_batch_permutation_equivariance(fam, seed):
+    """``tests/test_model_properties.py:48`` for the ssm and moe families
+    (its moe config takes the dense dispatch, where a token's output does
+    not depend on the others)."""
+    cfg = FAMILY_CFGS[fam]
+    model = init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16)).astype(
+        np.int32))
+    perm = torch.from_numpy(rng.permutation(4))
+    l1, _ = forward(model, cfg, {"tokens": toks})
+    l2, _ = forward(model, cfg, {"tokens": toks[perm]})
+    np.testing.assert_allclose(l1[perm].numpy(), l2.numpy(), atol=2e-4)

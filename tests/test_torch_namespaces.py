@@ -124,7 +124,8 @@ NEW_MODULES = ("repro_torch.kernels.ops", "repro_torch.kernels.ref",
                "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
                "repro_torch.core.runtime", "repro_torch.core.async_sgd",
                "repro_torch.optim.optimizers", "repro_torch.data.synthetic",
-               "repro_torch.launch.train_bcd", "repro_torch.launch.steps")
+               "repro_torch.launch.train_bcd", "repro_torch.launch.steps",
+               "repro_torch.models.moe", "repro_torch.launch.train_federated")
 
 
 def test_every_port_module_imports_without_jax_or_the_reference(

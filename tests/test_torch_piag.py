@@ -32,6 +32,16 @@ POLICIES = ("adaptive1", "adaptive2", "fixed", "naive", "hinge", "poly")
 EXACT = ("adaptive1", "adaptive2", "fixed", "naive")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's programs here are small: torch's intra-op threads would
+    only contend with the other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def problems():
     return (jprob.make_logreg(200, 30, n_workers=4, seed=0),

@@ -9,7 +9,11 @@ The three cases of ``tests/test_serving.py`` run on the port (its own
 logit envelope of ``tests/test_torch_models.py``, which they do here).
 Temperature sampling draws from a seeded ``torch.Generator`` (the
 reference draws from ``jax.random``, a deliberate deviation): tested for
-being seeded and reproducible only.
+being seeded and reproducible only.  The Mamba2 and MoE families serve
+through the same two entry points: at ``mamba2-780m.reduced()`` and
+``qwen2-moe-a2.7b.reduced()`` their greedy tokens equal the
+reference's (an ssm slot keeps its prefill state whole, as the
+reference's graft does).
 """
 import dataclasses
 
@@ -19,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as j_get_config
 from repro.launch.serve import generate as j_generate
 from repro.launch.train import PRESETS as J_PRESETS
 from repro.models import init_params as j_init_params
@@ -35,6 +40,16 @@ SMALL = dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, head_dim=32,
              d_ff=256, vocab=256, name="lm-serve")
 CFG = PRESETS["25m"].replace(**SMALL)
 J_CFG = J_PRESETS["25m"].replace(**SMALL)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's programs here are tiny: torch's intra-op threads would
+    only contend with the other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -181,3 +196,56 @@ def test_serve_cli_on_the_cpu(capsys):
                 "--batch", "2", "--prompt-len", "8", "--gen", "3"])
     out = capsys.readouterr().out
     assert "generated (2, 11) on cpu" in out and "tok/s" in out
+
+
+# ------------------------------------------- the Mamba2 and MoE families
+
+NEW_FAMILIES = ("mamba2-780m", "qwen2-moe-a2.7b")
+
+
+@pytest.fixture(scope="module", params=NEW_FAMILIES)
+def family(request):
+    """(reference config, reference params, the port model holding them,
+    port config) at the family's ``.reduced()`` config."""
+    jcfg = j_get_config(request.param).reduced()
+    jp = jax.jit(j_init_params, static_argnums=0)(jcfg,
+                                                  jax.random.PRNGKey(0))
+    tcfg = ModelConfig(**dataclasses.asdict(jcfg))
+    model = interop.model_params(jax.tree_util.tree_map(np.asarray, jp),
+                                 tcfg, device="cpu")
+    return jcfg, jp, model, tcfg
+
+
+def test_new_family_generate_equals_reference(family):
+    jcfg, jp, model, tcfg = family
+    prompts = np.random.default_rng(8).integers(
+        0, jcfg.vocab, (2, 11)).astype(np.int32)
+    want, _ = j_generate(jcfg, jp, jnp.asarray(prompts), 6)
+    got, _ = generate(tcfg, model, prompts, 6)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_new_family_batcher_equals_reference(family):
+    jcfg, jp, model, tcfg = family
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, jcfg.vocab, size=rng.integers(4, 12)).astype(
+        np.int32) for _ in range(4)]
+    budgets = [int(rng.integers(2, 6)) for _ in prompts]
+    jcb = JBatcher(jcfg, jp, max_slots=2, max_len=32)
+    tcb = ContinuousBatcher(tcfg, model, max_slots=2, max_len=32)
+    for i, (p, n) in enumerate(zip(prompts, budgets)):
+        jcb.submit(JRequest(rid=i, prompt=p, max_new=n))
+        tcb.submit(Request(rid=i, prompt=p, max_new=n))
+    js, ts = jcb.run_until_idle(), tcb.run_until_idle()
+    assert (ts["ticks"], ts["tokens"], ts["completed"]) == \
+        (js["ticks"], js["tokens"], js["completed"])
+    for a, b in zip(tcb.done, jcb.done):
+        assert a.rid == b.rid
+        np.testing.assert_array_equal(a.output, b.output)
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_serve_cli_new_families_on_the_cpu(arch, capsys):
+    serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch",
+                "2", "--prompt-len", "8", "--gen", "3"])
+    assert "generated (2, 11) on cpu" in capsys.readouterr().out

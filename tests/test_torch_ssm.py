@@ -14,7 +14,15 @@ Envelope: y and the final state within 1e-5 of their largest magnitude
 two packages sum the float32 products and the cumulative decay in other
 orders).  The recurrence checks keep ``tests/test_models.py``'s 3e-4
 absolute.
+
+The Mamba2 mixer (``_causal_conv``, ``mamba2_block``) is held against the
+reference's on its own parameters (carried as float32 numpy): float32
+outputs and states within 1e-5 of their largest magnitude, bfloat16
+``_causal_conv`` within one bfloat16 ulp of it (the taps are summed in
+the reference's order; XLA may keep the chain in float32).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,14 +30,27 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.models import ssm as jssm
+from repro.models.config import ModelConfig as JConfig
 from repro.models.ssm import ssd_chunked as j_chunked
 from repro.models.ssm import ssd_recurrent_step as j_step
 from repro_torch.kernels import ops
+from repro_torch.models import ModelConfig, ssm
 from repro_torch.models.ssm import ssd_chunked, ssd_recurrent_step
 
 REL_ENVELOPE = 1e-5
 SEQ = ("x", "dt", "B", "C")           # the inputs with a sequence axis
 SWEEP = [(2, 40, 4, 8, 2, 16), (1, 64, 2, 16, 1, 8), (2, 17, 6, 8, 3, 4)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's programs here are tiny: torch's intra-op threads would
+    only contend with the other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _inputs(seed, Bt, S, H, P, G, N, h0=False):
@@ -172,3 +193,105 @@ def test_ssd_scan_pallas_bf16_input():
     err = (y.float() - y32).abs()
     assert bool((err <= 2.0 ** -8 * y32.abs() + REL_ENVELOPE
                  * float(y32.abs().max())).all())
+
+
+# --------------------------------------------------- the Mamba2 mixer
+
+JCFG = JConfig(name="s", family="ssm", n_layers=2, d_model=64, vocab=97,
+               ssm_state=16, ssm_head_dim=16, ssm_chunk=8, d_ff=0,
+               rope="none")
+
+
+def _mixer(jcfg, seed=0):
+    jp = jssm.ssm_params(jax.random.PRNGKey(seed), jcfg)
+    tcfg = ModelConfig(**dataclasses.asdict(jcfg))
+    tp = {n: torch.from_numpy(np.array(v, np.float32)).to(
+        ssm.ssm_params(None, tcfg)[n].dtype) for n, v in jp.items()}
+    return jp, tp, tcfg
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_causal_conv_matches_reference(dtype, with_state):
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 7, 12)).astype(np.float32)
+    w = (rng.standard_normal((4, 12)) * 0.5).astype(np.float32)
+    b = rng.standard_normal(12).astype(np.float32)
+    st = rng.standard_normal((2, 3, 12)).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jargs = [jnp.asarray(a, jdt) for a in (x, w, b)]
+    targs = [torch.from_numpy(a).to(tdt) for a in (x, w, b)]
+    jy, js = jssm._causal_conv(*jargs, jnp.asarray(st, jdt) if with_state
+                               else None)
+    ty, ts = ssm._causal_conv(*targs, torch.from_numpy(st).to(tdt)
+                              if with_state else None)
+    assert ty.dtype == tdt and tuple(ty.shape) == jy.shape
+    want = np.asarray(jy.astype(jnp.float32))
+    env = (1e-6 if dtype == "float32" else 2.0 ** -7) * np.abs(want).max()
+    np.testing.assert_allclose(ty.float().numpy(), want, atol=env)
+    np.testing.assert_array_equal(ts.float().numpy(),
+                                  np.asarray(js.astype(jnp.float32)))
+
+
+def test_softplus_is_the_references_formula():
+    """Within 2 float32 ulps of ``jax.nn.softplus`` (the two libraries'
+    ``exp`` and ``log1p`` round apart), on both sides of 20."""
+    x = torch.tensor([-40.0, -3.0, 0.0, 1e-3, 5.0, 20.0, 25.0, 90.0])
+    want = np.asarray(jax.nn.softplus(jnp.asarray(x.numpy())))
+    np.testing.assert_allclose(ssm.softplus(x).numpy(), want,
+                               rtol=2 * 2.0 ** -23)
+
+
+def test_ssm_params_shapes_and_dtypes():
+    jcfg = JCFG.replace(param_dtype="bfloat16")
+    tcfg = ModelConfig(**dataclasses.asdict(jcfg))
+    p = ssm.ssm_params(torch.Generator().manual_seed(0), tcfg)
+    want = jax.eval_shape(lambda k: jssm.ssm_params(k, jcfg),
+                          jax.random.PRNGKey(0))
+    assert set(p) == set(want)
+    for n, leaf in want.items():
+        assert tuple(p[n].shape) == leaf.shape, n
+        assert str(p[n].dtype).split(".")[-1] == str(leaf.dtype), n
+    for n in ("A_log", "D", "dt_bias"):
+        np.testing.assert_allclose(p[n].numpy(), np.asarray(
+            jssm.ssm_params(jax.random.PRNGKey(0), jcfg)[n]), rtol=1e-6)
+
+
+@pytest.mark.parametrize("S", [8, 21])
+def test_mamba2_block_train_and_prefill_match_reference(S):
+    jp, tp, tcfg = _mixer(JCFG)
+    x = np.random.default_rng(S).standard_normal((2, S, 64)).astype(
+        np.float32)
+    jy, _ = jssm.mamba2_block(jp, jnp.asarray(x), JCFG, "train")
+    ty, none = ssm.mamba2_block(tp, torch.from_numpy(x), tcfg, "train")
+    assert none is None
+    _close(ty, jy)
+    jy, jst = jssm.mamba2_block(jp, jnp.asarray(x), JCFG, "prefill")
+    ty, tst = ssm.mamba2_block(tp, torch.from_numpy(x), tcfg, "prefill")
+    _close(ty, jy)
+    _close(tst["h"], jst["h"])
+    np.testing.assert_array_equal(tst["conv"].numpy(),
+                                  np.asarray(jst["conv"]))
+
+
+def test_mamba2_block_decode_matches_reference():
+    """Prefill 9 tokens, then 6 decode steps on both packages, each from
+    its own state."""
+    jp, tp, tcfg = _mixer(JCFG, seed=3)
+    x = np.random.default_rng(4).standard_normal((2, 15, 64)).astype(
+        np.float32)
+    _, jst = jssm.mamba2_block(jp, jnp.asarray(x[:, :9]), JCFG, "prefill")
+    _, tst = ssm.mamba2_block(tp, torch.from_numpy(x[:, :9]), tcfg,
+                              "prefill")
+    for t in range(9, 15):
+        jy, jst = jssm.mamba2_block(jp, jnp.asarray(x[:, t:t + 1]), JCFG,
+                                    "decode", state=jst)
+        ty, tst = ssm.mamba2_block(tp, torch.from_numpy(x[:, t:t + 1]),
+                                   tcfg, "decode", state=tst)
+        _close(ty, jy)
+        _close(tst["h"], jst["h"])
+    init = ssm.init_ssm_state(tcfg, 2)
+    jinit = jssm.init_ssm_state(JCFG, 2)
+    for n in ("h", "conv"):
+        assert tuple(init[n].shape) == jinit[n].shape
+        assert not bool(init[n].any())
