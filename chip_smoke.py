@@ -933,13 +933,16 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
                 "cudaLaunchKernelExC")
 
 
-def _profile(run) -> Tuple[float, dict, int]:
-    """One profiled call of ``run`` (after a warm one): its wall seconds,
-    the device time of each kernel name, in us, and the host's kernel
-    launch calls."""
+def _profile(run, warm: bool = True) -> Tuple[float, dict, int]:
+    """One profiled call of ``run`` (after a warm one unless ``warm`` is
+    false): its wall seconds, the device time of each kernel name, in us,
+    and the host's kernel launch calls.  Read from the profiler's raw
+    results: building its host-op records took about a minute for a
+    serving run of ~100 000 launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    run()  # warm: problem memo, caching allocator
+    if warm:
+        run()  # problem memo, caching allocator
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -948,20 +951,20 @@ def _profile(run) -> Tuple[float, dict, int]:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name, launch_calls = {}, 0
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            us = ev.time_range.end - ev.time_range.start
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + us
-        elif ev.name in LAUNCH_CALLS:
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA:
+            by_name[ev.name()] = (by_name.get(ev.name(), 0.0)
+                                  + ev.duration_ns() / 1e3)
+        elif ev.name() in LAUNCH_CALLS:
             launch_calls += 1
     return wall, by_name, launch_calls
 
 
-def phase_profile(tag: str, run, what: str) -> None:
-    """Profile one call of ``run`` (after a warm one): wall, device busy
-    and idle share, the host's kernel launch calls, and the top device
-    ops by time."""
-    wall, by_name, launch_calls = _profile(run)
+def phase_profile(tag: str, run, what: str, warm: bool = True) -> None:
+    """Profile one call of ``run`` (after a warm one unless ``warm`` is
+    false): wall, device busy and idle share, the host's kernel launch
+    calls, and the top device ops by time."""
+    wall, by_name, launch_calls = _profile(run, warm)
     if not by_name:
         say(tag, f"{what}: wall {wall:.3f} s; the profiler recorded no "
             "device events, device busy share not measured")
@@ -1924,9 +1927,15 @@ def phase_ft2_federated_transformer() -> None:
     losses = [r["loss"] for r in log]
     if len(log) != 7 or not all(np.isfinite(losses)):
         raise AssertionError(f"FT2: log {log}")
-    wall, busy = _busy_wall(lambda: _quiet(
-        tfed.run_transformer_federated, cfg, **kw))
-    idle = f"{1 - busy / wall:.3f}" if busy > 0 else "not measured"
+    # the profile spans the whole call; the idle share is over the upload
+    # loop alone (its wall from the log), with the set-up's device time
+    # counted as the loop's, so the loop is idle at least that share
+    prof_log = []
+    wall, busy = _busy_wall(lambda: prof_log.extend(_quiet(
+        tfed.run_transformer_federated, cfg, **kw)))
+    loop_wall = prof_log[-1]["wall_s"]
+    idle = (f"{1 - busy / loop_wall:.3f}" if 0 < busy <= loop_wall
+            else "not measured")
     n_params = sum(p.numel() for p in
                    Transformer(cfg, None, torch.device("meta")).parameters())
     say("FT2 federated transformer", f"run_transformer_federated "
@@ -1937,9 +1946,10 @@ def phase_ft2_federated_transformer() -> None:
         f" 7 loss evaluations included), peak {peak:.3f} GiB; loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; gammas "
         f"{[round(r['gamma'], 4) for r in log]}, taus "
-        f"{[r['tau'] for r in log]}; profiled run (initialization "
-        f"included): wall {wall:.3f} s, device busy {busy:.3f} s, idle "
-        f"share {idle}; no kernel launches; phase wall "
+        f"{[r['tau'] for r in log]}; profiled run: wall {wall:.3f} s with "
+        f"set-up, upload loop {loop_wall:.3f} s, device busy {busy:.3f} s "
+        f"with set-up, the loop's idle share at least {idle}; no kernel "
+        f"launches; phase wall "
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2240,12 +2250,12 @@ def attention_work(BH: int, d: int, qpos, kpos, *, causal: bool,
     return nbytes, 4 * d * pairs * BH
 
 
-def phase_fa_timing(name: str, B: int, S: int, max_err: float) -> dict:
-    """B6 at a serving shape of qwen2.5-32b (40 heads over 8 KV heads,
-    head dim 128, bf16, causal): kernel vs plain there, then the kernel
-    (the tensor-core route) graph-replayed and eager, the plain version,
-    SDPA (the library call, never used by the port) and the bound."""
-    cfg = get_config(SERVE_ARCH)
+def _fa_serving_case(arch: str, B: int, S: int):
+    """B6's inputs in a bf16 causal prefill of ``arch`` at batch ``B``,
+    prompt ``S``: the query heads of each KV head folded into rows, as
+    ``kernels.ops`` folds them; returns the dims, the kernel call and its
+    plain version on the same card tensors."""
+    cfg = get_config(arch)
     H, KV, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
     gen = torch.Generator(device=DEV).manual_seed(S)
@@ -2266,12 +2276,49 @@ def phase_fa_timing(name: str, B: int, S: int, max_err: float) -> dict:
             return fa.flash_attention_bhsd_ref(q, k, v, qpos, pos,
                                                causal=True, scale=scale)
 
+    return (KV, G, d), (q, k, v, qpos, pos, scale), kernel, plain
+
+
+def _fa_serving_check(tag: str, kernel, plain) -> float:
+    """One launch of ``kernel`` on the tensor-core route, held against
+    ``plain`` on the same inputs; the max abs error."""
     reset_counts()
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    _fa_routes(f"17 B6 timing S={S}", 1)
+    _fa_routes(tag, 1)
     err = _fa_check(got, want)
     del got, want
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_fa_check(arch: str, shapes) -> float:
+    """B6 against its plain version at ``arch``'s prefill shapes ((batch,
+    prompt) pairs), each launch on the tensor-core route."""
+    worst, parts = 0.0, []
+    for B, S in shapes:
+        (KV, G, d), _, kernel, plain = _fa_serving_case(arch, B, S)
+        err = _fa_serving_check(f"17 B6 check {arch}", kernel, plain)
+        worst = max(worst, err)
+        parts.append(f"q ({B * KV}, {G * S}, {d}), k/v ({B * KV}, {S}, {d}) "
+                     f"(batch {B}, prompt {S}): max abs err {err:.3g}")
+    cfg = get_config(arch)
+    say(f"17 B6 check {arch}", f"flash_attention_bhsd vs plain at {arch}'s "
+        f"prefill ({cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, G "
+        f"{cfg.n_heads // cfg.n_kv_heads}, head dim {cfg.head_dim}, bf16 "
+        f"causal), one tensor-core launch each: " + "; ".join(parts))
+    return worst
+
+
+def phase_fa_timing(name: str, B: int, S: int, max_err: float) -> dict:
+    """B6 at a serving shape of qwen2.5-32b (40 heads over 8 KV heads,
+    head dim 128, bf16, causal): kernel vs plain there, then the kernel
+    (the tensor-core route) graph-replayed and eager, the plain version,
+    SDPA (the library call, never used by the port) and the bound."""
+    (KV, G, d), (q, k, v, qpos, pos, scale), kernel, plain = \
+        _fa_serving_case(SERVE_ARCH, B, S)
+    H = KV * G
+    err = _fa_serving_check(f"17 B6 timing S={S}", kernel, plain)
     graph_ms, eager_ms, _, plain_ms = _time_kernel(kernel, plain)
     torch.cuda.empty_cache()
     # SDPA on the unfolded layout: (B, H, S, d) queries over (B, KV, S, d)
@@ -2465,11 +2512,12 @@ def phase_batcher(tag: str, cfg, model) -> None:
 
 
 def phase_serve_profile(tag: str, cfg, model) -> None:
+    """(a)'s shape once under the profiler; (a) itself was the warm call."""
     phase_profile(tag, lambda: generate(cfg, model, torch.randint(
         0, cfg.vocab, (4, 64), device=DEV,
         generator=torch.Generator(device=DEV).manual_seed(3)), 32),
         f"generate {cfg.name} batch 4, prompt 64, gen 32 (one prefill and "
-        "32 decode steps)")
+        "32 decode steps)", warm=False)
 
 
 def phases_serve_family(prefix: str, arch: str, name: str) -> int:
@@ -2478,18 +2526,30 @@ def phases_serve_family(prefix: str, arch: str, name: str) -> int:
     finite prefill and the idle share of (a); the model is freed after.
     Returns the B6 launches of one prefill of (a)."""
     t_phase = time.perf_counter()
-    cfg, model = phase_serve_model(f"{prefix} model", arch, name)
-    launches = phase_generate(f"{prefix} generate a", cfg, model, 4, 64, 32)
-    phase_generate(f"{prefix} generate b", cfg, model, 1, 8192, 8,
-                   b6_share=cfg.family != "ssm")
-    phase_batcher(f"{prefix} batcher", cfg, model)
-    phase_logits_finite(f"{prefix} logits", cfg, model)
-    phase_serve_profile(f"{prefix} profile", cfg, model)
+    walls = {}
+
+    def step(what, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        walls[what] = time.perf_counter() - t
+        return out
+
+    cfg, model = step("model", phase_serve_model, f"{prefix} model", arch,
+                      name)
+    launches = step("a", phase_generate, f"{prefix} generate a", cfg, model,
+                    4, 64, 32)
+    step("b", phase_generate, f"{prefix} generate b", cfg, model, 1, 8192, 8,
+         b6_share=cfg.family != "ssm")
+    step("c", phase_batcher, f"{prefix} batcher", cfg, model)
+    step("logits", phase_logits_finite, f"{prefix} logits", cfg, model)
+    step("profile", phase_serve_profile, f"{prefix} profile", cfg, model)
     del model
     torch.cuda.empty_cache()
     say(prefix, f"{cfg.name} serving phases took "
-        f"{time.perf_counter() - t_phase:.1f} s; allocated after freeing "
-        f"the model {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        f"{time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+        + f" s); allocated after freeing the model "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     return launches
 
 
@@ -3034,7 +3094,10 @@ def main() -> None:
     fa_err = phase_fa_vs_plain()
     t_fa = phase_fa_timing(name, 4, 64, fa_err)
     t_fa_long = phase_fa_timing(name, 1, 8192, fa_err)
-    t_fa["max_abs_err"] = max(t_fa["max_abs_err"], t_fa_long["max_abs_err"])
+    # the MoE prefill's shapes (G 1, the long prompt's 8192 keys)
+    moe_fa_err = phase_fa_check(MOE_ARCH, ((4, 64), (1, 8192)))
+    t_fa["max_abs_err"] = max(t_fa["max_abs_err"], t_fa_long["max_abs_err"],
+                              moe_fa_err)
     phase_card_vs_cpu("18 card vs cpu", (SERVE_ARCH,))
     # kernels.ops (B4, B5, B7): the kernels alone, then the entry points at
     # kernel_bench's shapes and full model width, before the model is built

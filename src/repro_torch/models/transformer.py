@@ -86,14 +86,12 @@ def layer_parts(cfg: ModelConfig) -> Tuple[str, ...]:
 
 
 def _layer_tensors(gen, cfg: ModelConfig, device) -> dict:
-    if cfg.family == "ssm":
-        return {"ln": norm_params(cfg, device=device),
-                "mixer": ssm_params(gen, cfg, device=device)}
-    ffn = moe_params if cfg.n_experts else mlp_params
-    return {"ln1": norm_params(cfg, device=device),
-            "attn": attn_params(gen, cfg, device=device),
-            "ln2": norm_params(cfg, device=device),
-            layer_parts(cfg)[3]: ffn(gen, cfg, device=device)}
+    """The tensors of each part of ``layer_parts(cfg)``, drawn in order."""
+    build = {"attn": attn_params, "mixer": ssm_params, "mlp": mlp_params,
+             "moe": moe_params}
+    return {part: (build[part](gen, cfg, device=device) if part in build
+                   else norm_params(cfg, device=device))
+            for part in layer_parts(cfg)}
 
 
 def _params(tensors: dict) -> nn.ParameterDict:
@@ -105,10 +103,15 @@ def layer_apply(p, x, cfg: ModelConfig, rope_cs, positions, mode: str,
                 cache=None, pos=None, window=None, ring=False):
     """One layer on parameters ``p`` (the mappings of ``layer_parts``);
     returns (x, cache, aux).  ``cache`` is the layer's attention cache or
-    Mamba2 state; ``aux`` is its MoE balance loss, None without experts."""
+    Mamba2 state, updated in place where one is given; ``aux`` is its MoE
+    balance loss, None without experts."""
     if cfg.family == "ssm":
         h, state = mamba2_block(p["mixer"], apply_norm(p["ln"], x, cfg),
                                 cfg, mode, state=cache)
+        if cache is not None:
+            for n in cache:
+                cache[n].copy_(state[n])
+            state = cache
         return x + h, state, None
     h, new_cache = attention_block(p["attn"], apply_norm(p["ln1"], x, cfg),
                                    cfg, rope_cs, positions, mode,
@@ -190,17 +193,13 @@ def _run_trunk(model: Transformer, x: torch.Tensor, cfg: ModelConfig, *,
                window: Optional[int] = None, ring: bool = False):
     """Apply all layers; returns (x, cache).  ``cache`` is the stacked
     cache (leading L axis) that prefill fills or decode reads and
-    updates; each layer works on its own views of it (a Mamba2 layer's
-    new state is copied into them)."""
+    updates; each layer updates its own views of it in place."""
     rope_cs = rope_cos_sin(cfg, positions)
     layer_caches = []
     for i, layer in enumerate(model.layers):
         c = None if cache is None else {n: t[i] for n, t in cache.items()}
         x, new, _ = layer(x, cfg, rope_cs, positions, mode, cache=c,
                           pos=pos, window=window, ring=ring)
-        if cfg.family == "ssm" and c is not None:
-            for n in c:
-                c[n].copy_(new[n])
         layer_caches.append(new)
     if mode == "prefill" and cache is None:
         cache = {n: torch.stack([c[n] for c in layer_caches])
@@ -368,7 +367,7 @@ def prefill(params: Transformer, cfg: ModelConfig,
     x, positions = _inputs_to_x(params.embed, params.device, cfg, batch)
     window = window if window is not None else cfg.sliding_window
     cache = None
-    if max_len is not None and cfg.family != "ssm":
+    if max_len is not None:
         if ring:
             raise ValueError("max_len is for plain caches; a ring prefill "
                              "returns its own window-long cache")
