@@ -32,7 +32,15 @@ PyTorch version on the card, and drives the port's main paths:
   block calls the SSD scan in torch ops, as the reference's does) and
   qwen2-moe-a2.7b (24 layers, 60 experts, capacity dispatch; B6 in every
   prefill) at full width and depth the same way (M1, M2), and both
-  families' reduced configs card against CPU (M3);
+  families' reduced configs card against CPU (M3); then zamba2-2.7b (the
+  hybrid trunk, all 54 layers; B6 at d 80 on its SIMT route for the
+  shared block, N1), deepseek-v2-236b (MLA + 160 experts, 4 of 60
+  layers; B6 at q/k 192 over v 128, N2), qwen2-vl-72b (8 of 80 layers;
+  text and an image batch of embeddings with M-RoPE grids, N3) and
+  hubert-xlarge (the 48-layer encoder over frame embeddings, N4), and
+  the four reduced configs card against CPU with the full head dims
+  (N5); phase 17b holds B6's SIMT instances at d 80 and 192 over 128
+  against their plain version at those models' prefill shapes;
 * the federated trainer ``launch.train_federated``: CI's convex run, 400
   uploads through B2 and with ``buffer_size=4`` through B3, card against
   CPU (FT1), and the 25m transformer preset's host loop (FT2, no kernel).
@@ -112,7 +120,9 @@ from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.launch import train_bcd as tbcd  # noqa: E402
 from repro_torch.launch import train_federated as tfed  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
-from repro_torch.models import forward, init_params, prefill  # noqa: E402
+from repro_torch.data import EmbedStream  # noqa: E402
+from repro_torch.models import (decode_step, forward,  # noqa: E402
+                                init_params, prefill)
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.models.transformer import (Layer,  # noqa: E402
                                             Transformer)
@@ -173,6 +183,17 @@ PROX_L1_FLOPS = 5              # per element: the FMA, |y| - t, max, sign
 SERVE_ARCH = "qwen2.5-32b"
 SSM_ARCH = "mamba2-780m"
 MOE_ARCH = "qwen2-moe-a2.7b"
+HYBRID_ARCH = "zamba2-2.7b"
+MLA_ARCH = "deepseek-v2-236b"
+VLM_ARCH = "qwen2-vl-72b"
+AUDIO_ARCH = "hubert-xlarge"
+# depth cut where one card cannot hold the model beside an 8192-token
+# prefill (deepseek-v2: 3.97 B params a layer; qwen2-vl: 80 layers of
+# d_model 8192); widths, heads, experts and vocab are the configs' own
+SERVE_DEPTH = {MLA_ARCH: 4, VLM_ARCH: 8}
+LONG_PROMPT = 8192             # the serving phases' (b) prompt
+ENCODER_SHAPES = ((8, 1500), (1, 8192))   # N4: 30-s clips at 50 Hz; long
+FA_NEW_SHAPES = ((4, 64), (1, 8192))      # 17b: (batch, prompt)
 COUNTERS = (fused_policy_prox_step, fused_policy_mix_step,
             fused_policy_buff_step, fa.flash_attention_bhsd, px.prox_step,
             rn.rmsnorm, ss.ssd_intra_chunk)
@@ -243,15 +264,18 @@ def reset_counts() -> None:
     fa.flash_attention_bhsd.launches_tc = 0
 
 
-def _fa_routes(tag: str, launches: int) -> str:
+def _fa_routes(tag: str, launches: int, tc: bool = True) -> str:
     """Raise unless every B6 launch since the last reset took the
-    tensor-core route (the bf16 d 128 model); the counts as text."""
+    tensor-core route (``tc``: a bf16 model at d 64 or 128) or every one
+    the SIMT route; the counts as text."""
     f = fa.flash_attention_bhsd
-    if f.launches != launches or f.launches_tc != launches:
-        raise AssertionError(f"{tag}: {launches} B6 launches expected, "
+    if f.launches != launches or f.launches_tc != (launches if tc else 0):
+        raise AssertionError(f"{tag}: {launches} B6 launches expected on the "
+                             f"{'tensor-core' if tc else 'SIMT'} route, "
                              f"{f.launches} made, {f.launches_tc} of them "
                              "on the tensor-core route")
-    return f"B6 launches {launches}, all on the tensor-core route"
+    return (f"B6 launches {launches}, all on the "
+            f"{'tensor-core' if tc else 'SIMT'} route")
 
 
 # ------------------------------------------------------------ phases ----
@@ -2231,11 +2255,14 @@ def phase_fa_vs_plain() -> float:
 
 
 def attention_work(BH: int, d: int, qpos, kpos, *, causal: bool,
-                   window: Optional[int], itemsize: int) -> Tuple[int, int]:
+                   window: Optional[int], itemsize: int,
+                   dv: Optional[int] = None) -> Tuple[int, int]:
     """``(bytes, flops)`` one call must move and do on these positions:
-    q, k, v and the positions read once and out written once; 4 d flops
-    (QK^T and PV) per visible (query, key) pair -- the pairs this run's
-    positions make visible, not the full Sq x Sk."""
+    q, k (head dim ``d``), v (``dv``, default ``d``) and the positions
+    read once and out (``dv``) written once; 2 (d + dv) flops (QK^T and
+    PV) per visible (query, key) pair -- the pairs this run's positions
+    make visible, not the full Sq x Sk."""
+    dv = d if dv is None else dv
     qp = np.asarray(qpos.cpu() if torch.is_tensor(qpos) else qpos, np.int64)
     kp = np.asarray(kpos.cpu() if torch.is_tensor(kpos) else kpos, np.int64)
     keys = np.sort(kp[kp >= 0])
@@ -2245,9 +2272,9 @@ def attention_work(BH: int, d: int, qpos, kpos, *, causal: bool,
     lo = (np.searchsorted(keys, live - window, side="right")
           if window is not None else np.zeros(live.shape, np.int64))
     pairs = int(np.clip(hi - lo, 0, None).sum())
-    nbytes = (itemsize * BH * d * (2 * qp.size + 2 * kp.size)
+    nbytes = (itemsize * BH * (d + dv) * (qp.size + kp.size)
               + 4 * (qp.size + kp.size))
-    return nbytes, 4 * d * pairs * BH
+    return nbytes, 2 * (d + dv) * pairs * BH
 
 
 def _fa_serving_case(arch: str, B: int, S: int):
@@ -2364,12 +2391,41 @@ SERVE_EXPECT = {
                    param_dtype="bfloat16"),
     MOE_ARCH: dict(n_layers=24, d_model=2048, n_experts=60, top_k=4,
                    head_dim=128, param_dtype="bfloat16",
-                   attention_impl="pallas", moe_impl="capacity")}
+                   attention_impl="pallas", moe_impl="capacity"),
+    HYBRID_ARCH: dict(n_layers=54, attn_every=6, d_model=2560, n_heads=32,
+                      head_dim=80, ssm_heads=80, param_dtype="bfloat16",
+                      attention_impl="pallas"),
+    MLA_ARCH: dict(n_layers=60, d_model=5120, n_heads=128, use_mla=True,
+                   kv_lora_rank=512, q_lora_rank=1536, nope_head_dim=128,
+                   rope_head_dim=64, v_head_dim=128, n_experts=160, top_k=6,
+                   param_dtype="bfloat16", attention_impl="pallas",
+                   moe_impl="capacity"),
+    VLM_ARCH: dict(n_layers=80, d_model=8192, n_heads=64, n_kv_heads=8,
+                   head_dim=128, rope="mrope", embed_inputs=True,
+                   param_dtype="bfloat16", attention_impl="pallas"),
+    AUDIO_ARCH: dict(n_layers=48, d_model=1280, n_heads=16, head_dim=80,
+                     causal=False, has_decode=False, embed_inputs=True,
+                     param_dtype="bfloat16", attention_impl="pallas")}
 
 
 def _b6_per_prefill(cfg) -> int:
-    """B6 launches one prefill makes: one a layer, none without attention."""
-    return 0 if cfg.family == "ssm" else cfg.n_layers
+    """B6 launches one prefill (an encoder's forward) makes: one an
+    attention layer, one a group of a hybrid (its shared block), none
+    without attention."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
+
+
+def _b6_route(cfg) -> str:
+    """B6's route in a prefill of ``cfg``: by the compute dtype and the
+    (q/k, v) head dims (MLA: nope + rope over v)."""
+    if cfg.use_mla:
+        return fa.card_route(cfg.cdtype, cfg.nope_head_dim
+                             + cfg.rope_head_dim, cfg.v_head_dim)
+    return fa.card_route(cfg.cdtype, cfg.head_dim)
 
 
 def _b6_text(tag: str, cfg, launches: int) -> str:
@@ -2377,16 +2433,22 @@ def _b6_text(tag: str, cfg, launches: int) -> str:
         if fa.flash_attention_bhsd.launches or launches:
             raise AssertionError(f"{tag}: B6 launched on an ssm model")
         return "no B6 launch (attention-free)"
-    return _fa_routes(tag, launches)
+    return _fa_routes(tag, launches, tc=_b6_route(cfg) == "tc")
 
 
 def phase_serve_model(tag: str, arch: str, name: str):
-    """The full ``arch`` on the card from the port's initializer; the
+    """The full ``arch`` on the card from the port's initializer (its
+    depth cut to ``SERVE_DEPTH`` where one card cannot hold it); the
     memory allocated once it is built."""
     cfg = get_config(arch)
     want = SERVE_EXPECT[arch]
     if {k: getattr(cfg, k) for k in want} != want:
         raise AssertionError(f"unexpected serving config {cfg}")
+    cut = ""
+    if arch in SERVE_DEPTH:
+        cut = (f" (depth cut: n_layers {cfg.n_layers} -> "
+               f"{SERVE_DEPTH[arch]})")
+        cfg = cfg.replace(n_layers=SERVE_DEPTH[arch])
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
@@ -2397,13 +2459,23 @@ def phase_serve_model(tag: str, arch: str, name: str):
     n = sum(p.numel() for p in model.parameters())
     nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
     torch.cuda.empty_cache()
-    shape = (f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, d_ff "
-             f"{cfg.d_ff}" if cfg.family == "dense" else
-             f"{cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, state "
-             f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}" if cfg.family == "ssm"
-             else f"{cfg.n_heads} heads, {cfg.n_experts} experts (top "
-             f"{cfg.top_k}) of {cfg.moe_ff} + shared {cfg.shared_ff}")
-    say(tag, f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    ssm = (f"{cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, state "
+           f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}")
+    attn = (f"MLA {cfg.n_heads} heads, latent {cfg.kv_lora_rank}, q/k "
+            f"{cfg.nope_head_dim} + {cfg.rope_head_dim} over v "
+            f"{cfg.v_head_dim}" if cfg.use_mla else
+            f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of "
+            f"{cfg.head_dim}")
+    shape = (ssm if cfg.family == "ssm" else
+             f"{ssm}; shared attention ({attn}) + MLP d_ff {cfg.d_ff} before "
+             f"every {cfg.attn_every} layers" if cfg.family == "hybrid" else
+             f"{attn}, {cfg.n_experts} experts (top {cfg.top_k}) of "
+             f"{cfg.moe_ff} + shared {cfg.shared_ff}" if cfg.n_experts else
+             f"{attn}, d_ff {cfg.d_ff}"
+             + (f", M-RoPE {cfg.mrope_sections}" if cfg.rope == "mrope"
+                else "")
+             + ("" if cfg.causal else ", bidirectional encoder"))
+    say(tag, f"{cfg.name}{cut}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{shape}, vocab {cfg.vocab}, bf16: {n} params ({nbytes / 1e9:.2f} "
         f"GB) initialized on the card in {time.perf_counter() - t0:.3f} s; "
         f"allocated {before / 2**30:.2f} GiB before the build, "
@@ -2443,7 +2515,8 @@ def phase_generate(tag: str, cfg, model, batch: int, prompt: int,
     if b6_share:
         wall, by_name, _ = _profile(
             lambda: prefill(model, cfg, {"tokens": prompts}))
-        b6 = [us for n, us in by_name.items() if "fa_tc_kernel" in n]
+        b6 = [us for n, us in by_name.items()
+              if "fa_tc_kernel" in n or "flash_attention_kernel" in n]
         share = (f", profiled prefill: wall {wall:.3f} s, B6 device time "
                  f"{sum(b6) / 1e6:.4f} s ({len(b6)} kernel names), a share "
                  f"of {sum(b6) / 1e6 / wall:.3f}" if b6 else
@@ -2459,21 +2532,44 @@ def phase_generate(tag: str, cfg, model, batch: int, prompt: int,
     return launches
 
 
+def _cache_expect(cfg, B: int, S: int) -> dict:
+    """The leaves a prefill of (B, S) tokens must leave in the cache, by
+    path, with their shapes."""
+    ssm = {"h": (B, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)}
+    attn = ({"ckv": (B, S, cfg.kv_lora_rank),
+             "krope": (B, S, cfg.rope_head_dim)} if cfg.use_mla else
+            {"k": (B, S, cfg.n_kv_heads, cfg.head_dim),
+             "v": (B, S, cfg.n_kv_heads, cfg.head_dim)})
+    if cfg.family == "ssm":
+        return {n: (cfg.n_layers,) + t for n, t in ssm.items()}
+    if cfg.family == "hybrid":
+        G = cfg.n_layers // cfg.attn_every
+        return {**{f"attn.{n}": (G,) + t for n, t in attn.items()},
+                **{f"ssm.{n}": (G, cfg.attn_every) + t
+                   for n, t in ssm.items()}}
+    return {n: (cfg.n_layers,) + t for n, t in attn.items()}
+
+
+def _at(tree, path: str):
+    for key in path.split("."):
+        tree = tree[key]
+    return tree
+
+
 def phase_logits_finite(tag: str, cfg, model) -> None:
     toks = torch.randint(0, cfg.vocab, (2, 64), device=DEV,
                          generator=torch.Generator(device=DEV).manual_seed(9))
     logits, cache = prefill(model, cfg, {"tokens": toks})
-    name, want = (("h", (cfg.n_layers, 2, cfg.ssm_heads, cfg.ssm_head_dim,
-                         cfg.ssm_state)) if cfg.family == "ssm" else
-                  ("k", (cfg.n_layers, 2, 64, cfg.n_kv_heads, cfg.head_dim)))
+    want = _cache_expect(cfg, 2, 64)
     if tuple(logits.shape) != (2, 1, cfg.vocab) or \
             not bool(torch.isfinite(logits).all()) or \
-            tuple(cache[name].shape) != want or \
-            not bool(torch.isfinite(cache[name]).all()):
+            any(tuple(_at(cache, n).shape) != s or
+                not bool(torch.isfinite(_at(cache, n)).all())
+                for n, s in want.items()):
         raise AssertionError(f"{tag}: prefill logits or cache malformed")
     say(tag, f"prefill (2, 64): logits {tuple(logits.shape)} finite, "
         f"|logit| max {float(logits.float().abs().max()):.3f}, cache "
-        f"{name} {tuple(cache[name].shape)} finite")
+        + ", ".join(f"{n} {s}" for n, s in want.items()) + " finite")
 
 
 def phase_batcher(tag: str, cfg, model) -> None:
@@ -2520,11 +2616,14 @@ def phase_serve_profile(tag: str, cfg, model) -> None:
         "32 decode steps)", warm=False)
 
 
-def phases_serve_family(prefix: str, arch: str, name: str) -> int:
-    """M1 / M2: ``arch`` at full width and depth, (a) batch 4, prompt 64,
-    gen 32, (b) one 8192-token prompt, (c) ``ContinuousBatcher``, then a
-    finite prefill and the idle share of (a); the model is freed after.
-    Returns the B6 launches of one prefill of (a)."""
+def phases_serve_family(prefix: str, arch: str, name: str,
+                        batcher: bool = True) -> int:
+    """M1, M2, N1-N3: ``arch`` at full width (and depth but for
+    ``SERVE_DEPTH``), (a) batch 4, prompt 64, gen 32, (b) one 8192-token
+    prompt (a VLM: an image batch, :func:`phase_vlm_embeds`), (c)
+    ``ContinuousBatcher`` where ``batcher``, then a finite prefill and the
+    idle share of (a); the model is freed after.  Returns the B6 launches
+    of one prefill of (a)."""
     t_phase = time.perf_counter()
     walls = {}
 
@@ -2538,9 +2637,13 @@ def phases_serve_family(prefix: str, arch: str, name: str) -> int:
                       name)
     launches = step("a", phase_generate, f"{prefix} generate a", cfg, model,
                     4, 64, 32)
-    step("b", phase_generate, f"{prefix} generate b", cfg, model, 1, 8192, 8,
-         b6_share=cfg.family != "ssm")
-    step("c", phase_batcher, f"{prefix} batcher", cfg, model)
+    if cfg.embed_inputs:
+        step("b", phase_vlm_embeds, f"{prefix} embeds b", cfg, model)
+    else:
+        step("b", phase_generate, f"{prefix} generate b", cfg, model, 1,
+             LONG_PROMPT, 8, b6_share=cfg.family != "ssm")
+    if batcher:
+        step("c", phase_batcher, f"{prefix} batcher", cfg, model)
     step("logits", phase_logits_finite, f"{prefix} logits", cfg, model)
     step("profile", phase_serve_profile, f"{prefix} profile", cfg, model)
     del model
@@ -2553,45 +2656,297 @@ def phases_serve_family(prefix: str, arch: str, name: str) -> int:
     return launches
 
 
-def phase_card_vs_cpu(tag: str, archs) -> None:
-    """Each of ``archs``' ``.reduced()`` configs in float32, the same
-    parameters on both devices through ``interop``: prefill (logits and
-    cache) and forward (logits and aux) within ``LOGIT_F32_ENVELOPE``,
-    B6 once a prefill per attention layer on its SIMT route (float32),
-    and greedy ``generate`` tokens equal."""
+def phase_vlm_embeds(tag: str, cfg, model) -> None:
+    """A VLM's image path: an ``EmbedStream`` batch of 2 x 1024 positions,
+    a 24 x 24 patch grid first and its (3, B, S) M-RoPE grids, prefilled
+    into a 1040-token cache (one B6 launch a layer, the counts set to 0
+    just before), then 16 greedy text decode steps through the token
+    table."""
+    B, S, gen = 2, 1024, 16
+    batch = EmbedStream(d_model=cfg.d_model, vocab=cfg.vocab, batch=B, seq=S,
+                        mrope=True, image_grid=(24, 24),
+                        device=DEV).batch_at(0)
+    inputs = {n: batch[n] for n in ("embeds", "positions")}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(model, cfg, inputs, max_len=S + gen)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    routes = _b6_text(tag, cfg, _b6_per_prefill(cfg))
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    out = [tok]
+    t0 = time.perf_counter()
+    for pos in range(S, S + gen):
+        logits, cache = decode_step(model, cfg, cache, tok, pos)
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    out = torch.cat(out, dim=1)
+    if tuple(out.shape) != (B, gen + 1) or \
+            bool(((out < 0) | (out >= cfg.vocab)).any()) or \
+            not bool(torch.isfinite(logits).all()) or \
+            fa.flash_attention_bhsd.launches != _b6_per_prefill(cfg):
+        raise AssertionError(f"{tag}: bad output {tuple(out.shape)}")
+    say(tag, f"prefill {cfg.name} on embeds (batch {B} x {S}: a 24 x 24 "
+        f"image grid of {24 * 24} patches, then text; M-RoPE positions "
+        f"{tuple(batch['positions'].shape)}) into a {S + gen}-token cache "
+        f"{prefill_s:.3f} s ({B * S / prefill_s:.1f} tok/s); then {gen} "
+        f"text decode steps {decode_s:.3f} s ({B * gen / decode_s:.2f} "
+        f"tok/s, {decode_s / gen * 1e3:.2f} ms/step); per prefill: "
+        f"{routes}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        "GiB")
+
+
+def phases_encoder(prefix: str, arch: str, name: str) -> int:
+    """N4: an encoder (hubert-xlarge) at full width and depth: ``forward``
+    over frame embeddings at batch 8 x 1500 frames (30-s clips at 50 Hz)
+    and 1 x 8192 frames, one non-causal B6 launch a layer on its route
+    (the counts set to 0 just before each), finite logits; then one
+    forward of the first shape under the profiler (its idle share).
+    Returns the B6 launches of one forward."""
+    t_phase = time.perf_counter()
+    cfg, model = phase_serve_model(f"{prefix} model", arch, name)
+    per = _b6_per_prefill(cfg)
+    batches = {}
+    for B, S in ENCODER_SHAPES:
+        batch = EmbedStream(d_model=cfg.d_model, vocab=cfg.vocab, batch=B,
+                            seq=S, device=DEV).batch_at(0)
+        batches[B, S] = {"embeds": batch["embeds"]}
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, _ = forward(model, cfg, batches[B, S])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        routes = _b6_text(f"{prefix} forward", cfg, per)
+        if tuple(logits.shape) != (B, S, cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{prefix}: encoder logits malformed")
+        say(f"{prefix} forward", f"{cfg.name} forward over {B} x {S} frame "
+            f"embeddings (bidirectional): {wall:.3f} s ({B * S / wall:.1f} "
+            f"frames/s), logits {tuple(logits.shape)} finite; {routes}; "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del logits
+    first = batches[ENCODER_SHAPES[0]]
+
+    def run():
+        with torch.inference_mode():
+            forward(model, cfg, first)
+    phase_profile(f"{prefix} profile", run, f"forward {cfg.name} "
+                  f"{' x '.join(map(str, ENCODER_SHAPES[0]))} frames (one B6 "
+                  "launch a layer)", warm=False)
+    del model, batches, first
+    torch.cuda.empty_cache()
+    say(prefix, f"{cfg.name} encoder phases took "
+        f"{time.perf_counter() - t_phase:.1f} s; allocated after freeing "
+        f"the model {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return per
+
+
+# B6's new SIMT instances at the prefill shapes of N1, N2 and N4: the arch,
+# its (q/k, v) head dims, its KV heads after the fold (G 1: zamba2's and
+# hubert's MHA, MLA expanded to KV = H), causal
+FA_NEW_CASES = ((HYBRID_ARCH, (80, 80), 32, True),
+                (MLA_ARCH, (192, 128), 128, True),
+                (AUDIO_ARCH, (80, 80), 16, False))
+
+
+def _fa_plain_rows(q, k, v, qpos, kpos, rows: int = 16, **kw):
+    """The plain version over ``rows`` rows of BH at a time (the float32
+    scores of an 8192-token prompt over all 128 MLA heads at once would
+    take 34 GB): the same function on the same inputs."""
+    with torch.no_grad():
+        return torch.cat([fa.flash_attention_bhsd_ref(
+            q[i:i + rows], k[i:i + rows], v[i:i + rows], qpos, kpos, **kw)
+            for i in range(0, q.shape[0], rows)])
+
+
+def _fa_new_inputs(KV: int, B: int, S: int, d: int, dv: int, dtype, seed):
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    q, k = (torch.randn(B * KV, S, d, generator=gen, device=DEV,
+                        dtype=dtype) for _ in range(2))
+    v = torch.randn(B * KV, S, dv, generator=gen, device=DEV, dtype=dtype)
+    return q, k, v
+
+
+def phase_fa_new_pairs(name: str) -> Tuple[float, list]:
+    """17b: B6's SIMT instances at d 80 and at q/k 192 over v 128 against
+    their plain version, float32 and bfloat16, at N1's, N2's and N4's
+    prefill shapes ((batch, prompt) (4, 64) and (1, 8192), folded): at
+    (4, 64) the arch's own mask, the other one (causal or not), window 9
+    and -1 holes in every third key; at (1, 8192) the arch's own mask.
+    Every launch on the SIMT route.  Then the bf16 kernel at the
+    8192-token shapes timed beside its plain version, SDPA where SDPA
+    takes the shape, and its bound (989 TFLOP/s bf16, 2 (d + dv) flops a
+    visible pair).  Returns the worst error and the timings."""
+    worst, cases, parts = 0.0, 0, []
+    reset_counts()
+    for arch, (d, dv), KV, causal in FA_NEW_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            errs = []
+            for B, S in FA_NEW_SHAPES:
+                q, k, v = _fa_new_inputs(KV, B, S, d, dv, dtype, S + d)
+                pos = torch.arange(S, dtype=torch.int32, device=DEV)
+                holes = torch.where(pos % 3 == 0, -1, pos).to(torch.int32)
+                variants = ([(causal, None, pos), (not causal, None, pos),
+                             (True, 9, pos), (causal, None, holes)]
+                            if (B, S) == FA_NEW_SHAPES[0]
+                            else [(causal, None, pos)])
+                for c, window, kpos in variants:
+                    kw = dict(causal=c, window=window, scale=d ** -0.5)
+                    got = fa.flash_attention_bhsd(q, k, v, pos, kpos, **kw)
+                    want = _fa_plain_rows(q, k, v, pos, kpos, **kw)
+                    torch.cuda.synchronize()
+                    errs.append(_fa_check(got, want))
+                    cases += 1
+                    del got, want
+                del q, k, v
+                torch.cuda.empty_cache()
+            worst = max(worst, max(errs))
+            parts.append(f"{arch} ({d}, {dv}) {str(dtype)[6:]} "
+                         f"{max(errs):.3g}")
+    f = fa.flash_attention_bhsd
+    if (f.launches, f.launches_tc) != (cases, 0):
+        raise AssertionError(f"17b: {f.launches} launches ({f.launches_tc} "
+                             f"tensor-core) for {cases} SIMT cases")
+    say("17b B6 new pairs", f"{cases} cases, all on the SIMT route "
+        f"(launches {f.launches}, tensor-core {f.launches_tc}): max abs err "
+        "by arch, pair and dtype: " + "; ".join(parts) + " (B6's envelopes)")
+    timings = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for arch, (d, dv), KV, causal in FA_NEW_CASES:
+        B, S = FA_NEW_SHAPES[-1]
+        q, k, v = _fa_new_inputs(KV, B, S, d, dv, torch.bfloat16, S + d + 1)
+        pos = torch.arange(S, dtype=torch.int32, device=DEV)
+        kw = dict(causal=causal, scale=d ** -0.5)
+        reset_counts()
+        got = fa.flash_attention_bhsd(q, k, v, pos, pos, **kw)
+        err = _fa_check(got, _fa_plain_rows(q, k, v, pos, pos, **kw))
+        _fa_routes(f"17b B6 timing {arch}", 1, tc=False)
+
+        def kernel():
+            return fa.flash_attention_bhsd(q, k, v, pos, pos, **kw)
+
+        def plain():
+            return _fa_plain_rows(q, k, v, pos, pos, **kw)
+
+        graph_ms, eager_ms, _, plain_ms = _time_kernel(kernel, plain)
+        torch.cuda.empty_cache()
+        q4, k4, v4 = (t.reshape(B, KV, S, t.shape[-1]) for t in (q, k, v))
+        try:
+            lib_out = sdpa(q4, k4, v4, is_causal=causal, scale=d ** -0.5)
+            lib_err = float((lib_out.reshape(got.shape).float()
+                             - got.float()).abs().max())
+            del lib_out
+            library_ms = _time_launches(
+                lambda: sdpa(q4, k4, v4, is_causal=causal, scale=d ** -0.5),
+                10)
+            lib = (f"SDPA {library_ms * 1e3:.3f} us (max abs diff to the "
+                   f"kernel {lib_err:.3g})")
+        except RuntimeError as e:   # no SDPA backend takes the shape
+            library_ms = None
+            lib = f"SDPA refuses the shape ({str(e).splitlines()[0][:80]})"
+        nbytes, flops = attention_work(B * KV, d, pos, pos, causal=causal,
+                                       window=None, itemsize=2, dv=dv)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        say(f"17b B6 timing {arch}", f"flash_attention_bhsd SIMT at q/k "
+            f"({B * KV}, {S}, {d}), v ({B * KV}, {S}, {dv}) bf16 "
+            f"{'causal' if causal else 'bidirectional'} ({arch}'s {S}-token "
+            f"prefill, folded; vs plain max abs err {err:.3g}): "
+            f"{graph_ms * 1e3:.3f} us/launch replayed from a CUDA graph, "
+            f"{eager_ms * 1e3:.3f} us eager; plain version "
+            f"{plain_ms * 1e3:.3f} us; {lib}; bound {bound_ms * 1e3:.4f} us "
+            f"({nbytes} bytes, {flops} flops at {BF16_OPS_PER_S / 1e12:g} "
+            f"TFLOP/s: {bound_by}); {flops / (graph_ms * 1e9):.2f} TFLOP/s "
+            f"achieved; card {name}")
+        timings.append(dict(arch=arch, dims=[d, dv], shape=[B * KV, S],
+                            causal=causal, ms=graph_ms, eager_ms=eager_ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=library_ms,
+                            max_abs_err=err))
+        del q, k, v, got, q4, k4, v4
+        torch.cuda.empty_cache()
+    return max([worst] + [t["max_abs_err"] for t in timings]), timings
+
+
+
+# N5: the reduced configs with the full models' head dims restored, so
+# that B6's new instances run inside a model on the card (d 80; MLA's
+# nope 128 + rope 64 over v 128)
+FULL_HEAD_DIMS = {HYBRID_ARCH: dict(head_dim=80),
+                  AUDIO_ARCH: dict(head_dim=80),
+                  MLA_ARCH: dict(nope_head_dim=128, rope_head_dim=64,
+                                 v_head_dim=128)}
+
+
+def phase_card_vs_cpu(tag: str, archs, overrides=None) -> None:
+    """Each of ``archs``' ``.reduced()`` configs (with ``overrides[arch]``
+    replaced) in float32, the same parameters on both devices through
+    ``interop``: prefill (logits and cache; an encoder's forward) and
+    forward (logits and aux) within ``LOGIT_F32_ENVELOPE``, B6 once a
+    prefill per attention layer (a hybrid's group) on its SIMT route
+    (float32), and greedy ``generate`` tokens equal where the model
+    decodes.  Text models take tokens; the audio and VLM frontends
+    ``EmbedStream`` embeddings (with M-RoPE grids for the VLM), and the
+    VLM generates from text prompts."""
     parts = []
     for arch in archs:
-        cfg = get_config(arch).reduced()
+        cfg = get_config(arch).reduced().replace(
+            **(overrides or {}).get(arch, {}))
         cpu = init_params(cfg, torch.Generator().manual_seed(0),
                           device="cpu")
         card = interop.model_params(interop.model_tree(cpu), cfg, device=DEV)
         toks = torch.randint(0, cfg.vocab, (2, 40),
                              generator=torch.Generator().manual_seed(1))
+        batch = ({n: t for n, t in EmbedStream(
+            d_model=cfg.d_model, vocab=cfg.vocab, batch=2, seq=40,
+            mrope=cfg.rope == "mrope", device="cpu").batch_at(0).items()
+            if n != "targets"} if cfg.embed_inputs else {"tokens": toks})
+        on_card = {n: t.to(DEV) for n, t in batch.items()}
+        run = prefill if cfg.has_decode else forward
         reset_counts()
-        lg, cg = prefill(card, cfg, {"tokens": toks.to(DEV)})
+        lg, cg = run(card, cfg, on_card)
         launches = fa.flash_attention_bhsd.launches
         if launches != _b6_per_prefill(cfg) or \
                 fa.flash_attention_bhsd.launches_tc:
             raise AssertionError(f"{tag} {arch}: {launches} B6 launches")
-        lc, cc = prefill(cpu, cfg, {"tokens": toks})
-        fg, ag = forward(card, cfg, {"tokens": toks.to(DEV)})
-        fc, ac = forward(cpu, cfg, {"tokens": toks})
-        diff = max(float((lg.cpu() - lc).abs().max()),
-                   float((fg.cpu() - fc).abs().max()),
-                   max(float((cg[n].cpu() - cc[n]).abs().max()) for n in cc))
+        lc, cc = run(cpu, cfg, batch)
+        fg, ag = forward(card, cfg, on_card)
+        fc, ac = forward(cpu, cfg, batch)
+        diffs = [float((lg.cpu() - lc).abs().max()),
+                 float((fg.cpu() - fc).abs().max())]
+        if cfg.has_decode:
+            diffs += [float((a.cpu() - b).abs().max()) for a, b in
+                      zip(_leaves(cg), _leaves(cc))]
+        diff = max(diffs)
         aux = abs(float(ag) - float(ac))
         if not (diff <= LOGIT_F32_ENVELOPE and aux <= 1e-6):
             raise AssertionError(f"{tag} {arch}: logits differ by {diff}, "
                                  f"aux by {aux}")
-        og, _ = generate(cfg, card, toks.to(DEV), 16)
-        oc, _ = generate(cfg, cpu, toks, 16)
-        if not torch.equal(og.cpu(), oc):
-            raise AssertionError(f"{tag} {arch}: greedy tokens differ")
+        if cfg.has_decode:
+            og, _ = generate(cfg, card, toks.to(DEV), 16)
+            oc, _ = generate(cfg, cpu, toks, 16)
+            if not torch.equal(og.cpu(), oc):
+                raise AssertionError(f"{tag} {arch}: greedy tokens differ")
+        dims = (f"q/k {cfg.nope_head_dim} + {cfg.rope_head_dim} over v "
+                f"{cfg.v_head_dim}" if cfg.use_mla else
+                f"head dim {cfg.head_dim}")
         parts.append(f"{cfg.name} ({cfg.n_layers} layers, d_model "
-                     f"{cfg.d_model}, attention_impl {cfg.attention_impl}):"
-                     f" logits and cache max abs diff {diff:.3g}, aux "
-                     f"{aux:.3g}, B6 launches per prefill {launches}"
-                     + (" (SIMT route)" if launches else ""))
+                     f"{cfg.d_model}, {dims}, attention_impl "
+                     f"{cfg.attention_impl}, "
+                     f"{'embeddings' if cfg.embed_inputs else 'tokens'}):"
+                     f" logits{' and cache' if cfg.has_decode else ''} max "
+                     f"abs diff {diff:.3g}, aux {aux:.3g}, B6 launches per "
+                     f"{'prefill' if cfg.has_decode else 'forward'} "
+                     f"{launches}" + (" (SIMT route)" if launches else "")
+                     + ("" if cfg.has_decode else ", no decode (encoder)"))
     say(tag, "float32, params carried by interop, prefill and forward "
         f"(envelope {LOGIT_F32_ENVELOPE:g}), greedy generate 2 x (40 + 16) "
         "tokens equal: " + "; ".join(parts))
@@ -3096,8 +3451,10 @@ def main() -> None:
     t_fa_long = phase_fa_timing(name, 1, 8192, fa_err)
     # the MoE prefill's shapes (G 1, the long prompt's 8192 keys)
     moe_fa_err = phase_fa_check(MOE_ARCH, ((4, 64), (1, 8192)))
+    # the SIMT instances of the hybrid, MLA and encoder prefills (17b)
+    new_fa_err, t_fa_new = phase_fa_new_pairs(name)
     t_fa["max_abs_err"] = max(t_fa["max_abs_err"], t_fa_long["max_abs_err"],
-                              moe_fa_err)
+                              moe_fa_err, new_fa_err)
     phase_card_vs_cpu("18 card vs cpu", (SERVE_ARCH,))
     # kernels.ops (B4, B5, B7): the kernels alone, then the entry points at
     # kernel_bench's shapes and full model width, before the model is built
@@ -3124,6 +3481,16 @@ def main() -> None:
     phases_serve_family("M1", SSM_ARCH, name)
     moe_launches = phases_serve_family("M2", MOE_ARCH, name)
     phase_card_vs_cpu("M3 card vs cpu", (SSM_ARCH, MOE_ARCH))
+    # the hybrid, MLA, VLM and audio models at full width, one at a time
+    # (N1-N4), then their reduced configs card vs CPU (N5)
+    t_new = time.perf_counter()
+    hybrid_launches = phases_serve_family("N1", HYBRID_ARCH, name)
+    mla_launches = phases_serve_family("N2", MLA_ARCH, name, batcher=False)
+    vlm_launches = phases_serve_family("N3", VLM_ARCH, name, batcher=False)
+    audio_launches = phases_encoder("N4", AUDIO_ARCH, name)
+    phase_card_vs_cpu("N5 card vs cpu", (HYBRID_ARCH, MLA_ARCH, VLM_ARCH,
+                                         AUDIO_ARCH), FULL_HEAD_DIMS)
+    say("N", f"N1-N5 took {time.perf_counter() - t_new:.1f} s")
     timing["launches_by_path"] = {
         "piag": launches, "bcd": bcd_launches, "resume": resumed["piag"],
         "sharded_s1": sharded["S1"], "sharded_s2_2": sharded["S2"]["(2,)"],
@@ -3139,7 +3506,12 @@ def main() -> None:
                                   "sharded_s3": sharded["S3"]["fedbuff"],
                                   "train_federated": fed_cli_runs["fedbuff"]}
     t_fa["launches_by_path"] = {SERVE_ARCH: fa_launches,
-                                MOE_ARCH: moe_launches}
+                                MOE_ARCH: moe_launches,
+                                HYBRID_ARCH: hybrid_launches,
+                                MLA_ARCH: mla_launches,
+                                VLM_ARCH: vlm_launches,
+                                AUDIO_ARCH: audio_launches}
+    t_fa["instances"] = t_fa_new
     rows = [("fused_policy_prox_step", KERNEL_SOURCE, REPLACES,
              launches + bcd_launches, timing),
             ("fused_policy_mix_step", KERNEL_SOURCE, REPLACES_MIX,
@@ -3160,8 +3532,7 @@ def main() -> None:
         eager_ms=t["eager_ms"], plain_ms=t["plain_ms"],
         bound_ms=t["bound_ms"], bound_by=t["bound_by"],
         library_ms=t.get("library_ms"), floor_ms=t.get("floor_ms"),
-        **({"launches_by_path": t["launches_by_path"]}
-           if "launches_by_path" in t else {}))
+        **{k: t[k] for k in ("launches_by_path", "instances") if k in t})
         for kname, src, rep, n, t in rows]}
     say("24 kernels", f"smoke finished in {time.perf_counter() - t0:.1f} s")
     print(json.dumps(kernels), flush=True)

@@ -150,14 +150,17 @@ def model_params(params_np, cfg, device=None):
     array; bfloat16 leaves may stay ``ml_dtypes`` arrays): ``embed``,
     ``final_norm`` and ``layers`` with every leaf stacked on a leading L
     axis -- a layer's parts are ``models.transformer.layer_parts(cfg)``
-    (``ln1``, ``attn``, ``ln2`` and ``mlp`` or ``moe``; ``ln`` and
-    ``mixer`` for an ssm model).  Layer ``i`` takes slice ``i`` of each
-    leaf; layouts are the reference's, so nothing is transposed.  Values
+    (``ln1``, ``attn`` (GQA or MLA leaves), ``ln2`` and ``mlp`` or
+    ``moe``; ``ln`` and ``mixer`` for an ssm or hybrid model) -- and, for
+    a hybrid model, ``shared`` (``ln1``, ``attn``, ``ln2``, ``mlp``,
+    unstacked).  Layer ``i`` takes slice ``i`` of each leaf; layouts are
+    the reference's, so nothing is transposed.  Values
     pass through float32, which holds bfloat16 and float16 exactly, and
     land in the dtype of the port's leaf (float32 for the MoE router and
     the Mamba2 ``A_log``, ``D`` and ``dt_bias``, as in the reference).
     Raises on a missing, extra or misshapen leaf."""
-    from .models.transformer import Transformer, layer_parts
+    from .models.transformer import (SHARED_PARTS, Transformer,
+                                     _tree_keys, layer_parts)
     dev = resolve_device(device)
     parts = layer_parts(cfg)
     with torch.no_grad():
@@ -177,9 +180,10 @@ def model_params(params_np, cfg, device=None):
                 p.copy_(torch.from_numpy(np.ascontiguousarray(a)).to(
                     device=dev, dtype=p.dtype))
 
-        if set(params_np) != {"embed", "layers", "final_norm"}:
+        if set(params_np) != _tree_keys(cfg):
             raise ValueError(f"parameter tree has {sorted(params_np)}; the "
-                             "port's trunk takes embed, layers, final_norm")
+                             f"port's trunk of {cfg.name} takes "
+                             f"{', '.join(sorted(_tree_keys(cfg)))}")
         put(model.embed, params_np["embed"], "embed")
         put(model.final_norm, params_np["final_norm"], "final_norm")
         layers = params_np["layers"]
@@ -189,17 +193,31 @@ def model_params(params_np, cfg, device=None):
         for i, layer in enumerate(model.layers):
             for part in parts:
                 put(getattr(layer, part), layers[part], f"layers.{part}", i)
+        if model.shared is not None:
+            shared = params_np["shared"]
+            if set(shared) != set(SHARED_PARTS):
+                raise ValueError(f"shared has {sorted(shared)}; the shared "
+                                 f"block is {', '.join(SHARED_PARTS)}")
+            for part in SHARED_PARTS:
+                put(getattr(model.shared, part), shared[part],
+                    f"shared.{part}")
     return model
 
 
 def model_tree(model) -> dict:
     """The inverse of :func:`model_params`: a ``models.Transformer``'s
     parameters as the reference's tree of float32 numpy leaves (``embed``,
-    ``final_norm``, and ``layers`` stacked on a leading L axis)."""
-    tree = {"embed": {}, "final_norm": {}, "layers": {}}
-    for part in ("embed", "final_norm"):
-        for name, p in getattr(model, part).items():
-            tree[part][name] = p.detach().float().cpu().numpy()
+    ``final_norm``, ``layers`` stacked on a leading L axis, and a hybrid
+    model's ``shared``)."""
+    def leaves(d):
+        return {name: p.detach().float().cpu().numpy()
+                for name, p in d.items()}
+
+    tree = {"embed": leaves(model.embed),
+            "final_norm": leaves(model.final_norm), "layers": {}}
+    if model.shared is not None:
+        tree["shared"] = {part: leaves(getattr(model.shared, part))
+                          for part in model.shared.part_names}
     for part in model.layers[0].part_names:
         tree["layers"][part] = {
             name: np.stack([getattr(layer, part)[name].detach().float()

@@ -4,7 +4,8 @@
 // repro/kernels/flash_attention.py (pallas_call at :104); the GQA fold of
 // repro/kernels/ops.py:26 stays in the Python wrapper (kernels/ops.py).
 //
-//   q (BH, Sq, d), k and v (BH, Sk, d), bf16 or float32, contiguous;
+//   q (BH, Sq, dqk), k (BH, Sk, dqk) and v (BH, Sk, dv), bf16 or float32,
+//   contiguous (dv == dqk except for MLA's prefill, dqk 192 over dv 128);
 //   qpos (Sq,) and kpos (Sk,) int32 absolute positions, -1 = empty slot.
 //   A key is visible to a query row when
 //       kpos >= 0 && qpos >= 0
@@ -67,12 +68,19 @@
 //   use local memory (flash_attention_tc_local_bytes).  64-key tiles (32
 //   + 32 + 64 at d 128) do not spill.  The epilogue divides by
 //   max(l, 1e-30) and stores bf16 pairs from registers.
-// * The SIMT route (float32, and bf16 at d 48): one block of 256 threads
-//   per (bh, 64-row query tile), K and V staged by the threads, all
-//   arithmetic float32 FMAs on the CUDA cores (tensor cores would need
-//   TF32 for float32, which moves the results off the reference).  Thread
-//   (ty, tx) of a 16 x 16 grid owns query rows ty + 16 i (i < 4) and a
-//   4 x 4 tile of scores; row max and row sum are four xor-shuffles.
+// * The SIMT route (float32; bf16 at d 48, at d 80 and at dqk 192 over dv
+//   128): one block of 256 threads per (bh, 64-row query tile), K and V
+//   staged by the threads, all arithmetic float32 FMAs on the CUDA cores
+//   (tensor cores would need TF32 for float32, which moves the results
+//   off the reference).  Thread (ty, tx) of a 16 x 16 grid owns query rows
+//   ty + 16 i (i < 4) and a 4 x 4 tile of scores; row max and row sum are
+//   four xor-shuffles.  The kernel takes q/k's head dim and v's apart
+//   (DQK, DV): the scores run over DQK, the output's DV / 16 columns per
+//   thread over DV.  Instances: (48, 48), (64, 64), (128, 128) in float32,
+//   (48, 48) in bf16, and (80, 80) and (192, 128) in both (zamba2's and
+//   hubert's head dim; DeepSeek-V2's MLA prefill, nope 128 + rope 64 over
+//   v 128).  The float32 (192, 128) tiles take ~146 KB of shared memory,
+//   above the 48 KB default, by the same opt-in as d 128.
 #include <cuda.h>  // CUtensorMap and its enums (no -lcuda: see tc::encode_tiled)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,12 +111,15 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 // Row stride of a (rows, D) tile in shared memory, in elements: one extra
 // 4-byte word per row, so the 16 rows that 16 lanes read at one column
 // fall in 16 different banks.
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 struct Layout {
-  static constexpr int kLd = D + 4 / static_cast<int>(sizeof(T));
-  static constexpr int kLdp = kBK + 1;  // float P tile
+  static constexpr int kPad = 4 / static_cast<int>(sizeof(T));
+  static constexpr int kLd = DQK + kPad;   // Q and K tiles
+  static constexpr int kLdv = DV + kPad;   // V tile
+  static constexpr int kLdp = kBK + 1;     // float P tile
   static constexpr size_t kBytes =
-      static_cast<size_t>(kBQ + 2 * kBK) * kLd * sizeof(T) +
+      static_cast<size_t>(kBQ + kBK) * kLd * sizeof(T) +
+      static_cast<size_t>(kBK) * kLdv * sizeof(T) +
       static_cast<size_t>(kBQ) * kLdp * sizeof(float) +
       static_cast<size_t>(kBQ + kBK) * sizeof(int);
 };
@@ -119,23 +130,25 @@ __device__ __forceinline__ bool visible(int kp, int qp, int causal,
          (!has_window || kp > qp - window);
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ qpos,
                        const int* __restrict__ kpos, T* __restrict__ out,
                        int Sq, int Sk, float scale, int causal,
                        int has_window, int window) {
-  static_assert(D % 16 == 0 && D <= 128, "head dim: a multiple of 16, <= 128");
-  constexpr int LD = Layout<T, D>::kLd;
-  constexpr int LDP = Layout<T, D>::kLdp;
-  constexpr int NJ = D / 16;  // output columns per thread
+  static_assert(DQK % 8 == 0 && DQK <= 192, "q/k head dim: a multiple of 8, <= 192");
+  static_assert(DV % 16 == 0 && DV <= 128, "v head dim: a multiple of 16, <= 128");
+  constexpr int LD = Layout<T, DQK, DV>::kLd;
+  constexpr int LDV = Layout<T, DQK, DV>::kLdv;
+  constexpr int LDP = Layout<T, DQK, DV>::kLdp;
+  constexpr int NJ = DV / 16;  // output columns per thread
 
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
   T* ks = qs + kBQ * LD;
   T* vs = ks + kBK * LD;
-  float* ps = reinterpret_cast<float*>(vs + kBK * LD);
+  float* ps = reinterpret_cast<float*>(vs + kBK * LDV);
   int* qp_s = reinterpret_cast<int*>(ps + kBQ * LDP);
   int* kp_s = qp_s + kBQ;
 
@@ -144,17 +157,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = tid >> 4;
   const int q0 = blockIdx.x * kBQ;
   const size_t bh = blockIdx.y;
-  const T* qb = q + bh * Sq * D;
-  const T* kb = k + bh * Sk * D;
-  const T* vb = v + bh * Sk * D;
-  T* ob = out + bh * Sq * D;
+  const T* qb = q + bh * Sq * DQK;
+  const T* kb = k + bh * Sk * DQK;
+  const T* vb = v + bh * Sk * DV;
+  T* ob = out + bh * Sq * DV;
   const T zero = from_f32<T>(0.f);
 
   // the query tile and its positions (rows past Sq: zeros, position -1)
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, c = e - r * D;
+  for (int e = tid; e < kBQ * DQK; e += kThreads) {
+    const int r = e / DQK, c = e - r * DQK;
     const int row = q0 + r;
-    qs[r * LD + c] = row < Sq ? qb[static_cast<size_t>(row) * D + c] : zero;
+    qs[r * LD + c] = row < Sq ? qb[static_cast<size_t>(row) * DQK + c] : zero;
   }
   if (tid < kBQ) qp_s[tid] = q0 + tid < Sq ? qpos[q0 + tid] : -1;
   __syncthreads();
@@ -196,12 +209,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if (!__syncthreads_or(live)) continue;
 
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int r = e / D, c = e - r * D;
+    for (int e = tid; e < kBK * DQK; e += kThreads) {
+      const int r = e / DQK, c = e - r * DQK;
       const int key = k0 + r;
-      const bool in = key < Sk;
-      ks[r * LD + c] = in ? kb[static_cast<size_t>(key) * D + c] : zero;
-      vs[r * LD + c] = in ? vb[static_cast<size_t>(key) * D + c] : zero;
+      ks[r * LD + c] = key < Sk ? kb[static_cast<size_t>(key) * DQK + c] : zero;
+    }
+    for (int e = tid; e < kBK * DV; e += kThreads) {
+      const int r = e / DV, c = e - r * DV;
+      const int key = k0 + r;
+      vs[r * LDV + c] = key < Sk ? vb[static_cast<size_t>(key) * DV + c] : zero;
     }
     __syncthreads();
 
@@ -212,7 +228,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int c = 0; c < D; ++c) {
+    for (int c = 0; c < DQK; ++c) {
       float a[4], b[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = to_f32(qs[(ty + 16 * i) * LD + c]);
@@ -273,7 +289,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * LDP + c];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const float vv = to_f32(vs[c * LD + tx + 16 * j]);
+        const float vv = to_f32(vs[c * LDV + tx + 16 * j]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
       }
@@ -288,54 +304,56 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      ob[static_cast<size_t>(row) * D + tx + 16 * j] =
+      ob[static_cast<size_t>(row) * DV + tx + 16 * j] =
           from_f32<T>(acc[i][j] / denom);
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, const int* qpos,
            const int* kpos, void* out, int BH, int Sq, int Sk, float scale,
            int causal, int has_window, int window, cudaStream_t stream) {
   // shared memory above 48 KB must be allowed on the current device; the
   // call is a host-side attribute write, cheap next to the launch
-  constexpr size_t smem = Layout<T, D>::kBytes;
+  constexpr size_t smem = Layout<T, DQK, DV>::kBytes;
+  static_assert(smem <= 232448, "227 KB of shared memory per block");
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
+      flash_attention_kernel<T, DQK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + kBQ - 1) / kBQ, BH);
-  flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_attention_kernel<T, DQK, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), qpos, kpos, static_cast<T*>(out), Sq, Sk,
       scale, causal, has_window, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-// float32 at every head dim; bfloat16 at d 48 alone (bf16 at d 64 and
-// 128 takes the tensor-core route, so the SIMT kernel has no instance
-// for it).
-int launch_d(int d, bool bf16, const void* q, const void* k, const void* v,
-             const int* qpos, const int* kpos, void* out, int BH, int Sq,
-             int Sk, float scale, int causal, int has_window, int window,
-             cudaStream_t stream) {
-  if (bf16)
-    return d == 48 ? launch<__nv_bfloat16, 48>(q, k, v, qpos, kpos, out, BH,
-                                               Sq, Sk, scale, causal,
-                                               has_window, window, stream)
-                   : static_cast<int>(cudaErrorInvalidValue);
-#define FA_CASE(D)                                                          \
-  case D:                                                                   \
-    return launch<float, D>(q, k, v, qpos, kpos, out, BH, Sq, Sk, scale,    \
-                            causal, has_window, window, stream);
-  switch (d) {
-    FA_CASE(48)
-    FA_CASE(64)
-    FA_CASE(128)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+// The SIMT instances, (dqk, dv) pairs: float32 at (48, 48), (64, 64),
+// (128, 128), (80, 80) and (192, 128); bfloat16 at (48, 48), (80, 80) and
+// (192, 128) (bf16 at equal dims of 64 and 128 takes the tensor-core
+// route, so the SIMT kernel has no instance for it).
+int launch_d(int dqk, int dv, bool bf16, const void* q, const void* k,
+             const void* v, const int* qpos, const int* kpos, void* out,
+             int BH, int Sq, int Sk, float scale, int causal, int has_window,
+             int window, cudaStream_t stream) {
+#define FA_CASE(T, DQK, DV)                                                 \
+  if (dqk == DQK && dv == DV)                                               \
+    return launch<T, DQK, DV>(q, k, v, qpos, kpos, out, BH, Sq, Sk, scale,  \
+                              causal, has_window, window, stream);
+  if (bf16) {
+    FA_CASE(__nv_bfloat16, 48, 48)
+    FA_CASE(__nv_bfloat16, 80, 80)
+    FA_CASE(__nv_bfloat16, 192, 128)
+  } else {
+    FA_CASE(float, 48, 48)
+    FA_CASE(float, 64, 64)
+    FA_CASE(float, 128, 128)
+    FA_CASE(float, 80, 80)
+    FA_CASE(float, 192, 128)
   }
 #undef FA_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ===================================================================
@@ -983,18 +1001,18 @@ int launch(const void* q, const void* k, const void* v, const int* qpos,
 extern "C" {
 
 // The SIMT route: launch the attention of BH (batch x kv-head) rows on
-// `stream`; dtype 0 is float32 (d one of 48, 64, 128, the head dims of the
-// dense configs and presets), 1 is bfloat16 (d 48).  Returns
-// cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a dtype or d without a kernel.
+// `stream`; d is q's and k's head dim, dv v's; dtype 0 is float32, 1 is
+// bfloat16, at the (d, dv) pairs of launch_d.  Returns cudaGetLastError()
+// after the launch (0 on success), or cudaErrorInvalidValue for a dtype or
+// pair without a kernel.
 int flash_attention_bhsd_launch(const void* q, const void* k, const void* v,
                                 const void* qpos, const void* kpos, void* out,
-                                int BH, int Sq, int Sk, int d, int dtype,
-                                float scale, int causal, int has_window,
-                                int window, void* stream) {
+                                int BH, int Sq, int Sk, int d, int dv,
+                                int dtype, float scale, int causal,
+                                int has_window, int window, void* stream) {
   if (BH <= 0 || Sq <= 0) return 0;
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_d(d, dtype == 1, q, k, v, static_cast<const int*>(qpos),
+  return launch_d(d, dv, dtype == 1, q, k, v, static_cast<const int*>(qpos),
                   static_cast<const int*>(kpos), out, BH, Sq, Sk, scale,
                   causal, has_window, window, static_cast<cudaStream_t>(stream));
 }

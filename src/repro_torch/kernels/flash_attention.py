@@ -1,27 +1,29 @@
 """Blocked online-softmax attention with position masks (counterpart of
 ``repro.kernels.flash_attention``; TPU kernel B6).
 
-:func:`flash_attention_bhsd` takes ``q (BH, Sq, d)``, ``k``/``v``
-``(BH, Sk, d)`` and int32 absolute positions ``qpos (Sq,)``, ``kpos (Sk,)``
-(-1 marks an empty slot: ring-cache holes, padding).  A key is visible to
-a query row when both positions are ``>= 0``, and (causal) ``kpos <=
-qpos``, and (window) ``kpos > qpos - window``.  Fully masked rows return
-zeros.
+:func:`flash_attention_bhsd` takes ``q (BH, Sq, d)``, ``k (BH, Sk, d)``,
+``v (BH, Sk, dv)`` and int32 absolute positions ``qpos (Sq,)``, ``kpos
+(Sk,)`` (-1 marks an empty slot: ring-cache holes, padding).  A key is
+visible to a query row when both positions are ``>= 0``, and (causal)
+``kpos <= qpos``, and (window) ``kpos > qpos - window``.  Fully masked
+rows return zeros.  ``dv`` is ``d`` everywhere but MLA's prefill, where
+q and k carry the nope and rope parts (128 + 64) over a v of 128.
 
 On the card it launches one of the two hand-written CUDA kernels of
 ``csrc/flash_attention.cu`` (see the source for both designs), chosen by
-dtype and head dim alone (:func:`card_route`): bfloat16 at d 64 and 128
-takes the tensor-core kernel (``wgmma`` fed by TMA, P split into bf16 hi
-+ lo), float32 and bfloat16 at d 48 the SIMT kernel (float32 FMAs on the
-CUDA cores).  On the CPU it runs :func:`flash_attention_bhsd_ref`, the
-same function in plain PyTorch ops: the port of
-``repro.kernels.ref.flash_attention_ref`` with the kernel's ``qpos >= 0``
-mask added (the reference oracle omits it; the two differ only for
-negative query positions, which neither the model nor the reference's
-tests produce).  The kernels take bfloat16 and float32 and head dims 48,
-64 and 128 (those of the dense configs and presets); other inputs on the
-card raise -- they are never sent to the plain version, and a failed
-build or launch raises, never falls back to the other route.
+dtype and head dims alone (:func:`card_route`): bfloat16 at equal dims of
+64 and 128 takes the tensor-core kernel (``wgmma`` fed by TMA, P split
+into bf16 hi + lo), every other supported case the SIMT kernel (float32
+FMAs on the CUDA cores).  On the CPU it runs
+:func:`flash_attention_bhsd_ref`, the same function in plain PyTorch ops:
+the port of ``repro.kernels.ref.flash_attention_ref`` with the kernel's
+``qpos >= 0`` mask added (the reference oracle omits it; the two differ
+only for negative query positions, which neither the model nor the
+reference's tests produce).  The kernels take bfloat16 and float32 and
+the ``(d, dv)`` pairs of :data:`SUPPORTED_HEAD_DIMS` (those of the
+configs and presets); other inputs on the card raise -- they are never
+sent to the plain version, and a failed build or launch raises, never
+falls back to the other route.
 """
 from __future__ import annotations
 
@@ -37,8 +39,9 @@ __all__ = ["NEG_INF", "SUPPORTED_HEAD_DIMS", "TC_HEAD_DIMS", "card_route",
            "flash_attention_bhsd", "flash_attention_bhsd_ref"]
 
 NEG_INF = -1e30
-SUPPORTED_HEAD_DIMS = (48, 64, 128)
-TC_HEAD_DIMS = (64, 128)   # bfloat16 head dims of the tensor-core kernel
+# (q/k head dim, v head dim) pairs with a kernel, in both dtypes
+SUPPORTED_HEAD_DIMS = ((48, 48), (64, 64), (80, 80), (128, 128), (192, 128))
+TC_HEAD_DIMS = (64, 128)   # bfloat16 head dims (q/k = v) of the tensor-core kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535   # BH is the y dimension of the SIMT kernel's grid
 
@@ -69,10 +72,13 @@ def flash_attention_bhsd_ref(q, k, v, qpos, kpos, *, causal: bool = True,
     return (out / torch.clamp(l, min=1e-30)).to(v.dtype)
 
 
-def card_route(dtype: torch.dtype, d: int) -> str:
+def card_route(dtype: torch.dtype, d: int, dv: Optional[int] = None) -> str:
     """The kernel a CUDA call takes: ``"tc"`` (tensor cores) for bfloat16
-    at a head dim of :data:`TC_HEAD_DIMS`, else ``"simt"``."""
-    return "tc" if dtype == torch.bfloat16 and d in TC_HEAD_DIMS else "simt"
+    with q/k and v at one head dim of :data:`TC_HEAD_DIMS`, else
+    ``"simt"``.  ``dv`` defaults to ``d``."""
+    dv = d if dv is None else dv
+    return ("tc" if dtype == torch.bfloat16 and d == dv
+            and d in TC_HEAD_DIMS else "simt")
 
 
 def _tc_local_bytes(lib) -> dict:
@@ -85,7 +91,7 @@ def _tc_local_bytes(lib) -> dict:
 def _bind(lib):
     """Set the C signatures of a loaded ``flash_attention`` library."""
     fn = lib.flash_attention_bhsd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                    + [ctypes.c_float] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -129,17 +135,18 @@ def _check_inputs(q, k, v, qpos, kpos) -> None:
                          f"(BH, S, d); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     BH, Sq, d = q.shape
-    Sk = k.shape[1]
+    Sk, dv = k.shape[1], v.shape[2]
     if q.dtype not in _DTYPE_CODES or not q.dtype == k.dtype == v.dtype:
         raise ValueError("flash_attention_bhsd: the kernel takes q, k, v all "
                          "bfloat16 or all float32; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bhsd: no kernel for head dim {d}; "
-                         f"supported: {SUPPORTED_HEAD_DIMS}")
-    if tuple(k.shape) != (BH, Sk, d) or tuple(v.shape) != (BH, Sk, d):
-        raise ValueError(f"flash_attention_bhsd: k and v must be "
-                         f"({BH}, Sk, {d}); got {tuple(k.shape)}, "
+    if (d, dv) not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bhsd: no kernel for head dim {d} "
+                         f"(q, k) over {dv} (v); supported (q/k, v): "
+                         f"{SUPPORTED_HEAD_DIMS}")
+    if tuple(k.shape) != (BH, Sk, d) or tuple(v.shape) != (BH, Sk, dv):
+        raise ValueError(f"flash_attention_bhsd: k must be ({BH}, Sk, {d}) "
+                         f"and v ({BH}, Sk, dv); got {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     if BH > _MAX_GRID_Y:
         raise ValueError(f"flash_attention_bhsd: BH={BH} exceeds "
@@ -159,17 +166,18 @@ def _check_inputs(q, k, v, qpos, kpos) -> None:
 def flash_attention_bhsd(q, k, v, qpos, kpos, *, causal: bool = True,
                          window: Optional[int] = None,
                          scale: float = 1.0) -> torch.Tensor:
-    """q (BH, Sq, d), k/v (BH, Sk, d), qpos (Sq,), kpos (Sk,) int32 ->
-    (BH, Sq, d) in ``v``'s dtype.  CUDA tensors launch the kernel of
-    :func:`card_route` (one launch); CPU tensors run
+    """q (BH, Sq, d), k (BH, Sk, d), v (BH, Sk, dv), qpos (Sq,), kpos (Sk,)
+    int32 -> (BH, Sq, dv) in ``v``'s dtype.  CUDA tensors launch the
+    kernel of :func:`card_route` (one launch); CPU tensors run
     :func:`flash_attention_bhsd_ref`."""
     if kernel_route(q, k, v, qpos, kpos) == "plain":
         return flash_attention_bhsd_ref(q, k, v, qpos, kpos, causal=causal,
                                         window=window, scale=scale)
     _check_inputs(q, k, v, qpos, kpos)
     BH, Sq, d = q.shape
-    route = card_route(q.dtype, d)
-    out = torch.empty_like(q)
+    dv = v.shape[2]
+    route = card_route(q.dtype, d, dv)
+    out = torch.empty((BH, Sq, dv), dtype=v.dtype, device=v.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -181,7 +189,7 @@ def flash_attention_bhsd(q, k, v, qpos, kpos, *, causal: bool = True,
             code = lib.flash_attention_bhsd_tc_launch(*ptrs, *tail)
         else:
             code = lib.flash_attention_bhsd_launch(
-                *ptrs, _DTYPE_CODES[q.dtype], *tail)
+                *ptrs, dv, _DTYPE_CODES[q.dtype], *tail)
     if code != 0:
         raise RuntimeError(
             f"flash_attention_bhsd launch failed ({route} kernel): "

@@ -36,26 +36,27 @@ __all__ = ["flash_attention", "ssd_scan_pallas", "prox_step",
 def flash_attention(q, k, v, qpos, kpos, *, causal: bool = True,
                     window: Optional[int] = None,
                     scale: float = 1.0) -> torch.Tensor:
-    """q (B, Sq, H, d), k/v (B, Sk, KV, d) -> (B, Sq, H, d).
+    """q (B, Sq, H, d), k (B, Sk, KV, d), v (B, Sk, KV, dv) -> (B, Sq, H, dv).
 
     The folded rows of one kv head are its G query heads in turn, so their
     positions are ``qpos`` tiled G times: a row's index in the fold is not
-    its position, and the kernel masks by position."""
+    its position, and the kernel masks by position.  v and the output keep
+    v's own head dim (MLA's prefill: q/k 192 over v 128)."""
     B, Sq, H, d = q.shape
-    KV = k.shape[2]
+    KV, dv = k.shape[2], v.shape[3]
     G = H // KV
     # (B, Sq, KV, G, d) -> (B, KV, G, Sq, d) -> (B*KV, G*Sq, d)
     qf = q.reshape(B, Sq, KV, G, d).permute(0, 2, 3, 1, 4).reshape(
         B * KV, G * Sq, d)
     kf = k.permute(0, 2, 1, 3).reshape(B * KV, -1, d)
-    vf = v.permute(0, 2, 1, 3).reshape(B * KV, -1, d)
+    vf = v.permute(0, 2, 1, 3).reshape(B * KV, -1, dv)
     qpos_f = qpos.to(torch.int32).repeat(G)
     out = flash_attention_bhsd(qf.contiguous(), kf.contiguous(),
                                vf.contiguous(), qpos_f,
                                kpos.to(torch.int32).contiguous(),
                                causal=causal, window=window, scale=scale)
-    out = out.reshape(B, KV, G, Sq, d).permute(0, 3, 1, 2, 4)
-    return out.reshape(B, Sq, H, d)
+    out = out.reshape(B, KV, G, Sq, dv).permute(0, 3, 1, 2, 4)
+    return out.reshape(B, Sq, H, dv)
 
 
 def ssd_scan_pallas(x, dt, A, B, C, chunk: int,

@@ -6,9 +6,14 @@
 
 runs on the CUDA card (prefill through the hand-written flash-attention
 kernel); ``--device cpu --reduced`` runs a reduced model on the CPU.
-The dense, MoE (``--arch qwen2-moe-a2.7b``) and Mamba2 (``--arch
-mamba2-780m``) families serve; MLA, hybrid and frontend models wait for
-ROADMAP item 14c parts 4-5.
+The dense, MoE (``--arch qwen2-moe-a2.7b``), MLA (``--arch
+deepseek-v2-236b``), Mamba2 (``--arch mamba2-780m``) and hybrid
+(``--arch zamba2-2.7b``) models serve.  As the reference's, the CLI
+refuses an encoder-only model (hubert-xlarge: nothing to decode) and a
+model that takes embeddings (qwen2-vl-72b): ``generate`` still serves a
+VLM's text prompts through its token table, and its image path is
+``models.prefill`` on ``{"embeds", "positions"}`` followed by
+``models.decode_step`` (``examples/serve_decode.py`` in the reference).
 
 Sampling: greedy (``temperature=0``) is the reference's argmax.  With
 ``temperature > 0`` the port draws from a seeded ``torch.Generator`` on
@@ -91,7 +96,8 @@ def main(argv=None) -> None:
         raise SystemExit(f"{cfg.name} is encoder-only; nothing to decode")
     if cfg.embed_inputs:
         raise SystemExit("serve driver is text-only; VLM prefill needs the "
-                         "frontend stub")
+                         "frontend stub (models.prefill on embeds and "
+                         "positions, then models.decode_step)")
     dev = resolve_device(args.device)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev)

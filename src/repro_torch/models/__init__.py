@@ -1,12 +1,12 @@
 """Model substrate (counterpart of ``repro.models``): configs, layers,
-attention, the MoE layer (``moe``), the Mamba2 block and its SSD scans
-(``ssm``), and the transformer of the dense, moe and ssm families with
+attention (GQA and MLA), the MoE layer (``moe``), the Mamba2 block and
+its SSD scans (``ssm``), and the transformer of all six families (dense,
+moe, ssm, hybrid, and the audio and VLM frontends on embeddings) with
 its serving entry points.
 
 ``loss_fn`` is the trainers' loss over a ``Transformer`` or the
 reference-layout parameter tree (``param_tree``).  Not ported yet:
-``param_specs`` (the dry-run's abstract shapes, item 15), and MLA, the
-hybrid trunk and the audio and VLM frontends (item 14c parts 4-5).
+``param_specs`` (the dry-run's abstract shapes, item 15).
 """
 from .config import ModelConfig
 from .transformer import (Transformer, decode_step, forward, init_params,

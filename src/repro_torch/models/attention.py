@@ -1,4 +1,4 @@
-"""GQA attention (the dense and MoE families): train / prefill / decode
+"""Attention: GQA/MHA and MLA (DeepSeek-V2); train / prefill / decode
 paths with plain and ring (sliding-window) KV caches (counterpart of
 ``repro.models.attention``).
 
@@ -13,9 +13,13 @@ paths with plain and ring (sliding-window) KV caches (counterpart of
   softmax per chunk; the decode step always takes it.
 * ``"naive"`` -- all scores at once (the oracle).
 
+MLA's train and prefill expand the latent KV once and ``attend`` as MHA
+with q/k of nope + rope dims over v's own dim (192 over 128 at full
+width); its decode step runs in the absorbed latent form in torch ops
+(no kernel), as the reference's does.
+
 Caches are updated in place (the reference returns new arrays); the
-functions still return the cache, as the reference does.  MLA
-(DeepSeek-V2) comes with ROADMAP item 14c part 4.
+functions still return the cache, as the reference does.
 """
 from __future__ import annotations
 
@@ -24,27 +28,48 @@ from typing import Optional, Tuple
 import torch
 
 from .config import ModelConfig
-from .layers import _normal, apply_rope
+from .layers import _normal, apply_rope, rmsnorm
 
 __all__ = ["NEG_INF", "attn_params", "attend", "init_cache",
-           "gqa_attention", "attention_block"]
+           "gqa_attention", "mla_attention", "attention_block"]
 
 NEG_INF = -1e30
-
-
-def _mla_not_ported():
-    return NotImplementedError(
-        "MLA attention (use_mla=True) is not ported yet: ROADMAP queue A "
-        "item 14c part 4")
 
 
 # ------------------------------------------------------------------ params
 
 
+def _mla_params(gen, cfg: ModelConfig, device) -> dict:
+    """MLA's projections: the latent KV down-projection (``w_dkv``, latent
+    rank + rope dim) and its norm, the up-projections ``w_uk`` / ``w_uv``,
+    ``wo``, and the query through a low-rank ``wq_a`` / ``q_norm`` /
+    ``wq_b`` (``q_lora_rank``) or one ``wq``; the reference's layouts and
+    scales."""
+    D, H, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    qk = cfg.nope_head_dim + cfg.rope_head_dim
+    hv = H * cfg.v_head_dim
+    p = {"w_dkv": _normal(gen, (D, r + cfg.rope_head_dim), D ** -0.5, cfg,
+                          device),
+         "kv_norm": torch.ones((r,), dtype=cfg.pdtype, device=device),
+         "w_uk": _normal(gen, (r, H * cfg.nope_head_dim), r ** -0.5, cfg,
+                         device),
+         "w_uv": _normal(gen, (r, hv), r ** -0.5, cfg, device),
+         "wo": _normal(gen, (hv, D), hv ** -0.5, cfg, device)}
+    if cfg.q_lora_rank:
+        rq = cfg.q_lora_rank
+        p["wq_a"] = _normal(gen, (D, rq), D ** -0.5, cfg, device)
+        p["q_norm"] = torch.ones((rq,), dtype=cfg.pdtype, device=device)
+        p["wq_b"] = _normal(gen, (rq, H * qk), rq ** -0.5, cfg, device)
+    else:
+        p["wq"] = _normal(gen, (D, H * qk), D ** -0.5, cfg, device)
+    return p
+
+
 def attn_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
-    """GQA projections in the reference's ``(in, out)`` layout."""
+    """GQA (or, with ``cfg.use_mla``, MLA) projections in the reference's
+    ``(in, out)`` layout."""
     if cfg.use_mla:
-        raise _mla_not_ported()
+        return _mla_params(gen, cfg, device)
     D = cfg.d_model
     std = D ** -0.5
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -119,21 +144,32 @@ def attend(q, k, v, qpos, kpos, *, causal: bool, window: Optional[int],
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, ring: bool,
                device=None) -> dict:
-    """One layer's KV cache (stacked over layers by ``make_cache``)."""
-    if cfg.use_mla:
-        raise _mla_not_ported()
+    """One layer's KV cache (stacked over layers by ``make_cache``):
+    ``k`` / ``v``, or for MLA the latent ``ckv`` (B, max_len, rank) and
+    the shared rope key ``krope`` (B, max_len, rope dim)."""
     dt = cfg.cdtype
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    c = {"k": torch.zeros(shape, dtype=dt, device=device),
-         "v": torch.zeros(shape, dtype=dt, device=device)}
+    if cfg.use_mla:
+        c = {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                dtype=dt, device=device),
+             "krope": torch.zeros((batch, max_len, cfg.rope_head_dim),
+                                  dtype=dt, device=device)}
+    else:
+        shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        c = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
     if ring:
         c["positions"] = torch.full((max_len,), -1, dtype=torch.int32,
                                     device=device)
     return c
 
 
+def _entries(cache: dict) -> Tuple[str, ...]:
+    """The per-token entries of a layer cache (all but ``positions``)."""
+    return tuple(n for n in cache if n != "positions")
+
+
 def _cache_len(cache: dict) -> int:
-    return cache["k"].shape[1]
+    return cache[_entries(cache)[0]].shape[1]
 
 
 def _cache_write(cache: dict, updates: dict, pos: int, ring: bool) -> dict:
@@ -152,7 +188,7 @@ def _kpos_of(cache: dict, pos: int, ring: bool) -> torch.Tensor:
         return cache["positions"]
     # plain cache: slots [0, pos] are valid
     idx = torch.arange(_cache_len(cache), dtype=torch.int32,
-                       device=cache["k"].device)
+                       device=cache[_entries(cache)[0]].device)
     return torch.where(idx <= pos, idx, -1)
 
 
@@ -193,7 +229,7 @@ def gqa_attention(p, x: torch.Tensor, cfg: ModelConfig, rope_cs, positions,
     if mode == "decode":
         pos = int(pos)
         cache = _cache_write(cache, {"k": k, "v": v}, pos, ring)
-        live = cache if ring else {n: cache[n][:, :pos + 1] for n in "kv"}
+        live = _live(cache, pos, ring)
         kpos = _kpos_of(live, pos, ring)
         qpos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
         out = attend(q, live["k"], live["v"], qpos, kpos, causal=cfg.causal,
@@ -207,39 +243,120 @@ def gqa_attention(p, x: torch.Tensor, cfg: ModelConfig, rope_cs, positions,
                      scale=scale, q_chunk=cfg.q_chunk,
                      impl=cfg.attention_impl, remat_chunk=cfg.remat_chunk)
         if mode == "prefill":
-            cache = _prefill_cache(cache, k, v, S, window, ring)
+            cache = _prefill_cache(cache, {"k": k, "v": v}, S, window, ring)
     y = out.reshape(B, S, H * hd) @ p["wo"].to(dt)
     return y, cache
 
 
-def _prefill_cache(cache: Optional[dict], k, v, S: int,
+def _live(cache: dict, pos: int, ring: bool) -> dict:
+    """What a decode step at ``pos`` reads: a ring whole, a plain cache's
+    slots ``[0, pos]``."""
+    return cache if ring else {n: cache[n][:, :pos + 1]
+                               for n in _entries(cache)}
+
+
+def _prefill_cache(cache: Optional[dict], entries: dict, S: int,
                    window: Optional[int], ring: bool) -> dict:
-    """The prefill's cache: the reference's (length S; for a ring, the last
-    ``window`` entries with their positions), written into ``cache`` when
-    a longer preallocated plain cache is given."""
+    """The prefill's cache of ``entries`` (each (B, S, ...)): the
+    reference's (length S; for a ring, the last ``window`` entries with
+    their positions), written into ``cache`` when a longer preallocated
+    plain cache is given."""
     if ring:
         if cache is not None:
             raise ValueError("prefill into a preallocated ring cache is not "
                              "supported; the ring cache is the prefill's own")
         if window and S > window:
-            k, v = k[:, -window:], v[:, -window:]
-        W = k.shape[1]
-        start = max(S - W, 0)
-        positions = torch.arange(W, dtype=torch.int32, device=k.device) + start
-        return {"k": k, "v": v, "positions": positions}
+            entries = {n: t[:, -window:] for n, t in entries.items()}
+        first = next(iter(entries.values()))
+        W = first.shape[1]
+        positions = torch.arange(W, dtype=torch.int32,
+                                 device=first.device) + (S - W)
+        return {**entries, "positions": positions}
     if cache is None:
-        return {"k": k, "v": v}
+        return dict(entries)
     if _cache_len(cache) < S:
         raise ValueError(f"cache of length {_cache_len(cache)} cannot hold a "
                          f"{S}-token prefill")
-    cache["k"][:, :S] = k
-    cache["v"][:, :S] = v
+    for n, t in entries.items():
+        cache[n][:, :S] = t
     return cache
+
+
+# ------------------------------------------------------------- MLA block
+
+
+def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, rope_cs, positions,
+                  mode: str, cache: Optional[dict] = None,
+                  pos: Optional[int] = None, window: Optional[int] = None,
+                  ring: bool = False) -> Tuple[torch.Tensor, Optional[dict]]:
+    """DeepSeek-V2 Multi-head Latent Attention.
+
+    Train / prefill: expand the latent KV once to MHA (KV = H) and
+    ``attend`` with q/k of ``nope + rope`` dims over v of ``v_head_dim``.
+    Decode: the absorbed form -- scores and values in the ``kv_lora``
+    latent space against the cache of ``ckv`` / ``krope``, float32 scores
+    as in the reference, so a token costs O(S r), not O(S H d).  Modes and
+    caches as :func:`gqa_attention`."""
+    B, S, D = x.shape
+    H, r = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    dt = cfg.cdtype
+    scale = (dn + dr) ** -0.5
+
+    if cfg.q_lora_rank:
+        qa = rmsnorm(x @ p["wq_a"].to(dt), p["q_norm"])
+        q = qa @ p["wq_b"].to(dt)
+    else:
+        q = x @ p["wq"].to(dt)
+    q = q.reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+
+    ckv_full = x @ p["w_dkv"].to(dt)
+    ckv, k_rope = ckv_full[..., :r], ckv_full[..., r:]
+    ckv = rmsnorm(ckv, p["kv_norm"])
+    if rope_cs is not None:
+        cos, sin = rope_cs
+        q_rope = apply_rope(q_rope, cos, sin)
+        k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+
+    if mode == "decode":
+        pos = int(pos)
+        cache = _cache_write(cache, {"ckv": ckv, "krope": k_rope}, pos, ring)
+        live = _live(cache, pos, ring)
+        kpos = _kpos_of(live, pos, ring)
+        # absorbed scores: (q_nope W_uk^T) . ckv, plus the rope part
+        w_uk = p["w_uk"].to(dt).reshape(r, H, dn)
+        q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)      # (B,1,H,r)
+        s = torch.einsum("bqhr,bsr->bhqs", q_abs.float(),
+                         live["ckv"].float())
+        s = s + torch.einsum("bqhd,bsd->bhqs", q_rope.float(),
+                             live["krope"].float())
+        qpos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        s = s * scale + _mask(qpos, kpos, cfg.causal, window)[None, None]
+        w = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhqs,bsr->bqhr", w.to(dt), live["ckv"])
+        w_uv = p["w_uv"].to(dt).reshape(r, H, dv)
+        out = torch.einsum("bqhr,rhd->bqhd", o_lat, w_uv)         # (B,1,H,dv)
+    else:
+        # expand once; standard MHA (KV == H)
+        k_nope = (ckv @ p["w_uk"].to(dt)).reshape(B, S, H, dn)
+        vvec = (ckv @ p["w_uv"].to(dt)).reshape(B, S, H, dv)
+        k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            B, S, H, dr)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        qpos = torch.arange(S, dtype=torch.int32, device=x.device)
+        out = attend(q_full, k_full, vvec, qpos, qpos, causal=cfg.causal,
+                     window=window, scale=scale, q_chunk=cfg.q_chunk,
+                     impl=cfg.attention_impl, remat_chunk=cfg.remat_chunk)
+        if mode == "prefill":
+            cache = _prefill_cache(cache, {"ckv": ckv, "krope": k_rope}, S,
+                                   window, ring)
+    y = out.reshape(B, S, H * dv) @ p["wo"].to(dt)
+    return y, cache
 
 
 def attention_block(p, x, cfg: ModelConfig, rope_cs, positions, mode: str,
                     cache=None, pos=None, window=None, ring=False):
-    if cfg.use_mla:
-        raise _mla_not_ported()
-    return gqa_attention(p, x, cfg, rope_cs, positions, mode, cache=cache,
-                         pos=pos, window=window, ring=ring)
+    fn = mla_attention if cfg.use_mla else gqa_attention
+    return fn(p, x, cfg, rope_cs, positions, mode, cache=cache, pos=pos,
+              window=window, ring=ring)

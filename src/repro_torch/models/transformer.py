@@ -1,17 +1,21 @@
-"""Model assembly for the dense, MoE and Mamba2 (ssm) families
-(counterpart of ``repro.models.transformer``).
+"""Model assembly for all six families (counterpart of
+``repro.models.transformer``).
+
+* dense / moe / audio / vlm: pre-norm attention (GQA or MLA) + MLP (or
+  MoE) layers (``ln1``, ``attn``, ``ln2``, ``mlp`` or ``moe``);
+* ssm: pre-norm Mamba2 mixers (``ln``, ``mixer``);
+* hybrid (zamba2-style): the Mamba2 layers in groups of ``attn_every``,
+  each group preceded by one application of a *shared* attention + MLP
+  block (``shared``: ``ln1``, ``attn``, ``ln2``, ``mlp``; one set of
+  weights reused by every group).
 
 ``Transformer`` is an ``nn.Module`` trunk: the embedding tables, an
-``nn.ModuleList`` of layers and the final norm, each holding the
-reference's parameter names in its ``(in, out)`` layout
-(``layers[i].attn["wq"]`` is the reference's ``layers["attn"]["wq"][i]``),
-so weights carry across by an unstack (``interop.model_params``), never a
-transpose.  A layer's parts follow the family, as the reference's
-``_layer_params``: pre-norm attention + MLP (``ln1``, ``attn``, ``ln2``,
-``mlp``), with ``moe`` in place of ``mlp`` where ``cfg.n_experts`` is
-set, or a pre-norm Mamba2 mixer (``ln``, ``mixer``) for ``family="ssm"``.
-The reference scans over layers stacked on a leading L axis; the port
-loops over the module list.
+``nn.ModuleList`` of layers, the hybrid's ``shared`` block and the final
+norm, each holding the reference's parameter names in its ``(in, out)``
+layout (``layers[i].attn["wq"]`` is the reference's
+``layers["attn"]["wq"][i]``), so weights carry across by an unstack
+(``interop.model_params``), never a transpose.  The reference scans over
+layers stacked on a leading L axis; the port loops over the module list.
 
 Entry points, as in the reference:
   forward()      -- logits over all positions (training / encoding) and
@@ -21,26 +25,34 @@ Entry points, as in the reference:
                     differentiable through ``torch.autograd``
   prefill()      -- full-sequence forward that returns the cache and the
                     last position's logits
-  decode_step()  -- one token against the cache (updated in place)
+  decode_step()  -- one token (or a (B, 1, D) embedding) against the
+                    cache (updated in place)
 
-The cache is the stacked ``k``/``v`` of the attention layers, or for an
-ssm model the stacked Mamba2 state (``h`` (L, B, H, P, N) float32,
-``conv`` (L, B, K-1, C)), which has no length axis.
+Inputs are ``tokens`` or, for the audio and VLM frontends (stubs, as in
+the reference), precomputed ``embeds`` (B, S, D), with ``positions``
+given ((3, B, S) M-RoPE grids for a VLM) or made from the sequence index.
+A VLM keeps its token table, so text decodes after an image prefill.
+
+The cache is the stacked ``k``/``v`` (for MLA ``ckv``/``krope``) of the
+attention layers; for an ssm model the stacked Mamba2 state (``h`` (L,
+B, H, P, N) float32, ``conv`` (L, B, K-1, C)), which has no length axis;
+for a hybrid model ``{"attn": (G, ...), "ssm": (G, E, ...)}``, the
+shared block's cache of each of the G groups and the state of each of
+their E Mamba2 layers.
 
 ``forward`` and ``loss_fn`` also take the reference's parameter tree
-(``param_tree``: ``embed``, ``final_norm`` and ``layers`` with every leaf
-stacked on a leading L axis) as a dict of tensors; the trainers hold
-their parameters so, take gradients with respect to its leaves, and
-checkpoint it in the reference's layout.  With ``cfg.remat`` each layer
-is recomputed in the backward pass (``torch.utils.checkpoint``), and the
-chunked cross-entropy recomputes each chunk's logits, as the reference's
+(``param_tree``: ``embed``, ``final_norm``, ``layers`` with every leaf
+stacked on a leading L axis, and ``shared`` for a hybrid model) as a
+dict of tensors; the trainers hold their parameters so, take gradients
+with respect to its leaves, and checkpoint it in the reference's layout.
+With ``cfg.remat`` each layer (a hybrid's group) is recomputed in the
+backward pass (``torch.utils.checkpoint``), and the chunked
+cross-entropy recomputes each chunk's logits, as the reference's
 ``jax.checkpoint`` does: memory changes, numbers do not.  Training
 refuses ``attention_impl="pallas"``: the flash-attention kernel has no
 backward.
 
-The serving entry points run under ``torch.inference_mode()``.  MLA
-attention, the hybrid trunk and the audio and VLM frontends come with
-ROADMAP item 14c parts 4-5; they raise ``NotImplementedError`` here.
+The serving entry points run under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -60,38 +72,28 @@ from .moe import moe_block, moe_block_capacity, moe_params
 from .ssm import init_ssm_state, mamba2_block, ssm_params
 
 __all__ = ["Transformer", "init_params", "forward", "loss_fn", "param_tree",
-           "make_cache", "prefill", "decode_step", "check_ported",
-           "layer_parts"]
+           "make_cache", "prefill", "decode_step", "layer_parts",
+           "SHARED_PARTS"]
 
-PORTED_FAMILIES = ("dense", "moe", "ssm")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if cfg.family not in PORTED_FAMILIES or cfg.use_mla \
-            or cfg.embed_inputs:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r}"
-            + (" with MLA" if cfg.use_mla else "")
-            + " is not ported yet; the port runs the dense, moe and ssm "
-            "families (ROADMAP queue A item 14c parts 4-5 bring MLA, the "
-            "hybrid trunk and the audio and VLM frontends)")
+# the hybrid's shared attention + MLP block (the reference's
+# ``_shared_block_params``)
+SHARED_PARTS = ("ln1", "attn", "ln2", "mlp")
 
 
 def layer_parts(cfg: ModelConfig) -> Tuple[str, ...]:
     """The parts of one layer, as the reference's ``_layer_params``."""
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         return ("ln", "mixer")
     return ("ln1", "attn", "ln2", "moe" if cfg.n_experts else "mlp")
 
 
-def _layer_tensors(gen, cfg: ModelConfig, device) -> dict:
-    """The tensors of each part of ``layer_parts(cfg)``, drawn in order."""
+def _part_tensors(gen, cfg: ModelConfig, parts, device) -> dict:
+    """The tensors of each of ``parts``, drawn in order."""
     build = {"attn": attn_params, "mixer": ssm_params, "mlp": mlp_params,
              "moe": moe_params}
     return {part: (build[part](gen, cfg, device=device) if part in build
                    else norm_params(cfg, device=device))
-            for part in layer_parts(cfg)}
+            for part in parts}
 
 
 def _params(tensors: dict) -> nn.ParameterDict:
@@ -105,7 +107,7 @@ def layer_apply(p, x, cfg: ModelConfig, rope_cs, positions, mode: str,
     returns (x, cache, aux).  ``cache`` is the layer's attention cache or
     Mamba2 state, updated in place where one is given; ``aux`` is its MoE
     balance loss, None without experts."""
-    if cfg.family == "ssm":
+    if "mixer" in p:
         h, state = mamba2_block(p["mixer"], apply_norm(p["ln"], x, cfg),
                                 cfg, mode, state=cache)
         if cache is not None:
@@ -129,36 +131,40 @@ def layer_apply(p, x, cfg: ModelConfig, rope_cs, positions, mode: str,
 
 
 class Layer(nn.Module):
-    """One layer: the parameter dictionaries of ``layer_parts(cfg)`` with
-    the reference's leaf names."""
+    """One layer: the parameter dictionaries of ``parts`` (default
+    ``layer_parts(cfg)``; the hybrid's shared block is a ``Layer`` of
+    :data:`SHARED_PARTS`) with the reference's leaf names."""
 
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device,
+                 parts: Optional[Tuple[str, ...]] = None):
         super().__init__()
-        self.part_names = layer_parts(cfg)
-        for part, tensors in _layer_tensors(gen, cfg, device).items():
+        self.part_names = parts or layer_parts(cfg)
+        for part, tensors in _part_tensors(gen, cfg, self.part_names,
+                                           device).items():
             setattr(self, part, _params(tensors))
 
     def parts(self) -> dict:
         return {part: getattr(self, part) for part in self.part_names}
 
-    def forward(self, x, cfg: ModelConfig, rope_cs, positions, mode: str,
-                cache=None, pos=None, window=None, ring=False):
-        return layer_apply(self.parts(), x, cfg, rope_cs, positions, mode,
-                           cache=cache, pos=pos, window=window, ring=ring)
-
 
 class Transformer(nn.Module):
-    """The trunk: ``embed`` (``tok``, ``unembed``), ``layers`` and
-    ``final_norm``.  ``forward(batch)`` is :func:`forward`."""
+    """The trunk: ``embed`` (``tok``, ``unembed``), ``layers``,
+    ``final_norm`` and, for a hybrid model, ``shared`` (a ``Layer`` of
+    :data:`SHARED_PARTS`).  ``forward(batch)`` is :func:`forward`."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
         super().__init__()
-        check_ported(cfg)
         cfg.validate()
+        if cfg.family == "hybrid" and (
+                not cfg.attn_every or cfg.n_layers % cfg.attn_every):
+            raise ValueError(f"{cfg.name}: hybrid requires n_layers % "
+                             "attn_every == 0")
         self.cfg = cfg
         self.embed = _params(embed_params(gen, cfg, device=device))
         self.layers = nn.ModuleList(Layer(cfg, gen, device)
                                     for _ in range(cfg.n_layers))
+        self.shared = (Layer(cfg, gen, device, SHARED_PARTS)
+                       if cfg.family == "hybrid" else None)
         self.final_norm = _params(norm_params(cfg, device=device))
 
     @property
@@ -188,29 +194,89 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 # ----------------------------------------------------------- trunk
 
 
-def _run_trunk(model: Transformer, x: torch.Tensor, cfg: ModelConfig, *,
-               mode: str, positions, cache=None, pos=None,
-               window: Optional[int] = None, ring: bool = False):
-    """Apply all layers; returns (x, cache).  ``cache`` is the stacked
-    cache (leading L axis) that prefill fills or decode reads and
-    updates; each layer updates its own views of it in place."""
+def _stack(caches: list) -> dict:
+    """Layer caches (nested dicts of tensors) stacked on a new leading
+    axis, leaf by leaf."""
+    return {n: (_stack([c[n] for c in caches]) if isinstance(t, dict)
+                else torch.stack([c[n] for c in caches]))
+            for n, t in caches[0].items()}
+
+
+def _index(cache: Optional[dict], i: int) -> Optional[dict]:
+    """The views of layer (or group) ``i`` in a stacked cache."""
+    if cache is None:
+        return None
+    return {n: (_index(t, i) if isinstance(t, dict) else t[i])
+            for n, t in cache.items()}
+
+
+def _run_layers(layers, shared, x: torch.Tensor, cfg: ModelConfig, *,
+                mode: str, positions, cache=None, pos=None,
+                window: Optional[int] = None, ring: bool = False,
+                remat: bool = False):
+    """Apply all layers (``layers``: each layer's parts; ``shared``: the
+    hybrid's shared block); returns (x, cache, aux).  ``cache`` is the
+    stacked cache (leading L axis; a hybrid's G and G x E) that a
+    prefill fills or a decode reads and updates, each layer through its
+    own views, in place; without one a prefill returns the stacked cache
+    of its layers.  ``aux`` is the MoE balance loss summed over the
+    layers in order.  With ``remat`` each layer (a hybrid's group) is
+    recomputed in the backward pass."""
     rope_cs = rope_cos_sin(cfg, positions)
-    layer_caches = []
-    for i, layer in enumerate(model.layers):
-        c = None if cache is None else {n: t[i] for n, t in cache.items()}
-        x, new, _ = layer(x, cfg, rope_cs, positions, mode, cache=c,
-                          pos=pos, window=window, ring=ring)
-        layer_caches.append(new)
+    kw = dict(pos=pos, window=window, ring=ring)
+    if cfg.family == "hybrid":
+        E = cfg.attn_every
+        groups = [layers[g:g + E] for g in range(0, len(layers), E)]
+
+        def run(x, g, c):
+            """Group ``g``: the shared block, then its Mamba2 layers."""
+            h, attn_c = attention_block(
+                shared["attn"], apply_norm(shared["ln1"], x, cfg), cfg,
+                rope_cs, positions, mode,
+                cache=None if c is None else c["attn"], **kw)
+            x = x + h
+            x = x + mlp(shared["mlp"], apply_norm(shared["ln2"], x, cfg),
+                        cfg)
+            states = []
+            for e, p in enumerate(groups[g]):
+                sc = None if c is None else {n: t[e] for n, t in
+                                             c["ssm"].items()}
+                x, st, _ = layer_apply(p, x, cfg, None, None, mode, cache=sc)
+                states.append(st)
+            new = ({"attn": attn_c, "ssm": _stack(states)}
+                   if mode == "prefill" and c is None else None)
+            return x, new, None
+    else:
+        groups = layers
+
+        def run(x, i, c):
+            return layer_apply(layers[i], x, cfg, rope_cs, positions, mode,
+                               cache=c, **kw)
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    outs = []
+    for i in range(len(groups)):
+        if remat:
+            x, new, aux_l = checkpoint(lambda x, i=i: run(x, i, None), x,
+                                       use_reentrant=False)
+        else:
+            x, new, aux_l = run(x, i, _index(cache, i))
+        if aux_l is not None:
+            aux = aux + aux_l
+        outs.append(new)
     if mode == "prefill" and cache is None:
-        cache = {n: torch.stack([c[n] for c in layer_caches])
-                 for n in layer_caches[0]}
-    return x, cache
+        cache = _stack(outs)
+    return x, cache, aux
 
 
 def _inputs_to_x(embed_p, device: torch.device, cfg: ModelConfig,
                  batch: Dict[str, torch.Tensor]):
-    tokens = batch["tokens"].to(device)
-    x = embed(embed_p, tokens, cfg)
+    """``batch["embeds"]`` (cast to the compute dtype) or the embedded
+    ``batch["tokens"]``, and the given ``positions`` or the default."""
+    if "embeds" in batch:
+        x = batch["embeds"].to(device=device, dtype=cfg.cdtype)
+    else:
+        x = embed(embed_p, batch["tokens"].to(device), cfg)
     B, S = x.shape[0], x.shape[1]
     positions = batch.get("positions")
     if positions is None:
@@ -223,8 +289,9 @@ def _inputs_to_x(embed_p, device: torch.device, cfg: ModelConfig,
 
 def param_tree(model: Transformer) -> dict:
     """The model's parameters as the reference's tree of tensors on the
-    model's device: ``embed``, ``final_norm``, and ``layers`` with every
-    leaf stacked on a leading L axis (new tensors, no autograd)."""
+    model's device: ``embed``, ``final_norm``, ``layers`` with every leaf
+    stacked on a leading L axis, and a hybrid's ``shared`` (new tensors,
+    no autograd)."""
     with torch.no_grad():
         tree = {part: {n: p.detach().clone() for n, p in
                        getattr(model, part).items()}
@@ -234,50 +301,54 @@ def param_tree(model: Transformer) -> dict:
                                    for layer in model.layers])
                    for n in getattr(model.layers[0], part)}
             for part in model.layers[0].part_names}
+        if model.shared is not None:
+            tree["shared"] = {part: {n: p.detach().clone() for n, p in
+                                     getattr(model.shared, part).items()}
+                              for part in SHARED_PARTS}
     return tree
 
 
+def _tree_keys(cfg: ModelConfig) -> set:
+    keys = {"embed", "layers", "final_norm"}
+    return keys | {"shared"} if cfg.family == "hybrid" else keys
+
+
 def _parts(params, cfg: ModelConfig):
-    """``(embed, [layer parameters], final_norm)`` of a ``Transformer`` or
-    of a reference-layout tree (layer ``i`` is slice ``i`` of each
-    stacked leaf)."""
+    """``(embed, [layer parameters], shared, final_norm)`` of a
+    ``Transformer`` or of a reference-layout tree (layer ``i`` is slice
+    ``i`` of each stacked leaf); ``shared`` is None but for a hybrid
+    model."""
     if isinstance(params, Transformer):
+        shared = None if params.shared is None else params.shared.parts()
         return (params.embed, [layer.parts() for layer in params.layers],
-                params.final_norm)
+                shared, params.final_norm)
     parts = layer_parts(cfg)
-    if set(params) != {"embed", "layers", "final_norm"} \
-            or set(params["layers"]) != set(parts):
+    if set(params) != _tree_keys(cfg) \
+            or set(params["layers"]) != set(parts) \
+            or set(params.get("shared", SHARED_PARTS)) != set(SHARED_PARTS):
         raise ValueError(
-            f"a parameter tree of {cfg.name} has embed, final_norm and "
-            f"layers ({', '.join(parts)}); got {sorted(params)} with layers "
+            f"a parameter tree of {cfg.name} has "
+            f"{', '.join(sorted(_tree_keys(cfg)))} with layers "
+            f"({', '.join(parts)}); got {sorted(params)} with layers "
             f"{sorted(params.get('layers', ()))}")
     stacked = params["layers"]
     n_layers = stacked[parts[0]]["scale"].shape[0]
     layers = [{part: {n: t[i] for n, t in stacked[part].items()}
                for part in parts} for i in range(n_layers)]
-    return params["embed"], layers, params["final_norm"]
+    return params["embed"], layers, params.get("shared"), \
+        params["final_norm"]
 
 
 def _hidden(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             window: Optional[int]):
     """The trunk in training mode up to the final norm: ``(x, embed,
     aux)``, aux the MoE balance loss summed over the layers in order."""
-    check_ported(cfg)
-    embed_p, layers, final = _parts(params, cfg)
+    embed_p, layers, shared, final = _parts(params, cfg)
     x, positions = _inputs_to_x(embed_p, final["scale"].device, cfg, batch)
     window = window if window is not None else cfg.sliding_window
-    rope_cs = rope_cos_sin(cfg, positions)
-    remat = cfg.remat and torch.is_grad_enabled()
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in layers:
-        def run(x, p=p):
-            x, _, aux_l = layer_apply(p, x, cfg, rope_cs, positions,
-                                      "train", window=window)
-            return x, aux_l
-        x, aux_l = (checkpoint(run, x, use_reentrant=False) if remat
-                    else run(x))
-        if aux_l is not None:
-            aux = aux + aux_l
+    x, _, aux = _run_layers(layers, shared, x, cfg, mode="train",
+                            positions=positions, window=window,
+                            remat=cfg.remat and torch.is_grad_enabled())
     return apply_norm(final, x, cfg), embed_p, aux
 
 
@@ -337,33 +408,46 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                ring: bool = False, device=None) -> dict:
-    """Stacked decode cache for all layers: ``k``/``v`` of shape
-    (L, B, max_len, KV, hd) in the compute dtype (``positions`` (L,
-    max_len), all -1, for a ring); for an ssm model the zero Mamba2
-    state of every layer (``max_len`` and ``ring`` do not enter it)."""
-    check_ported(cfg)
+    """Stacked decode cache for all layers: ``k``/``v`` of shape (L, B,
+    max_len, KV, hd) in the compute dtype, or for MLA ``ckv`` (L, B,
+    max_len, rank) and ``krope`` (L, B, max_len, rope dim)
+    (``positions`` (L, max_len), all -1, for a ring); for an ssm model
+    the zero Mamba2 state of every layer (``max_len`` and ``ring`` do not
+    enter it); for a hybrid model ``{"attn": ..., "ssm": ...}`` with the
+    attention cache stacked over the G groups and the state over (G,
+    attn_every)."""
     dev = resolve_device(device)
+
+    def stacked(c, lead):
+        return {n: t[(None,) * len(lead)].repeat(lead + (1,) * t.ndim)
+                for n, t in c.items()}
+
+    if cfg.family == "hybrid":
+        G = cfg.n_layers // cfg.attn_every
+        return {"attn": stacked(init_cache(cfg, batch, max_len, ring,
+                                           device=dev), (G,)),
+                "ssm": stacked(init_ssm_state(cfg, batch, device=dev),
+                               (G, cfg.attn_every))}
     c = (init_ssm_state(cfg, batch, device=dev) if cfg.family == "ssm"
          else init_cache(cfg, batch, max_len, ring, device=dev))
-    return {n: t[None].repeat((cfg.n_layers,) + (1,) * t.ndim)
-            for n, t in c.items()}
+    return stacked(c, (cfg.n_layers,))
 
 
 @torch.inference_mode()
 def prefill(params: Transformer, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], window: Optional[int] = None,
             ring: bool = False, max_len: Optional[int] = None):
-    """Full-sequence forward that also returns the cache and the last
-    position's logits (B, 1, V).
+    """Full-sequence forward over ``tokens`` or ``embeds`` (with optional
+    ``positions``) that also returns the cache and the last position's
+    logits (B, 1, V).
 
     The cache is the reference's (length S; a ring keeps the last
     ``window`` entries) or, with ``max_len``, a plain ``max_len`` cache
     holding the prompt in slots [0, S) -- what the reference gets by
     grafting its prefill cache into ``make_cache(..., max_len)``, without
-    the intermediate copy.  An ssm model's cache is its Mamba2 state after
-    the prompt, with or without ``max_len`` (the reference's graft keeps
-    such a state whole)."""
-    check_ported(cfg)
+    the intermediate copy.  A Mamba2 state (an ssm model's, a hybrid's
+    ``ssm``) is the state after the prompt, with or without ``max_len``
+    (the reference's graft keeps such a state whole)."""
     x, positions = _inputs_to_x(params.embed, params.device, cfg, batch)
     window = window if window is not None else cfg.sliding_window
     cache = None
@@ -372,29 +456,34 @@ def prefill(params: Transformer, cfg: ModelConfig,
             raise ValueError("max_len is for plain caches; a ring prefill "
                              "returns its own window-long cache")
         cache = make_cache(cfg, x.shape[0], max_len, device=x.device)
-    x, cache = _run_trunk(params, x, cfg, mode="prefill",
-                          positions=positions, cache=cache, window=window,
-                          ring=ring)
-    x = apply_norm(params.final_norm, x[:, -1:], cfg)
-    return unembed(params.embed, x, cfg), cache
+    embed_p, layers, shared, final = _parts(params, cfg)
+    x, cache, _ = _run_layers(layers, shared, x, cfg, mode="prefill",
+                              positions=positions, cache=cache,
+                              window=window, ring=ring)
+    x = apply_norm(final, x[:, -1:], cfg)
+    return unembed(embed_p, x, cfg), cache
 
 
 @torch.inference_mode()
 def decode_step(params: Transformer, cfg: ModelConfig, cache: dict,
                 token: torch.Tensor, pos: int, window: Optional[int] = None,
                 ring: bool = False):
-    """One decode step: token (B, 1) int against ``cache`` at position
-    ``pos`` (a host int, or a 0-d tensor read once).  Returns (logits
-    (B, 1, V), cache); the cache is updated in place."""
+    """One decode step: token (B, 1) int, or a (B, 1, D) embedding, against
+    ``cache`` at position ``pos`` (a host int, or a 0-d tensor read once).
+    Returns (logits (B, 1, V), cache); the cache is updated in place."""
     if not cfg.has_decode:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
-    check_ported(cfg)
     pos = int(pos)
-    x = embed(params.embed, token.to(params.device), cfg)
-    B = token.shape[0]
-    positions = make_positions(cfg, B, 1, offset=pos, device=x.device)
+    if token.ndim == 3:
+        x = token.to(device=params.device, dtype=cfg.cdtype)
+    else:
+        x = embed(params.embed, token.to(params.device), cfg)
+    positions = make_positions(cfg, x.shape[0], 1, offset=pos,
+                               device=x.device)
     window = window if window is not None else cfg.sliding_window
-    x, cache = _run_trunk(params, x, cfg, mode="decode", positions=positions,
-                          cache=cache, pos=pos, window=window, ring=ring)
-    x = apply_norm(params.final_norm, x, cfg)
-    return unembed(params.embed, x, cfg), cache
+    embed_p, layers, shared, final = _parts(params, cfg)
+    x, cache, _ = _run_layers(layers, shared, x, cfg, mode="decode",
+                              positions=positions, cache=cache, pos=pos,
+                              window=window, ring=ring)
+    x = apply_norm(final, x, cfg)
+    return unembed(embed_p, x, cfg), cache

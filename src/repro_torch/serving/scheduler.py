@@ -11,7 +11,10 @@ throughput does not stall on the longest request.
 Each slot has its own batch-1 cache of length ``max_len``; the prefill
 writes the prompt straight into a fresh one (an ssm model's slot holds
 its Mamba2 state after the prompt, whole, as the reference's graft keeps
-it).  A slot's decode step reads
+it; a hybrid slot that state beside the shared block's cache of each
+group; an MLA slot the latent ``ckv`` / ``krope``).  As the reference's,
+the batcher serves text-in decoder models only: an encoder-only model or
+one that takes embeddings is refused.  A slot's decode step reads
 its cache up to its own position only (``models.attention``), so a
 request's greedy tokens are those of a single-request ``generate``, the
 reference's correctness check.  Sampling (:func:`sample_next`, shared

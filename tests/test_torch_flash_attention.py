@@ -14,9 +14,11 @@ orders); bfloat16 within 2e-2 absolute (outputs of size ~1 rounded to
 bfloat16 on both sides).
 """
 import ast
+import ctypes
 import importlib.util
 import pathlib
 import re
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +35,16 @@ from repro_torch.kernels.ops import flash_attention
 from repro_torch.models.attention import attend
 
 ENV = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's programs here are small: torch's intra-op threads would
+    only contend with the other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _inputs(rng, shapes, dtype):
@@ -354,6 +366,21 @@ def test_attention_work_counts_visible_pairs(causal, window, monkeypatch):
     assert nbytes == 2 * 6 * 64 * (2 * 22 + 2 * 30) + 4 * 52
 
 
+def test_attention_work_counts_v_head_dim(monkeypatch):
+    """MLA's prefill moves q/k at 192 and v and out at 128 and does
+    2 (192 + 128) flops a visible pair (17b's bound); equal dims give the
+    4 d of the test above."""
+    pos = np.arange(10, dtype=np.int32)
+    work = _chip_smoke(monkeypatch).attention_work
+    nbytes, flops = work(3, 192, pos, pos, causal=True, window=None,
+                         itemsize=2, dv=128)
+    assert flops == 2 * (192 + 128) * 3 * 55
+    assert nbytes == 2 * 3 * (192 + 128) * 20 + 4 * 20
+    assert work(3, 64, pos, pos, causal=True, window=None, itemsize=2,
+                dv=64) == work(3, 64, pos, pos, causal=True, window=None,
+                               itemsize=2)
+
+
 class _FakeLib:
     """Stands in for the built library: each C function is a callable
     that takes argtypes and restype as the wrapper binds them."""
@@ -394,14 +421,30 @@ def test_lib_refuses_a_tensor_core_build_with_local_memory(
 
 
 def test_kernel_source_matches_its_wrapper():
-    """The CUDA source builds for sm_90a, has an instance for every head
-    dim the wrapper accepts, returns cudaGetLastError() after the launch,
+    """The CUDA source builds for sm_90a, has an instance for every (q/k,
+    v) head-dim pair the wrapper accepts in each dtype (float32 all on
+    the SIMT kernel; bf16 on the SIMT kernel but for the tensor-core
+    kernel's equal dims), returns cudaGetLastError() after the launch,
     and the wrapper raises on a nonzero code and on unsupported inputs;
-    bf16 at d 128 takes the tensor-core kernel (wgmma fed by TMA)."""
+    bf16 at d 128 takes the tensor-core kernel (wgmma fed by TMA), bf16
+    at d 80 and at 192 over 128 the SIMT kernel."""
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     src = (build.CSRC_DIR / "flash_attention.cu").read_text()
-    dims = tuple(int(x) for x in re.findall(r"FA_CASE\((\d+)\)", src))
-    assert dims == fa.SUPPORTED_HEAD_DIMS
+    cases = re.findall(r"FA_CASE\((float|__nv_bfloat16), (\d+), (\d+)\)",
+                       src)
+    simt = {t: {(int(a), int(b)) for tt, a, b in cases if tt == t}
+            for t in ("float", "__nv_bfloat16")}
+    assert len(cases) == sum(map(len, simt.values()))   # no duplicate
+    assert simt["float"] == set(fa.SUPPORTED_HEAD_DIMS)
+    tc_pairs = {(d, d) for d in fa.TC_HEAD_DIMS}
+    assert simt["__nv_bfloat16"] | tc_pairs == set(fa.SUPPORTED_HEAD_DIMS)
+    assert not simt["__nv_bfloat16"] & tc_pairs
+    for d, dv in fa.SUPPORTED_HEAD_DIMS:
+        assert fa.card_route(torch.float32, d, dv) == "simt"
+        assert fa.card_route(torch.bfloat16, d, dv) == (
+            "tc" if (d, dv) in tc_pairs else "simt")
+    assert fa.card_route(torch.bfloat16, 80) == "simt"
+    assert fa.card_route(torch.bfloat16, 192, 128) == "simt"
     assert "return static_cast<int>(cudaGetLastError());" in src
     assert "repro/kernels/flash_attention.py" in src
     # the tensor-core route: wgmma fed by TMA, a bf16 instance for each of
@@ -424,3 +467,28 @@ def test_kernel_source_matches_its_wrapper():
     assert "int flash_attention_tc_local_bytes(int d)" in src
     assert "localSizeBytes" in src
     assert any("uses local memory" in r for r in raises)
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "int": ctypes.c_int, "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("symbol", ["flash_attention_bhsd_launch",
+                                    "flash_attention_bhsd_tc_launch",
+                                    "flash_attention_tc_local_bytes"])
+def test_ctypes_bindings_match_the_c_interface(symbol):
+    """``_bind`` declares exactly the parameter types of each C entry of
+    ``flash_attention.cu`` (the SIMT entry takes v's head dim ``dv`` after
+    ``d``): a wrong count or width would pass garbage to the card."""
+    src = (build.CSRC_DIR / "flash_attention.cu").read_text()
+    m = re.search(r"int\s+" + symbol + r"\(([^)]*)\)", src)
+    params = [re.sub(r"\s*\w+$", "", p.strip()) for p in
+              m.group(1).split(",")]
+    lib = types.SimpleNamespace(**{name: types.SimpleNamespace() for name in (
+        "flash_attention_bhsd_launch", "flash_attention_bhsd_tc_launch",
+        "flash_attention_error_string", "flash_attention_tc_local_bytes")})
+    fa._bind(lib)
+    assert getattr(lib, symbol).argtypes == [_C_TYPES[p] for p in params]
+    assert getattr(lib, symbol).restype == ctypes.c_int
+    if symbol == "flash_attention_bhsd_launch":
+        assert re.sub(r"\s+", " ", m.group(1)).count("int d, int dv,") == 1

@@ -11,7 +11,8 @@ so it runs on a machine that has only PyTorch.
 Envelopes:
 
 * B6 (flash attention), both routes (bf16 at d 64 and 128 on the
-  tensor-core kernel, float32 and bf16 at d 48 on the SIMT kernel):
+  tensor-core kernel, float32 and bf16 at d 48, at d 80 and at q/k 192
+  over v 128 on the SIMT kernel):
   float32 within 1e-5 of max|out|; bfloat16 within 2 bf16 ulps of the
   plain output plus that float32 envelope (the two sum in other orders,
   and a value that cancels near zero has ulps finer than the float32
@@ -139,6 +140,82 @@ def test_b6_refuses_what_it_has_no_kernel_for(cuda):
                                             device=cuda))
 
 
+NEW_PAIRS = [(80, 80), (192, 128)]   # zamba2 / hubert; MLA's prefill
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims", NEW_PAIRS)
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 9)])
+def test_b6_simt_pairs_match_plain(cuda, dtype, dims, causal, window):
+    """The SIMT instances at d 80 and at q/k 192 over v 128, both dtypes:
+    every launch on the SIMT route, the output (BH, Sq, dv), ring holes
+    (kpos -1) in every other shape; B6's envelopes."""
+    d, dv = dims
+    gen = torch.Generator().manual_seed(d + dv)
+    for i, (Sq, Sk) in enumerate([(1, 1), (17, 17), (64, 64), (300, 300),
+                                  (17, 300), (1, 2048), (300, 2048),
+                                  (2048, 2048)]):
+        q, k = (torch.randn(3, n, d, generator=gen).to(dtype).to(cuda)
+                for n in (Sq, Sk))
+        v = torch.randn(3, Sk, dv, generator=gen).to(dtype).to(cuda)
+        qp = (torch.arange(Sq, dtype=torch.int32) + (Sk - Sq)).to(cuda)
+        kp = torch.arange(Sk, dtype=torch.int32)
+        if i % 2:
+            kp = torch.where(torch.arange(Sk) % 3 == 0, -1, kp).to(
+                torch.int32)
+        kp = kp.to(cuda)
+        before = _counts()
+        got = fa.flash_attention_bhsd(q, k, v, qp, kp, causal=causal,
+                                      window=window, scale=d ** -0.5)
+        after = _counts()
+        assert (after[0] - before[0], after[1] - before[1]) == (0, 1)
+        assert fa.card_route(dtype, d, dv) == "simt"
+        want = fa.flash_attention_bhsd_ref(q, k, v, qp, kp, causal=causal,
+                                           window=window, scale=d ** -0.5)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and tuple(got.shape) == (3, Sq, dv)
+        check(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 2])
+def test_b6_fold_keeps_v_head_dim(cuda, dtype, G):
+    """``kernels.ops.flash_attention`` at q/k 192 over v 128 (MLA's
+    prefill, G 1) and with G 2 heads folded: one SIMT launch, the card
+    against the CPU's plain version."""
+    gen = torch.Generator().manual_seed(G)
+    B, KV, S = 2, 3, 130
+    q = torch.randn(B, S, KV * G, 192, generator=gen).to(dtype)
+    k = torch.randn(B, S, KV, 192, generator=gen).to(dtype)
+    v = torch.randn(B, S, KV, 128, generator=gen).to(dtype)
+    pos = torch.arange(S, dtype=torch.int32)
+    before = _counts()
+    got = flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), pos.to(cuda),
+                          pos.to(cuda), causal=True, scale=192 ** -0.5)
+    after = _counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (0, 1)
+    want = flash_attention(q, k, v, pos, pos, causal=True, scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (B, S, KV * G, 128)
+    check(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dims", [(128, 64), (80, 64), (96, 96),
+                                  (192, 192), (64, 128)])
+def test_b6_refuses_an_unsupported_pair(cuda, dims):
+    """A (q/k, v) head-dim pair without an instance raises on the card and
+    launches nothing; it is never sent to the plain version."""
+    d, dv = dims
+    q = torch.zeros(1, 4, d, device=cuda, dtype=torch.bfloat16)
+    v = torch.zeros(1, 4, dv, device=cuda, dtype=torch.bfloat16)
+    pos = torch.zeros(4, dtype=torch.int32, device=cuda)
+    before = fa.flash_attention_bhsd.launches
+    with pytest.raises(ValueError, match=f"no kernel for head dim {d} "):
+        fa.flash_attention_bhsd(q, q, v, pos, pos)
+    assert fa.flash_attention_bhsd.launches == before
+
+
 def test_b6_fully_masked_rows_are_zero(cuda):
     gen = torch.Generator().manual_seed(0)
     q, k, v = _case(gen, 2, 70, 70, 64, torch.float32, cuda)
@@ -157,7 +234,8 @@ def _counts():
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"),
     (torch.bfloat16, 48, "simt"), (torch.float32, 128, "simt"),
-    (torch.float32, 64, "simt")])
+    (torch.float32, 64, "simt"), (torch.bfloat16, 80, "simt"),
+    (torch.float32, 80, "simt")])
 def test_b6_route_by_dtype_and_head_dim(cuda, dtype, d, route):
     """bf16 at d 64 and 128 launches the tensor-core kernel; float32 (and
     bf16 at d 48) the SIMT kernel: one launch, counted on its route."""

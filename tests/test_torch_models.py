@@ -201,13 +201,21 @@ def test_encoder_has_no_decode_and_other_families_name_their_item():
     with pytest.raises(ValueError, match="encoder-only"):
         decode_step(None, enc, None, torch.zeros((1, 1), dtype=torch.int32),
                     0)
-    for arch in ("deepseek-v2-236b", "zamba2-2.7b", "qwen2-vl-72b"):
-        with pytest.raises(NotImplementedError, match="item 14c parts 4-5"):
-            init_params(get_config(arch).reduced(), device="cpu")
-    for arch, parts in (("mamba2-780m", ("ln", "mixer")),
-                        ("qwen2-moe-a2.7b", ("ln1", "attn", "ln2", "moe"))):
+    # every family builds: the MLA, hybrid and VLM models with their parts
+    # (a hybrid's layers are Mamba2 mixers, its attention the shared block)
+    for arch, parts, shared in (
+            ("deepseek-v2-236b", ("ln1", "attn", "ln2", "moe"), None),
+            ("zamba2-2.7b", ("ln", "mixer"), ("ln1", "attn", "ln2", "mlp")),
+            ("qwen2-vl-72b", ("ln1", "attn", "ln2", "mlp"), None),
+            ("mamba2-780m", ("ln", "mixer"), None),
+            ("qwen2-moe-a2.7b", ("ln1", "attn", "ln2", "moe"), None)):
         model = init_params(get_config(arch).reduced(), device="cpu")
         assert model.layers[0].part_names == parts
+        assert (model.shared and model.shared.part_names) == shared
+    mla = init_params(get_config("deepseek-v2-236b").reduced(),
+                      device="cpu").layers[0].attn
+    assert {"w_dkv", "kv_norm", "w_uk", "w_uv", "wo", "wq_a", "q_norm",
+            "wq_b"} == set(mla)
 
 
 def test_init_params_is_seeded_and_shaped_like_the_reference():

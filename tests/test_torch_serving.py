@@ -9,11 +9,14 @@ The three cases of ``tests/test_serving.py`` run on the port (its own
 logit envelope of ``tests/test_torch_models.py``, which they do here).
 Temperature sampling draws from a seeded ``torch.Generator`` (the
 reference draws from ``jax.random``, a deliberate deviation): tested for
-being seeded and reproducible only.  The Mamba2 and MoE families serve
-through the same two entry points: at ``mamba2-780m.reduced()`` and
-``qwen2-moe-a2.7b.reduced()`` their greedy tokens equal the
-reference's (an ssm slot keeps its prefill state whole, as the
-reference's graft does).
+being seeded and reproducible only.  The Mamba2, MoE, hybrid and MLA
+models serve through the same two entry points: at
+``mamba2-780m.reduced()``, ``qwen2-moe-a2.7b.reduced()``,
+``zamba2-2.7b.reduced()`` and ``deepseek-v2-236b.reduced()`` their
+greedy tokens equal the reference's (a Mamba2 state is kept whole, as
+the reference's graft keeps it; a hybrid slot holds the shared block's
+cache of every group beside it, an MLA slot the latent ``ckv`` /
+``krope``).
 """
 import dataclasses
 
@@ -198,9 +201,10 @@ def test_serve_cli_on_the_cpu(capsys):
     assert "generated (2, 11) on cpu" in out and "tok/s" in out
 
 
-# ------------------------------------------- the Mamba2 and MoE families
+# ------------------------ the Mamba2, MoE, hybrid and MLA model families
 
-NEW_FAMILIES = ("mamba2-780m", "qwen2-moe-a2.7b")
+NEW_FAMILIES = ("mamba2-780m", "qwen2-moe-a2.7b", "zamba2-2.7b",
+                "deepseek-v2-236b")
 
 
 @pytest.fixture(scope="module", params=NEW_FAMILIES)
@@ -249,3 +253,30 @@ def test_serve_cli_new_families_on_the_cpu(arch, capsys):
     serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch",
                 "2", "--prompt-len", "8", "--gen", "3"])
     assert "generated (2, 11) on cpu" in capsys.readouterr().out
+
+
+def test_vlm_generate_serves_text_equals_reference():
+    """A VLM keeps its token table: ``generate`` serves its text prompts
+    (M-RoPE positions all equal), token for token the reference's, while
+    the batcher refuses a model that takes embeddings, as the reference's
+    does."""
+    jcfg = j_get_config("qwen2-vl-72b").reduced()
+    jp = jax.jit(j_init_params, static_argnums=0)(jcfg,
+                                                  jax.random.PRNGKey(0))
+    tcfg = ModelConfig(**dataclasses.asdict(jcfg))
+    model = interop.model_params(jax.tree_util.tree_map(np.asarray, jp),
+                                 tcfg, device="cpu")
+    prompts = np.random.default_rng(10).integers(
+        0, jcfg.vocab, (2, 9)).astype(np.int32)
+    want, _ = j_generate(jcfg, jp, jnp.asarray(prompts), 5)
+    got, _ = generate(tcfg, model, prompts, 5)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="text-in decoder"):
+        ContinuousBatcher(tcfg, model)
+
+
+@pytest.mark.parametrize("arch,message", [
+    ("hubert-xlarge", "encoder-only"), ("qwen2-vl-72b", "text-only")])
+def test_serve_cli_refuses_what_the_reference_refuses(arch, message):
+    with pytest.raises(SystemExit, match=message):
+        serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
