@@ -18,6 +18,12 @@ PyTorch version on the card, and drives the port's main paths:
   ``engine='scan'``, fig_faults's chaos figure) and checkpointed resume
   (``api.run(spec, resume=dir)``, which reruns B1-B3 on the unfinished
   bucket only);
+* ``repro_torch.staticcheck`` (SC): the kernel-dispatch lint of
+  ``src/repro_torch`` and its six fixtures (F1-F3's counterparts among
+  them), the op-trace contracts of all four solvers at scan level and as
+  the batched and one-device sharded programs at mnist-96's problem
+  shapes (one B1, B2 or B3 launch an event or upload in every fused
+  trace), and cache-key completeness at the reference's tiny spec;
 * ``repro_torch.kernels.ops`` (``prox_step``, ``prox_step_tree``,
   ``rmsnorm_fused``, ``ssd_scan_pallas``) at ``benchmarks/kernel_bench.py``'s
   shapes and at full model width (one qwen2.5-32b layer's parameters, a
@@ -132,6 +138,9 @@ from repro_torch.sweep.cache import clear_program_cache  # noqa: E402
 from repro_torch.sweep.grid import make_grid  # noqa: E402
 from repro_torch.sweep.runners import fed_bucket_races  # noqa: E402
 from repro_torch.mesh import cell_mesh, grid_mesh  # noqa: E402
+from repro_torch.staticcheck import cachekey as sc_cachekey  # noqa: E402
+from repro_torch.staticcheck import contracts as sc_contracts  # noqa: E402
+from repro_torch.staticcheck import lint as sc_lint  # noqa: E402
 
 DEV = torch.device("cuda")
 CARD = torch.device("cuda", 0)  # the card of the sharded phases' meshes
@@ -306,11 +315,13 @@ def phase_build() -> None:
             f"{','.join(spill)} bytes")
     say("2 build", f"{len(libs)} libraries in {wall:.3f} s wall (parallel "
         "nvcc)")
-    # the wrapper's own guard: it refuses a B6 build whose tensor-core
-    # kernel uses local memory (spills)
+    # the wrapper's own guard: it refuses a B6 build whose tensor-core or
+    # SIMT instances use local memory (spills)
+    lib = fa._lib()
     say("2 build", "B6 tensor-core local memory, bytes per thread by head "
-        f"dim: {fa._tc_local_bytes(fa._lib())} (the wrapper refuses a build "
-        "where any is not 0)")
+        f"dim: {fa._tc_local_bytes(lib)}; SIMT by (dtype, d, dv): "
+        f"{fa._simt_local_bytes(lib)} (the wrapper refuses a build where "
+        "any is not 0)")
     b7 = ss.local_bytes(build.load("ssd_scan").ptxas)
     if len(b7) != 7 or any(b7.values()):
         raise AssertionError(f"B7 instances with local memory: {b7}")
@@ -1510,6 +1521,83 @@ def _fixed_h(spec):
                                                    horizon=256))
 
 
+# SC: mnist-96's problem shapes (60 000 x 784 over 10 workers, BCD's m 20,
+# its record_every 10) with the events cut to 200: the per-event trace
+# repeats, so the cut changes nothing but the trace's length
+SC_PROBLEM = sc_contracts.Problem(n_samples=60000, dim=784, n_workers=10,
+                                  n_events=200, m=20, horizon=128,
+                                  record_every=10)
+
+
+def phase_sc_staticcheck(device=DEV, pb=SC_PROBLEM) -> dict:
+    """SC: ``repro_torch.staticcheck`` on ``device``.  The lint of the
+    port's tree (zero findings) and of each fixture (its own rule only);
+    the op-trace contracts of the four solvers at scan level and as the
+    batched and one-device sharded programs, each fused trace holding one
+    B1, B2 or B3 launch an event (upload) on the card; cache-key
+    completeness and the retrace budget at the reference's tiny spec.
+    Any failure raises.  Returns the fused traces' launches by check."""
+    t_phase = time.perf_counter()
+    src = os.path.dirname(os.path.dirname(os.path.abspath(
+        sc_lint.__file__)))
+    findings = sc_lint.lint_paths([src])
+    if findings:
+        raise AssertionError("SC: the port's tree does not lint clean:\n"
+                             + "\n".join(map(str, findings)))
+    fixtures = os.path.join(os.path.dirname(sc_lint.__file__), "fixtures")
+    per_fixture = {}
+    for fname in sorted(os.listdir(fixtures)):
+        if not fname.endswith(".py"):
+            continue
+        rules = {}
+        for f in sc_lint.lint_file(os.path.join(fixtures, fname)):
+            rules[f.rule] = rules.get(f.rule, 0) + 1
+        if len(rules) != 1:
+            raise AssertionError(f"SC: fixture {fname} gives {rules}; each "
+                                 "must trigger its own rule only")
+        per_fixture[fname[:-3]] = rules
+    n_files = sum(1 for _ in sc_lint.iter_py([src]))
+    say("SC lint", f"{n_files} files of src/repro_torch, 0 findings; "
+        "fixtures (rule: findings): " + ", ".join(
+            f"{k} {v}" for k, v in per_fixture.items())
+        + f" ({time.perf_counter() - t_phase:.2f} s)")
+
+    t0 = time.perf_counter()
+    checks = sc_contracts.verify(device=str(device), pb=pb)
+    failed = [c for c in checks if not c.ok]
+    if failed:
+        raise AssertionError("SC contracts failed:\n" + "\n".join(
+            f"{c.name}: {c.detail[:1500]}" for c in failed))
+    launches = {c.name.rsplit("/", 1)[0]: c.launches for c in checks
+                if c.name.endswith("/fused-launches")}
+    say("SC contracts", f"{len(checks)}/{len(checks)} ok at scan level and "
+        f"as the batched and one-device sharded programs, logreg "
+        f"{pb.n_samples} x {pb.dim} over {pb.n_workers} workers, "
+        f"{pb.n_events} events, m {pb.m}, record_every {pb.record_every}; "
+        "launches of each fused trace: "
+        + "; ".join(f"{k} {v}" for k, v in launches.items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    outcomes = sc_cachekey.check_completeness(str(device))
+    counts = {}
+    for o in outcomes:
+        counts[o.status] = counts.get(o.status, 0) + 1
+    violations = [o for o in outcomes if o.violation]
+    distinct, errors = sc_cachekey.check_retrace_budget(str(device))
+    if violations or errors or sc_cachekey.unregistered_fields():
+        raise AssertionError(f"SC cache keys: violations {violations}, "
+                             f"budget {errors}")
+    skipped = counts.get("skip", 0)
+    say("SC cache keys", f"{len(outcomes) - skipped} knobs perturbed, "
+        f"{skipped} skipped, 0 unregistered, 0 violations ("
+        + ", ".join(f"{v} {k}" for k, v in sorted(counts.items()))
+        + f"); retrace budget {distinct} of {sc_cachekey.RETRACE_BUDGET} "
+        f"programs ({time.perf_counter() - t0:.1f} s); phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # ------------------------------------------------- the sharded backend ----
 
 def _sharded_rows(tag: str, batched, sharded, bitwise: bool) -> float:
@@ -2573,12 +2661,13 @@ def phase_logits_finite(tag: str, cfg, model) -> None:
 
 
 def phase_batcher(tag: str, cfg, model) -> None:
-    """8 requests (prompts 32-1024, max_new 8-32) through 4 slots of 2048;
-    each greedy output equals a single-request generate of it."""
+    """8 requests (prompts 32-1024, max_new 4-16: cut from 8-32 to keep
+    the smoke in its time) through 4 slots of 2048; each greedy output
+    equals a single-request generate of it."""
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(
         rng.integers(32, 1025))).astype(np.int32),
-        max_new=int(rng.integers(8, 33))) for i in range(8)]
+        max_new=int(rng.integers(4, 17))) for i in range(8)]
     cb = ContinuousBatcher(cfg, model, max_slots=4, max_len=2048)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2608,12 +2697,14 @@ def phase_batcher(tag: str, cfg, model) -> None:
 
 
 def phase_serve_profile(tag: str, cfg, model) -> None:
-    """(a)'s shape once under the profiler; (a) itself was the warm call."""
+    """(a)'s prompt once under the profiler, with 16 decode steps (cut from
+    (a)'s 32 to keep the smoke in its time; the steps repeat); (a) itself
+    was the warm call."""
     phase_profile(tag, lambda: generate(cfg, model, torch.randint(
         0, cfg.vocab, (4, 64), device=DEV,
-        generator=torch.Generator(device=DEV).manual_seed(3)), 32),
-        f"generate {cfg.name} batch 4, prompt 64, gen 32 (one prefill and "
-        "32 decode steps)", warm=False)
+        generator=torch.Generator(device=DEV).manual_seed(3)), 16),
+        f"generate {cfg.name} batch 4, prompt 64, gen 16 (one prefill and "
+        "16 decode steps)", warm=False)
 
 
 def phases_serve_family(prefix: str, arch: str, name: str,
@@ -3436,6 +3527,8 @@ def main() -> None:
     phase_f3_fig_faults()
     phase_f4_other_solvers()
     resumed = phase_r1_resume()
+    # the static-analysis gate: lint, op-trace contracts, cache keys
+    phase_sc_staticcheck()
     # the sharded backend (B1-B3 launched by every row on its card)
     sharded = phases_sharded()
     # training (the trainers take the chunked attention, no kernel) and the

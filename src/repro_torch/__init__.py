@@ -17,7 +17,8 @@ import importlib
 
 __all__ = ["api", "analysis", "core", "federated", "sweep", "models",
            "kernels", "serving", "configs", "launch", "interop",
-           "telemetry", "faults", "checkpoint", "optim", "data", "mesh"]
+           "telemetry", "faults", "checkpoint", "optim", "data", "mesh",
+           "staticcheck"]
 
 
 def __getattr__(name):

@@ -80,7 +80,9 @@
 //   (48, 48) in bf16, and (80, 80) and (192, 128) in both (zamba2's and
 //   hubert's head dim; DeepSeek-V2's MLA prefill, nope 128 + rope 64 over
 //   v 128).  The float32 (192, 128) tiles take ~146 KB of shared memory,
-//   above the 48 KB default, by the same opt-in as d 128.
+//   above the 48 KB default, by the same opt-in as d 128.  No instance
+//   uses local memory (flash_attention_simt_local_bytes; the wrapper
+//   refuses a build where one does, as for the tensor-core route).
 #include <cuda.h>  // CUtensorMap and its enums (no -lcuda: see tc::encode_tiled)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -130,8 +132,13 @@ __device__ __forceinline__ bool visible(int kp, int qp, int causal,
          (!has_window || kp > qp - window);
 }
 
+// The minimum of one block a multiprocessor lifts ptxas's own register
+// target: without it ptxas held the float32 (64, 64) instance at 64
+// registers and spilled 24 bytes a thread; with it no instance uses local
+// memory (tools/b6_variants.py simt), and the wrapper refuses a build
+// where one does.
 template <typename T, int DQK, int DV>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const int* __restrict__ qpos,
                        const int* __restrict__ kpos, T* __restrict__ out,
@@ -1056,6 +1063,31 @@ int flash_attention_tc_local_bytes(int d) {
     err = cudaFuncGetAttributes(&attr, tc::fa_tc_kernel<128>);
   else
     return -1;
+  return err == cudaSuccess ? static_cast<int>(attr.localSizeBytes) : -1;
+}
+
+// Local memory per thread (spill space and stack frame) of the SIMT
+// instance for (dtype, dqk, dv), dtype 0 float32 and 1 bfloat16, as the
+// runtime reports it for the loaded module; -1 for a pair without an
+// instance (the FA_CASE list of launch_d) or a failed query.
+int flash_attention_simt_local_bytes(int dtype, int dqk, int dv) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaErrorInvalidValue;
+#define FA_LOCAL(T, DQK, DV)                                           \
+  if (dqk == DQK && dv == DV)                                          \
+    err = cudaFuncGetAttributes(&attr, flash_attention_kernel<T, DQK, DV>);
+  if (dtype == 1) {
+    FA_LOCAL(__nv_bfloat16, 48, 48)
+    FA_LOCAL(__nv_bfloat16, 80, 80)
+    FA_LOCAL(__nv_bfloat16, 192, 128)
+  } else if (dtype == 0) {
+    FA_LOCAL(float, 48, 48)
+    FA_LOCAL(float, 64, 64)
+    FA_LOCAL(float, 128, 128)
+    FA_LOCAL(float, 80, 80)
+    FA_LOCAL(float, 192, 128)
+  }
+#undef FA_LOCAL
   return err == cudaSuccess ? static_cast<int>(attr.localSizeBytes) : -1;
 }
 

@@ -88,6 +88,23 @@ def _tc_local_bytes(lib) -> dict:
     return {d: lib.flash_attention_tc_local_bytes(d) for d in TC_HEAD_DIMS}
 
 
+def simt_instances():
+    """``(dtype, d, dv)`` of every SIMT instance of the kernel: float32 at
+    each supported pair, bfloat16 at those the tensor-core kernel does
+    not take."""
+    return tuple((dt, d, dv) for dt in _DTYPE_CODES
+                 for d, dv in SUPPORTED_HEAD_DIMS
+                 if card_route(dt, d, dv) == "simt")
+
+
+def _simt_local_bytes(lib) -> dict:
+    """Local memory per thread (spills and stack) of each SIMT instance,
+    by ``(dtype name, d, dv)``, as the runtime reports it; -1 where it
+    could not say."""
+    return {(str(dt)[6:], d, dv): lib.flash_attention_simt_local_bytes(
+        _DTYPE_CODES[dt], d, dv) for dt, d, dv in simt_instances()}
+
+
 def _bind(lib):
     """Set the C signatures of a loaded ``flash_attention`` library."""
     fn = lib.flash_attention_bhsd_launch
@@ -106,25 +123,29 @@ def _bind(lib):
     local = lib.flash_attention_tc_local_bytes
     local.argtypes = [ctypes.c_int]
     local.restype = ctypes.c_int
+    simt = lib.flash_attention_simt_local_bytes
+    simt.argtypes = [ctypes.c_int] * 3
+    simt.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
 def _lib():
-    """The built library with its C signatures bound.  Raises when a
-    tensor-core instance uses local memory: spilling builds of an earlier
-    form of its design gave wrong outputs on the card, for a cause not
-    found, so such a build never launches (the check reruns on every call
-    until a build passes)."""
+    """The built library with its C signatures bound.  Raises when any
+    instance, tensor-core or SIMT, uses local memory: spilling builds of
+    an earlier form of the tensor-core design gave wrong outputs on the
+    card, for a cause not found, and spilling instances ran slower, so
+    such a build never launches (the check reruns on every call until a
+    build passes)."""
     from .build import load
     lib = _bind(load("flash_attention").lib)
-    used = _tc_local_bytes(lib)
+    used = {**_tc_local_bytes(lib), **_simt_local_bytes(lib)}
     if any(used.values()):
         raise RuntimeError(
-            "flash_attention_bhsd: the tensor-core kernel of this build uses "
-            f"local memory (bytes per thread by head dim: {used}, -1 = "
-            "unknown); spilling builds of this design gave wrong outputs on "
-            "the card, so it is refused")
+            "flash_attention_bhsd: this build uses local memory (bytes per "
+            f"thread by tensor-core head dim and by SIMT (dtype, d, dv): "
+            f"{used}, -1 = unknown); spilling builds of this kernel gave "
+            "wrong outputs on the card, so it is refused")
     return lib
 
 

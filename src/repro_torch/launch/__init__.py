@@ -5,4 +5,5 @@ the model presets), ``train_bcd`` (Async-BCD over parameter blocks),
 transformer preset), ``steps`` (the trainer's step), ``sweep`` (the
 spec-driven sweep CLI, every backend) and ``report`` (the run ledger's
 terminal report).  The mesh / sharding planner and ``run_distributed``
-come with ROADMAP item 12b; the XLA tooling with item 15."""
+come with ROADMAP item 12b; the dry-run, cost and roofline tooling with
+item 15 (its static-analysis half is ``repro_torch.staticcheck``)."""

@@ -44,7 +44,7 @@ from ..telemetry.timing import record_timing
 
 __all__ = ["IdKey", "LRU", "tree_key", "cached_program",
            "clear_program_cache", "mesh_fingerprint", "program_cache_stats",
-           "PROGRAM_CACHE_MAXSIZE"]
+           "set_capture_hook", "PROGRAM_CACHE_MAXSIZE"]
 
 PROGRAM_CACHE_MAXSIZE = 128
 
@@ -116,6 +116,22 @@ _GENERATION = 0
 
 # REPRO_CACHE_CHECK fingerprints, keyed like _PROGRAMS (pruned on eviction)
 _FINGERPRINTS: dict = {}
+
+# staticcheck's dispatch interceptor; None in normal operation
+_CAPTURE_HOOK: Optional[Callable[[Tuple, Callable[[], Any]], Any]] = None
+
+
+def set_capture_hook(hook):
+    """Install ``hook(key, build)`` to intercept every ``cached_program``
+    dispatch (pass ``None`` to uninstall); returns the previous hook.
+    While installed, the cache is bypassed entirely: the hook's return
+    value is handed back to the runner in place of the cached program.
+    This is the seam ``repro_torch.staticcheck.cachekey`` uses to observe
+    cache keys and record op traces."""
+    global _CAPTURE_HOOK
+    prev = _CAPTURE_HOOK
+    _CAPTURE_HOOK = hook
+    return prev
 
 
 def _cache_check_enabled() -> bool:
@@ -227,7 +243,10 @@ def cached_program(key: Tuple, build: Callable[[], Any]):
     ``key`` is a tuple of hashables; wrap captured objects in ``IdKey`` /
     ``tree_key``.  Under ``REPRO_CACHE_CHECK=1`` the key's captured
     arrays are fingerprinted on the first call and checked on every
-    later one."""
+    later one.  A hook installed by ``set_capture_hook`` takes the
+    dispatch instead."""
+    if _CAPTURE_HOOK is not None:
+        return _CAPTURE_HOOK(key, build)
     if _cache_check_enabled():
         _verify_fingerprints(key)
 

@@ -385,25 +385,30 @@ class _FakeLib:
     """Stands in for the built library: each C function is a callable
     that takes argtypes and restype as the wrapper binds them."""
 
-    def __init__(self, local_bytes):
+    def __init__(self, local_bytes, simt_bytes=None):
         def fn(result):
             return type("CFunc", (), {"__call__": lambda self, *a: result(
                 *a)})()
+        simt = simt_bytes or {}
         self.flash_attention_bhsd_launch = fn(lambda *a: 0)
         self.flash_attention_bhsd_tc_launch = fn(lambda *a: 0)
         self.flash_attention_error_string = fn(lambda code: b"")
         self.flash_attention_tc_local_bytes = fn(local_bytes.__getitem__)
+        self.flash_attention_simt_local_bytes = fn(
+            lambda dtype, d, dv: simt.get((dtype, d, dv), 0))
 
 
-@pytest.mark.parametrize("local_bytes,refused", [
-    ({64: 0, 128: 0}, False), ({64: 0, 128: 64}, True),
-    ({64: -1, 128: 0}, True)])
+@pytest.mark.parametrize("local_bytes,simt_bytes,refused", [
+    ({64: 0, 128: 0}, None, False), ({64: 0, 128: 64}, None, True),
+    ({64: -1, 128: 0}, None, True), ({64: 0, 128: 0}, {(0, 64, 64): 24}, True),
+    ({64: 0, 128: 0}, {(1, 192, 128): -1}, True)])
 def test_lib_refuses_a_tensor_core_build_with_local_memory(
-        local_bytes, refused, monkeypatch):
+        local_bytes, simt_bytes, refused, monkeypatch):
     """The wrapper's guard on the serving path: a build whose tensor-core
-    kernel uses local memory (spills), or whose use the runtime cannot
-    report, never launches; the check reruns until a build passes."""
-    fake = _FakeLib(local_bytes)
+    or SIMT instances use local memory (spills), or whose use the runtime
+    cannot report, never launches; the check reruns until a build
+    passes."""
+    fake = _FakeLib(local_bytes, simt_bytes)
     monkeypatch.setattr(build, "load", lambda name: type(
         "Built", (), {"lib": fake})())
     fa._lib.cache_clear()
@@ -416,6 +421,8 @@ def test_lib_refuses_a_tensor_core_build_with_local_memory(
         else:
             assert fa._lib() is fake
             assert fa._tc_local_bytes(fake) == local_bytes
+            assert fa._simt_local_bytes(fake) == {
+                (str(dt)[6:], d, dv): 0 for dt, d, dv in fa.simt_instances()}
     finally:
         fa._lib.cache_clear()
 
@@ -467,6 +474,13 @@ def test_kernel_source_matches_its_wrapper():
     assert "int flash_attention_tc_local_bytes(int d)" in src
     assert "localSizeBytes" in src
     assert any("uses local memory" in r for r in raises)
+    # the SIMT guard asks the runtime for exactly the instances built
+    local = re.findall(r"FA_LOCAL\((float|__nv_bfloat16), (\d+), (\d+)\)",
+                       src)
+    assert sorted(local) == sorted(cases)
+    assert {(str(dt)[6:], d, dv) for dt, d, dv in fa.simt_instances()} == {
+        ("float32" if t == "float" else "bfloat16", int(a), int(b))
+        for t, a, b in cases}
 
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
@@ -475,7 +489,8 @@ _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
 
 @pytest.mark.parametrize("symbol", ["flash_attention_bhsd_launch",
                                     "flash_attention_bhsd_tc_launch",
-                                    "flash_attention_tc_local_bytes"])
+                                    "flash_attention_tc_local_bytes",
+                                    "flash_attention_simt_local_bytes"])
 def test_ctypes_bindings_match_the_c_interface(symbol):
     """``_bind`` declares exactly the parameter types of each C entry of
     ``flash_attention.cu`` (the SIMT entry takes v's head dim ``dv`` after
@@ -486,7 +501,8 @@ def test_ctypes_bindings_match_the_c_interface(symbol):
               m.group(1).split(",")]
     lib = types.SimpleNamespace(**{name: types.SimpleNamespace() for name in (
         "flash_attention_bhsd_launch", "flash_attention_bhsd_tc_launch",
-        "flash_attention_error_string", "flash_attention_tc_local_bytes")})
+        "flash_attention_error_string", "flash_attention_tc_local_bytes",
+        "flash_attention_simt_local_bytes")})
     fa._bind(lib)
     assert getattr(lib, symbol).argtypes == [_C_TYPES[p] for p in params]
     assert getattr(lib, symbol).restype == ctypes.c_int

@@ -317,6 +317,18 @@ def test_b6_tensor_core_kernels_do_not_spill(cuda):
     assert fa._tc_local_bytes(fa._lib()) == {64: 0, 128: 0}
 
 
+def test_b6_simt_kernels_do_not_spill(cuda):
+    """Every SIMT instance uses no local memory either, as the runtime
+    reports it (``flash_attention_simt_local_bytes``): the guard that
+    ``_lib`` applies to every instance passes.  Without the kernel's
+    minimum of one block a multiprocessor, ptxas held the float32 (64,
+    64) instance at 64 registers and it spilled."""
+    used = fa._simt_local_bytes(fa._lib())
+    assert set(used) == {(str(dt)[6:], d, dv)
+                         for dt, d, dv in fa.simt_instances()}
+    assert len(used) == 8 and not any(used.values()), used
+
+
 def test_model_prefill_on_the_card_matches_the_cpu(cuda):
     """qwen2.5-32b.reduced() in float32 with the same parameters on both
     devices: logits within 1e-4, one B6 launch per layer per prefill, and
@@ -955,3 +967,24 @@ def test_telemetry_is_neutral_on_the_card(cuda, solver):
     assert bool((tel.tau_max >= off.raw.taus.max(dim=1).values).all())
     assert on.telemetry.hist_source == "accumulator"
     assert sum(on.telemetry.delay_hist) == on.n_cells * 200
+
+
+def test_piag_fused_off_is_absent_on_the_card(cuda):
+    """The op-trace contracts of ``repro_torch.staticcheck`` for PIAG under
+    ``engine="fused"`` on the card: faults off (None, disabled, left out)
+    and telemetry off give one op trace, and that trace holds exactly one
+    B1 launch an event -- at scan level and in the batched program."""
+    from repro_torch.staticcheck import contracts
+    pb = contracts.Problem(n_samples=40, dim=8, n_workers=4, n_events=12)
+    checks = (contracts.verify_scan_level(("piag",), "cuda", pb)
+              + contracts.verify_program_level(("piag",), ("batched",),
+                                               "cuda", pb))
+    failed = [c for c in checks if not c.ok]
+    assert not failed, "\n".join(f"{c.name}: {c.detail[:2000]}"
+                                 for c in failed)
+    launches = [c.launches for c in checks if c.name.endswith("launches")]
+    assert launches == [{"fused_policy_prox_step": 12}] * 2
+    names = {c.name for c in checks}
+    assert {"scan/piag/explicit-none-is-omitted",
+            "scan/piag/disabled-faults-are-none",
+            "batched/piag/disabled-faults-are-none"} <= names

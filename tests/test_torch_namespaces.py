@@ -3,8 +3,8 @@ registry.
 
 Every name in the ``__all__`` of the reference's ``core``, ``sweep``,
 ``federated``, ``api``, ``models``, ``serving``, ``configs``,
-``kernels``, ``telemetry``, ``faults``, ``checkpoint``, ``optim`` and
-``data`` either resolves in the port's package of the same name or is
+``kernels``, ``telemetry``, ``faults``, ``checkpoint``, ``optim``,
+``data`` and ``staticcheck`` (and of ``sweep.cache``) either resolves in the port's package of the same name or is
 listed in ``UNPORTED`` under the numbered ROADMAP queue A item that will
 bring it, or with the reason it has no counterpart.
 A name that resolves must not also be listed.  ``get_config`` matches the
@@ -36,7 +36,7 @@ from repro_torch.sweep import runners as trun
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGES = ("core", "sweep", "federated", "api", "models", "serving",
             "configs", "kernels", "telemetry", "faults", "checkpoint",
-            "optim", "data")
+            "optim", "data", "staticcheck")
 
 # name -> the ROADMAP queue A item that ports it
 _ITEMS = {
@@ -46,6 +46,8 @@ _ITEMS = {
     "no counterpart (the port has no interpreter; kernels.dispatch "
     "resolve_device and kernel_route route by device)": [
         "kernels.default_interpret", "kernels.resolve_interpret"],
+    "counterpart: `staticcheck.optrace` (torch has no jaxpr)": [
+        "staticcheck.jaxpr"],
 }
 UNPORTED = {name: item for item, names in _ITEMS.items() for name in names}
 
@@ -73,6 +75,17 @@ def test_every_reference_name_resolves_or_names_its_item(pkg):
     assert not listed_but_present, (
         f"repro_torch.{pkg} has {listed_but_present}; drop them from "
         "UNPORTED")
+
+
+def test_every_sweep_cache_name_resolves():
+    """The subpackages' ``__all__`` above does not reach ``sweep.cache``;
+    every name of the reference's resolves in the port's
+    (``set_capture_hook`` is the seam of ``staticcheck.cachekey``)."""
+    from repro.sweep import cache as ref_cache
+    from repro_torch.sweep import cache as port_cache
+    missing = [n for n in ref_cache.__all__ if not hasattr(port_cache, n)]
+    assert not missing, f"repro_torch.sweep.cache lacks {missing}"
+    assert set(ref_cache.__all__) <= set(port_cache.__all__)
 
 
 def test_unported_list_names_only_reference_names():

@@ -2,6 +2,7 @@
 
     python3 tools/b6_variants.py ablation      # parts of the work left out
     python3 tools/b6_variants.py spill         # builds that spill
+    python3 tools/b6_variants.py simt          # the SIMT kernel's spill
 
 Each variant is ``src/repro_torch/kernels/csrc/flash_attention.cu`` with a
 preset's string edits applied (each must find its target).  All
@@ -20,6 +21,12 @@ instances, then one result line:
   B6's bf16 envelope), its inputs and a 16 MiB buffer beside them compared
   before and after (a stray store shows there), timed there eagerly, and
   followed by one float32 SIMT launch checked against its plain version.
+
+The preset ``simt`` studies the SIMT kernel instead: for each variant it
+prints every SIMT instance's registers (ptxas) and local memory (the
+runtime's ``flash_attention_simt_local_bytes``), holds each instance
+against the plain version at (2, 300) causal, and times it eagerly at
+(32, 2048) causal and at phase 17b's three 8192-token bf16 prefills.
 
 The wrapper refuses a build whose tensor-core instances use local memory;
 this tool launches its variants without that check, to study them.
@@ -84,6 +91,13 @@ NO_LO = [("""#pragma unroll
 NO_SOFTMAX = [("float& m1, float& l0, float& l1, float& a0, float& a1) {\n",
                "float& m1, float& l0, float& l1, float& a0, float& a1) {\n"
                "  a0 = a1 = 1.f;\n  if (scale != -1.f) return;\n")]
+_SIMT_BOUNDS = "__launch_bounds__(kThreads)\nflash_attention_kernel("
+SIMT_MIN1 = [(_SIMT_BOUNDS,
+              "__launch_bounds__(kThreads, 1)\nflash_attention_kernel(")]
+SIMT_MIN2 = [(_SIMT_BOUNDS,
+              "__launch_bounds__(kThreads, 2)\nflash_attention_kernel(")]
+SIMT_UNROLL4 = [("#pragma unroll 8\n    for (int c = 0; c < DQK; ++c) {",
+                 "#pragma unroll 4\n    for (int c = 0; c < DQK; ++c) {")]
 PRESETS = {
     "ablation": {"abl_base": [], "abl_no_exp": NO_EXP, "abl_no_lo": NO_LO,
                  "abl_no_softmax": NO_SOFTMAX,
@@ -94,7 +108,15 @@ PRESETS = {
     "spill": {"base": [], "keys128": KEYS_128,
               "keys128_thread_wg": KEYS_128 + THREAD_WG,
               "keys128_exp2f": KEYS_128 + EXP2F,
-              "cap128": CAP_128, "cap128_thread_wg": CAP_128 + THREAD_WG}}
+              "cap128": CAP_128, "cap128_thread_wg": CAP_128 + THREAD_WG},
+    # the SIMT kernel: the committed source, a minimum of one and of two
+    # blocks a multiprocessor in its launch bounds, and the score loop
+    # unrolled by 4 instead of 8
+    "simt": {"base": [], "min1": SIMT_MIN1, "min2": SIMT_MIN2,
+             "unroll4": SIMT_UNROLL4, "min1_unroll4": SIMT_MIN1 + SIMT_UNROLL4}}
+# phase 17b's 8192-token bf16 prefills: (name, (d, dv), BH, causal)
+SIMT_17B = (("zamba2", (80, 80), 32, True), ("mla", (192, 128), 128, True),
+            ("hubert", (80, 80), 16, False))
 
 
 def load_variant(name: str, edits, src_dir: str):
@@ -175,6 +197,62 @@ def run_one(name: str) -> dict:
     return out
 
 
+def _simt_env(want: torch.Tensor) -> torch.Tensor:
+    """B6's envelopes: float32 1e-5 of max|out|, bf16 2 bf16 ulps more."""
+    w = want.float()
+    env = 1e-5 * float(w.abs().max())
+    if want.dtype == torch.bfloat16:
+        _, e = torch.frexp(w.abs())
+        env = env + 2 * torch.ldexp(torch.ones_like(w), e - 8)
+    return env
+
+
+def run_simt(name: str) -> dict:
+    """Check and time every SIMT instance of the bound variant."""
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dt, d, dv in fa.simt_instances():
+        row = {}
+        for BH, S, reps in ((2, 300, 0), (32, 2048, 10)):
+            q, k = (torch.randn(BH, S, d, generator=gen, device="cuda",
+                                dtype=dt) for _ in range(2))
+            v = torch.randn(BH, S, dv, generator=gen, device="cuda", dtype=dt)
+            pos = torch.arange(S, dtype=torch.int32, device="cuda")
+
+            def call():
+                return fa.flash_attention_bhsd(q, k, v, pos, pos,
+                                               scale=d ** -0.5)
+
+            if reps == 0:
+                want = fa.flash_attention_bhsd_ref(q, k, v, pos, pos,
+                                                   scale=d ** -0.5)
+                err = (call().float() - want.float()).abs()
+                row.update(max_abs_err=float(err.max()),
+                           outside=int((~(err <= _simt_env(want))).sum()))
+            else:
+                row["eager_us_32x2048"] = _eager_us(call, reps)
+        out[f"{str(dt)[6:]} ({d}, {dv})"] = row
+    for arch, (d, dv), BH, causal in SIMT_17B:
+        q, k = (torch.randn(BH, 8192, d, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        v = torch.randn(BH, 8192, dv, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        pos = torch.arange(8192, dtype=torch.int32, device="cuda")
+        out[f"17b {arch} eager_us"] = _eager_us(
+            lambda: fa.flash_attention_bhsd(q, k, v, pos, pos, causal=causal,
+                                            scale=d ** -0.5), 3)
+        del q, k, v
+    return out
+
+
+def _simt_registers(ptxas: str) -> dict:
+    """ptxas's registers of each SIMT instance, by its mangled template
+    arguments (``IfLi64ELi64E`` = float32 at (64, 64))."""
+    return dict(re.findall(r"Function properties for \S*flash_attention_"
+                           r"kernel(I\w+?E)v\S*\n[^\n]*\n[^\n]*Used (\d+) "
+                           r"registers", ptxas))
+
+
 def main() -> None:
     which = sys.argv[1] if len(sys.argv) > 1 else "ablation"
     todo = PRESETS[which]
@@ -183,7 +261,8 @@ def main() -> None:
         name = sys.argv[3]
         lib = fa._bind(load_variant(name, todo[name], src_dir).lib)
         fa._lib = lambda: lib
-        print("RESULT " + json.dumps(run_one(name)), flush=True)
+        run = run_simt if which == "simt" else run_one
+        print("RESULT " + json.dumps(run(name)), flush=True)
         return
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -193,6 +272,17 @@ def main() -> None:
         built = list(pool.map(lambda kv: load_variant(*kv, src_dir),
                               todo.items()))
     for name, b in zip(todo, built):
+        if which == "simt":
+            child = subprocess.run([sys.executable, __file__, which, "--one",
+                                    name], capture_output=True, text=True,
+                                   timeout=600)
+            line = [s for s in child.stdout.splitlines()
+                    if s.startswith("RESULT ")]
+            print(f"{name}: SIMT registers {_simt_registers(b.ptxas)}, local "
+                  f"bytes {fa._simt_local_bytes(fa._bind(b.lib))}; "
+                  + (line[0][7:] if line else f"failed ({child.returncode})"
+                     f": {child.stderr[-1500:]}"), flush=True)
+            continue
         regs = re.findall(r"Function properties for \S*fa_tc_kernelILi(\d+)"
                           r"EE\S*\n[^\n]*\n[^\n]*Used (\d+) registers",
                           b.ptxas)
