@@ -33,20 +33,22 @@ PyTorch version on the card, and drives the port's main paths:
   random weights from the port's initializer on the card) through
   ``launch.serve.generate`` and ``serving.ContinuousBatcher``, whose
   prefill runs the flash-attention kernel B6 on its tensor-core route
-  (float32 and bf16 at d 48 take its SIMT route, swept in phase 16);
+  (float32, and bf16 at d 48, take its SIMT route, swept in phase 16);
   then, with it freed, mamba2-780m (48 Mamba2 layers, no kernel: the
   block calls the SSD scan in torch ops, as the reference's does) and
   qwen2-moe-a2.7b (24 layers, 60 experts, capacity dispatch; B6 in every
   prefill) at full width and depth the same way (M1, M2), and both
   families' reduced configs card against CPU (M3); then zamba2-2.7b (the
-  hybrid trunk, all 54 layers; B6 at d 80 on its SIMT route for the
-  shared block, N1), deepseek-v2-236b (MLA + 160 experts, 4 of 60
-  layers; B6 at q/k 192 over v 128, N2), qwen2-vl-72b (8 of 80 layers;
-  text and an image batch of embeddings with M-RoPE grids, N3) and
-  hubert-xlarge (the 48-layer encoder over frame embeddings, N4), and
-  the four reduced configs card against CPU with the full head dims
-  (N5); phase 17b holds B6's SIMT instances at d 80 and 192 over 128
-  against their plain version at those models' prefill shapes;
+  hybrid trunk, all 54 layers; B6 at d 80 on its tensor-core route for
+  the shared block, N1), deepseek-v2-236b (MLA + 160 experts, 4 of 60
+  layers; B6 at q/k 192 over v 128, tensor-core, N2), qwen2-vl-72b (8 of
+  80 layers; text and an image batch of embeddings with M-RoPE grids,
+  N3) and hubert-xlarge (the 48-layer encoder over frame embeddings;
+  B6 at d 80, tensor-core, N4), and the four reduced configs card
+  against CPU in float32 (B6's SIMT route) with the full head dims (N5);
+  phase 17b holds B6 at d 80 and 192 over 128 against its plain version
+  at those models' prefill shapes, bf16 on the tensor-core instances and
+  float32 on the SIMT ones, and times the bf16 instances beside SDPA;
 * the federated trainer ``launch.train_federated``: CI's convex run, 400
   uploads through B2 and with ``buffer_size=4`` through B3, card against
   CPU (FT1), and the 25m transformer preset's host loop (FT2, no kernel).
@@ -275,8 +277,9 @@ def reset_counts() -> None:
 
 def _fa_routes(tag: str, launches: int, tc: bool = True) -> str:
     """Raise unless every B6 launch since the last reset took the
-    tensor-core route (``tc``: a bf16 model at d 64 or 128) or every one
-    the SIMT route; the counts as text."""
+    tensor-core route (``tc``: a bf16 model at a pair of
+    ``fa.TC_HEAD_DIMS``) or every one the SIMT route; the counts as
+    text."""
     f = fa.flash_attention_bhsd
     if f.launches != launches or f.launches_tc != (launches if tc else 0):
         raise AssertionError(f"{tag}: {launches} B6 launches expected on the "
@@ -318,8 +321,8 @@ def phase_build() -> None:
     # the wrapper's own guard: it refuses a B6 build whose tensor-core or
     # SIMT instances use local memory (spills)
     lib = fa._lib()
-    say("2 build", "B6 tensor-core local memory, bytes per thread by head "
-        f"dim: {fa._tc_local_bytes(lib)}; SIMT by (dtype, d, dv): "
+    say("2 build", "B6 tensor-core local memory, bytes per thread by (d, "
+        f"dv): {fa._tc_local_bytes(lib)}; SIMT by (dtype, d, dv): "
         f"{fa._simt_local_bytes(lib)} (the wrapper refuses a build where "
         "any is not 0)")
     b7 = ss.local_bytes(build.load("ssd_scan").ptxas)
@@ -2839,8 +2842,8 @@ def phases_encoder(prefix: str, arch: str, name: str) -> int:
     return per
 
 
-# B6's new SIMT instances at the prefill shapes of N1, N2 and N4: the arch,
-# its (q/k, v) head dims, its KV heads after the fold (G 1: zamba2's and
+# B6 at the (q/k, v) pairs of N1, N2 and N4 and at their prefill shapes:
+# the arch, its head dims, its KV heads after the fold (G 1: zamba2's and
 # hubert's MHA, MLA expanded to KV = H), causal
 FA_NEW_CASES = ((HYBRID_ARCH, (80, 80), 32, True),
                 (MLA_ARCH, (192, 128), 128, True),
@@ -2866,16 +2869,18 @@ def _fa_new_inputs(KV: int, B: int, S: int, d: int, dv: int, dtype, seed):
 
 
 def phase_fa_new_pairs(name: str) -> Tuple[float, list]:
-    """17b: B6's SIMT instances at d 80 and at q/k 192 over v 128 against
-    their plain version, float32 and bfloat16, at N1's, N2's and N4's
-    prefill shapes ((batch, prompt) (4, 64) and (1, 8192), folded): at
-    (4, 64) the arch's own mask, the other one (causal or not), window 9
-    and -1 holes in every third key; at (1, 8192) the arch's own mask.
-    Every launch on the SIMT route.  Then the bf16 kernel at the
-    8192-token shapes timed beside its plain version, SDPA where SDPA
-    takes the shape, and its bound (989 TFLOP/s bf16, 2 (d + dv) flops a
-    visible pair).  Returns the worst error and the timings."""
+    """17b: B6 at d 80 and at q/k 192 over v 128 against its plain
+    version, bfloat16 on the tensor-core instances and float32 on the SIMT
+    ones, at N1's, N2's and N4's prefill shapes ((batch, prompt) (4, 64)
+    and (1, 8192), folded): at (4, 64) the arch's own mask, the other one
+    (causal or not), window 9 and -1 holes in every third key; at (1,
+    8192) the arch's own mask.  Each launch counted on its route.  Then
+    the bf16 kernel at the 8192-token shapes timed beside its plain
+    version, SDPA where SDPA takes the shape, and its bound (989 TFLOP/s
+    bf16, 2 (d + dv) flops a visible pair).  Returns the worst error and
+    the timings."""
     worst, cases, parts = 0.0, 0, []
+    per_route = {"tc": 0, "simt": 0}
     reset_counts()
     for arch, (d, dv), KV, causal in FA_NEW_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -2895,19 +2900,23 @@ def phase_fa_new_pairs(name: str) -> Tuple[float, list]:
                     torch.cuda.synchronize()
                     errs.append(_fa_check(got, want))
                     cases += 1
+                    per_route[fa.card_route(dtype, d, dv)] += 1
                     del got, want
                 del q, k, v
                 torch.cuda.empty_cache()
             worst = max(worst, max(errs))
             parts.append(f"{arch} ({d}, {dv}) {str(dtype)[6:]} "
-                         f"{max(errs):.3g}")
+                         f"{fa.card_route(dtype, d, dv)} {max(errs):.3g}")
     f = fa.flash_attention_bhsd
-    if (f.launches, f.launches_tc) != (cases, 0):
+    # bf16 on the tensor-core route, float32 on the SIMT route, half each
+    if (f.launches, f.launches_tc) != (cases, per_route["tc"]) or \
+            per_route["tc"] != per_route["simt"]:
         raise AssertionError(f"17b: {f.launches} launches ({f.launches_tc} "
-                             f"tensor-core) for {cases} SIMT cases")
-    say("17b B6 new pairs", f"{cases} cases, all on the SIMT route "
-        f"(launches {f.launches}, tensor-core {f.launches_tc}): max abs err "
-        "by arch, pair and dtype: " + "; ".join(parts) + " (B6's envelopes)")
+                             f"tensor-core) for {cases} cases {per_route}")
+    say("17b B6 new pairs", f"{cases} cases (launches {f.launches}: "
+        f"tensor-core {f.launches_tc}, bf16; SIMT "
+        f"{f.launches - f.launches_tc}, float32): max abs err by arch, pair, "
+        "dtype and route: " + "; ".join(parts) + " (B6's envelopes)")
     timings = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for arch, (d, dv), KV, causal in FA_NEW_CASES:
@@ -2918,7 +2927,8 @@ def phase_fa_new_pairs(name: str) -> Tuple[float, list]:
         reset_counts()
         got = fa.flash_attention_bhsd(q, k, v, pos, pos, **kw)
         err = _fa_check(got, _fa_plain_rows(q, k, v, pos, pos, **kw))
-        _fa_routes(f"17b B6 timing {arch}", 1, tc=False)
+        route = fa.card_route(torch.bfloat16, d, dv)
+        _fa_routes(f"17b B6 timing {arch}", 1, tc=route == "tc")
 
         def kernel():
             return fa.flash_attention_bhsd(q, k, v, pos, pos, **kw)
@@ -2947,7 +2957,8 @@ def phase_fa_new_pairs(name: str) -> Tuple[float, list]:
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
         bound_ms = max(t_bytes, t_ops) * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        say(f"17b B6 timing {arch}", f"flash_attention_bhsd SIMT at q/k "
+        say(f"17b B6 timing {arch}", f"flash_attention_bhsd "
+            f"{'tensor-core' if route == 'tc' else 'SIMT'} at q/k "
             f"({B * KV}, {S}, {d}), v ({B * KV}, {S}, {dv}) bf16 "
             f"{'causal' if causal else 'bidirectional'} ({arch}'s {S}-token "
             f"prefill, folded; vs plain max abs err {err:.3g}): "
@@ -2958,7 +2969,8 @@ def phase_fa_new_pairs(name: str) -> Tuple[float, list]:
             f"TFLOP/s: {bound_by}); {flops / (graph_ms * 1e9):.2f} TFLOP/s "
             f"achieved; card {name}")
         timings.append(dict(arch=arch, dims=[d, dv], shape=[B * KV, S],
-                            causal=causal, ms=graph_ms, eager_ms=eager_ms,
+                            causal=causal, route=route, ms=graph_ms,
+                            eager_ms=eager_ms,
                             plain_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=library_ms,
                             max_abs_err=err))
@@ -3544,7 +3556,8 @@ def main() -> None:
     t_fa_long = phase_fa_timing(name, 1, 8192, fa_err)
     # the MoE prefill's shapes (G 1, the long prompt's 8192 keys)
     moe_fa_err = phase_fa_check(MOE_ARCH, ((4, 64), (1, 8192)))
-    # the SIMT instances of the hybrid, MLA and encoder prefills (17b)
+    # the hybrid, MLA and encoder prefills' pairs, bf16 tensor-core and
+    # float32 SIMT (17b)
     new_fa_err, t_fa_new = phase_fa_new_pairs(name)
     t_fa["max_abs_err"] = max(t_fa["max_abs_err"], t_fa_long["max_abs_err"],
                               moe_fa_err, new_fa_err)

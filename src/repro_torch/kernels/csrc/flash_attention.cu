@@ -25,35 +25,47 @@
 // Sq and Sk need not be multiples of the tiles: missing rows take
 // position -1 and zero data.
 //
-// Two routes, chosen by the wrapper from dtype and head dim alone:
+// Two routes, chosen by the wrapper from dtype and head dims alone:
 //
-// * The tensor-core route (namespace tc; bf16, d 64 and 128, the head dims
-//   of every dense config at full width).  Bound: a long causal prompt is
-//   bound by operations (4 d flops per visible pair), which bf16 reaches
-//   only through wgmma.  One block of three warpgroups per (bh, 128 query
-//   rows), launched longest first (the last tiles of a causal prompt see
-//   the most keys).  Warp 8 produces: it loads the query tile once by TMA,
-//   then walks the key tiles of 64, skips the dead ones, marks the ones
-//   every live row sees whole (no mask needed), and streams the rest
-//   through a ring of three K/V stages filled by TMA (3-D maps over (d,
-//   S, BH), 128-byte swizzle, rows past S zero-filled by the hardware),
-//   each signalled on an mbarrier, with the tile's key positions beside
-//   it.  Warpgroups 0 and 1 consume 64 query rows each: S = Q K^T by
-//   wgmma (both operands in shared memory, float32 accumulators), the
-//   mask and the online softmax on the registers of S, then O += P V by
-//   wgmma with P from registers and V transposed.  As in
-//   FlashAttention-3, S of tile j + 1 is issued ahead of P V of tile j,
-//   and the softmax of j + 1 runs while P V of j is on the tensor cores
-//   (a consumer holds two stages; the third is in flight); the last P V
-//   is peeled out of the loop, so no wgmma is issued under a branch
-//   (ptxas serializes them otherwise).
+// * The tensor-core route (namespace tc; bf16 at (q/k, v) head dims (64,
+//   64), (80, 80), (128, 128) and (192, 128): the dense configs, zamba2's
+//   and hubert's d 80, DeepSeek-V2's MLA prefill, nope 128 + rope 64 over
+//   v 128).  Bound: a long causal prompt is bound by operations (2 (dqk +
+//   dv) flops per visible pair), which bf16 reaches only through wgmma.
+//   One block of three warpgroups per (bh, 128 query rows), launched
+//   longest first (the last tiles of a causal prompt see the most keys).
+//   Warp 8 produces: it loads the query tile once by TMA, then walks the
+//   key tiles of 64, skips the dead ones, marks the ones every live row
+//   sees whole (no mask needed), and streams the rest through a ring of
+//   three K/V stages filled by TMA (3-D maps over (d, S, BH), 128-byte
+//   swizzle, rows past S zero-filled by the hardware), each signalled on
+//   an mbarrier, with the tile's key positions beside it.  Warpgroups 0
+//   and 1 consume 64 query rows each: S = Q K^T by wgmma (both operands
+//   in shared memory, float32 accumulators), the mask and the online
+//   softmax on the registers of S, then O += P V by wgmma with P from
+//   registers and V transposed.  As in FlashAttention-3, S of tile j + 1
+//   is issued ahead of P V of tile j, and the softmax of j + 1 runs while
+//   P V of j is on the tensor cores (a consumer holds two stages; the
+//   third is in flight); the last P V is peeled out of the loop, so no
+//   wgmma is issued under a branch (ptxas serializes them otherwise).
+//   Head dims that are not multiples of 64 keep the 128-byte swizzle: a
+//   tile is stored as 64-column halves, and the last half of d 80 is one
+//   TMA box at column 64 whose columns 80-127 lie outside the tensor and
+//   arrive as zeros (they cost shared memory, not device memory; the
+//   transaction count is the whole box).  Q K^T runs dqk / 16 K-steps, so
+//   no zero column enters S; P V is one wgmma of N = dv (m64n80k16 at d
+//   80), whose B operand spans the two halves as at d 128 (N 128 over the
+//   zero columns took 7-15% longer at 8192-token d-80 prompts on an H100:
+//   tools/b6_variants.py tc_vs_simt).
 //   P is split into bf16 hi = bf16(p) and lo = bf16(p - hi), two products
 //   into the one float32 O: a single bf16 P rounds p to 2^-9 and leaves
 //   B6's envelope (2 bf16 ulps of the plain output) on about 6% of the
 //   outputs of a 2048-token folded prompt, the split carries p to about
 //   2^-17 and leaves it on none (tests/test_torch_flash_attention.py
-//   emulates both); it costs a third product, 6 d flops per pair.  Q K^T
-//   needs no such care: bf16 products are exact in float32.
+//   emulates both, at each instance's dims); it costs a third product:
+//   the kernel does 2 dqk + 4 dv flops per visible pair against the
+//   bound's 2 (dqk + dv), 1.5x at d 80 and at d 128, 1.4x at 192 over
+//   128.  Q K^T needs no such care: bf16 products are exact in float32.
 //   p = 2^((s - m) log2 e) by ex2.approx.ftz rather than the plain
 //   version's expf: the accurate expf took 1.5 of 3.4 ms at an 8192-token
 //   prompt (exp2f 0.6, ex2.approx.ftz 0.2), and the emulation (its 2 ulps
@@ -66,23 +78,24 @@
 //   wrong outputs for a cause not found (spilling builds of this source
 //   did not), so the wrapper refuses a build whose tensor-core instances
 //   use local memory (flash_attention_tc_local_bytes).  64-key tiles (32
-//   + 32 + 64 at d 128) do not spill.  The epilogue divides by
-//   max(l, 1e-30) and stores bf16 pairs from registers.
-// * The SIMT route (float32; bf16 at d 48, at d 80 and at dqk 192 over dv
-//   128): one block of 256 threads per (bh, 64-row query tile), K and V
-//   staged by the threads, all arithmetic float32 FMAs on the CUDA cores
-//   (tensor cores would need TF32 for float32, which moves the results
-//   off the reference).  Thread (ty, tx) of a 16 x 16 grid owns query rows
-//   ty + 16 i (i < 4) and a 4 x 4 tile of scores; row max and row sum are
-//   four xor-shuffles.  The kernel takes q/k's head dim and v's apart
-//   (DQK, DV): the scores run over DQK, the output's DV / 16 columns per
-//   thread over DV.  Instances: (48, 48), (64, 64), (128, 128) in float32,
-//   (48, 48) in bf16, and (80, 80) and (192, 128) in both (zamba2's and
-//   hubert's head dim; DeepSeek-V2's MLA prefill, nope 128 + rope 64 over
-//   v 128).  The float32 (192, 128) tiles take ~146 KB of shared memory,
-//   above the 48 KB default, by the same opt-in as d 128.  No instance
-//   uses local memory (flash_attention_simt_local_bytes; the wrapper
-//   refuses a build where one does, as for the tensor-core route).
+//   + 32 + 64 at d 128 and at 192 over 128, whose larger dqk adds K-steps
+//   and shared memory, ~170 KB, but no register; 32 + 32 + 40 at d 80) do
+//   not spill.  The epilogue divides by max(l, 1e-30) and stores bf16
+//   pairs from registers.
+// * The SIMT route (float32 at every pair; bf16 at d 48, which only the
+//   trainer presets use): one block of 256 threads per (bh, 64-row query
+//   tile), K and V staged by the threads, all arithmetic float32 FMAs on
+//   the CUDA cores (tensor cores would need TF32 for float32, which moves
+//   the results off the reference).  Thread (ty, tx) of a 16 x 16 grid
+//   owns query rows ty + 16 i (i < 4) and a 4 x 4 tile of scores; row max
+//   and row sum are four xor-shuffles.  The kernel takes q/k's head dim
+//   and v's apart (DQK, DV): the scores run over DQK, the output's DV / 16
+//   columns per thread over DV.  Instances: (48, 48), (64, 64), (128,
+//   128), (80, 80) and (192, 128) in float32, (48, 48) in bf16.  The
+//   float32 (192, 128) tiles take ~146 KB of shared memory, above the 48
+//   KB default, by the same opt-in as d 128.  No instance uses local
+//   memory (flash_attention_simt_local_bytes; the wrapper refuses a build
+//   where one does, as for the tensor-core route).
 #include <cuda.h>  // CUtensorMap and its enums (no -lcuda: see tc::encode_tiled)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -337,9 +350,9 @@ int launch(const void* q, const void* k, const void* v, const int* qpos,
 }
 
 // The SIMT instances, (dqk, dv) pairs: float32 at (48, 48), (64, 64),
-// (128, 128), (80, 80) and (192, 128); bfloat16 at (48, 48), (80, 80) and
-// (192, 128) (bf16 at equal dims of 64 and 128 takes the tensor-core
-// route, so the SIMT kernel has no instance for it).
+// (128, 128), (80, 80) and (192, 128); bfloat16 at (48, 48) (bf16 at the
+// other pairs takes the tensor-core route, so the SIMT kernel has no
+// instance for it).
 int launch_d(int dqk, int dv, bool bf16, const void* q, const void* k,
              const void* v, const int* qpos, const int* kpos, void* out,
              int BH, int Sq, int Sk, float scale, int causal, int has_window,
@@ -350,8 +363,6 @@ int launch_d(int dqk, int dv, bool bf16, const void* q, const void* k,
                               causal, has_window, window, stream);
   if (bf16) {
     FA_CASE(__nv_bfloat16, 48, 48)
-    FA_CASE(__nv_bfloat16, 80, 80)
-    FA_CASE(__nv_bfloat16, 192, 128)
   } else {
     FA_CASE(float, 48, 48)
     FA_CASE(float, 64, 64)
@@ -364,7 +375,8 @@ int launch_d(int dqk, int dv, bool bf16, const void* q, const void* k,
 }
 
 // ===================================================================
-// The tensor-core route: bfloat16, head dim 64 or 128.
+// The tensor-core route: bfloat16, (q/k, v) head dims (64, 64), (80, 80),
+// (128, 128) and (192, 128).
 // ===================================================================
 namespace tc {
 
@@ -378,16 +390,20 @@ constexpr long long kWatchdogCycles = 1ll << 34;  // ~9 s: a lost barrier traps
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory, from a 1024-byte aligned base: each operand tile is stored
-// as D/64 column halves of (rows x 128 bytes), 128-byte swizzled by TMA.
-template <int D>
+// as 64-column halves of (rows x 128 bytes), 128-byte swizzled by TMA; Q
+// and K take ceil(DQK / 64) halves, V ceil(DV / 64) (a half's columns past
+// the head dim are TMA's zeros).
+template <int DQK, int DV>
 struct Smem {
-  static constexpr int kHalves = D / 64;
-  static constexpr int kQBytes = kHalves * kBQ * kRowBytes;
-  static constexpr int kTileBytes = kHalves * kBK * kRowBytes;  // one K or V
+  static constexpr int kQkHalves = (DQK + 63) / 64;
+  static constexpr int kVHalves = (DV + 63) / 64;
+  static constexpr int kQBytes = kQkHalves * kBQ * kRowBytes;
+  static constexpr int kKBytes = kQkHalves * kBK * kRowBytes;  // one K tile
+  static constexpr int kVBytes = kVHalves * kBK * kRowBytes;   // one V tile
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kQBytes;                  // + stage * kTileBytes
-  static constexpr int kV = kK + kStages * kTileBytes;     // + stage * kTileBytes
-  static constexpr int kKpos = kV + kStages * kTileBytes;  // int [kStages][kBK]
+  static constexpr int kK = kQ + kQBytes;                // + stage * kKBytes
+  static constexpr int kV = kK + kStages * kKBytes;      // + stage * kVBytes
+  static constexpr int kKpos = kV + kStages * kVBytes;   // int [kStages][kBK]
   static constexpr int kInfo = kKpos + kStages * kBK * 4;  // int2 [kStages]
   static constexpr int kBar = kInfo + kStages * 8;  // q, full[kStages], empty[..]
   static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8;
@@ -555,6 +571,30 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 80, f32) += A (64 x 16, bf16 registers) B (16 x 80); B N-major
+// (transposed) in shared memory over two halves (the second's first 16
+// columns).
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D (64 x 128, f32) += A (64 x 16, bf16 registers) B (16 x 128); B N-major
 // (transposed) in shared memory.
 template <>
@@ -595,16 +635,16 @@ __device__ __forceinline__ void split_p(float p0, float p1, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// S = Q K^T over d in steps of 16 (32 bytes inside a swizzle row): one
-// commit group.
-template <int D>
+// S = Q K^T over dqk in steps of 16 (32 bytes inside a swizzle row; step
+// 4 starts the next half): one commit group.
+template <int DQK>
 __device__ __forceinline__ void issue_qk(float (&s)[kBK / 2], uint32_t qa,
                                          uint32_t ka) {
   fence_regs(s);
   wgmma_fence();
   wgmma_ss_first<kBK>(s, sw128_desc(qa, 16, 1024), sw128_desc(ka, 16, 1024));
 #pragma unroll
-  for (int j = 1; j < D / 16; ++j) {
+  for (int j = 1; j < DQK / 16; ++j) {
     const uint32_t qoff = (j / 4) * kBQ * kRowBytes + (j % 4) * 32;
     const uint32_t koff = (j / 4) * kBK * kRowBytes + (j % 4) * 32;
     wgmma_ss<kBK>(s, sw128_desc(qa + qoff, 16, 1024),
@@ -613,11 +653,11 @@ __device__ __forceinline__ void issue_qk(float (&s)[kBK / 2], uint32_t qa,
   wgmma_commit();
 }
 
-// O += P_hi V + P_lo V over the tile's keys in steps of 16 (16 rows of V,
-// 2048 bytes); V is N-major, its two halves kBK * 128 bytes apart: one
-// commit group.
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+// O (N columns) += P_hi V + P_lo V over the tile's keys in steps of 16 (16
+// rows of V, 2048 bytes); V is N-major, its halves kBK * 128 bytes apart:
+// one commit group.
+template <int N>
+__device__ __forceinline__ void issue_pv(float (&o)[N / 2],
                                          const uint32_t (&ph)[kBK / 16][4],
                                          const uint32_t (&pl)[kBK / 16][4],
                                          uint32_t va) {
@@ -625,11 +665,11 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
   wgmma_fence();
 #pragma unroll
   for (int j = 0; j < kBK / 16; ++j)
-    wgmma_rs<D>(o, ph[j],
+    wgmma_rs<N>(o, ph[j],
                 sw128_desc(va + j * 16 * kRowBytes, kBK * kRowBytes, 1024));
 #pragma unroll
   for (int j = 0; j < kBK / 16; ++j)
-    wgmma_rs<D>(o, pl[j],
+    wgmma_rs<N>(o, pl[j],
                 sw128_desc(va + j * 16 * kRowBytes, kBK * kRowBytes, 1024));
   wgmma_commit();
 }
@@ -714,7 +754,7 @@ __device__ __forceinline__ void split_tile(const float (&s)[kBK / 2],
       split_p(s[8 * j + 2 * h], s[8 * j + 2 * h + 1], ph[j][h], pl[j][h]);
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_tc_kernel(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
@@ -722,9 +762,11 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap tq,
              const int* __restrict__ qpos, const int* __restrict__ kpos,
              __nv_bfloat16* __restrict__ out, int Sq, int Sk, float scale,
              int causal, int has_window, int window) {
-  static_assert(D == 64 || D == 128, "tensor-core head dims: 64, 128");
+  static_assert(DQK % 16 == 0 && DV % 16 == 0 && DV <= 256,
+                "head dims: multiples of 16 (wgmma's K step), dv <= 256 (N)");
   static_assert(kBK % 32 == 0 && kBK <= 256, "key tile: lanes x 32, <= 256");
-  using L = Smem<D>;
+  using L = Smem<DQK, DV>;
+  constexpr int N = DV;  // O's columns: the N of each P V wgmma
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -776,7 +818,7 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) {
       mbar_arrive_tx(bar_q, L::kQBytes);
 #pragma unroll
-      for (int h = 0; h < L::kHalves; ++h)
+      for (int h = 0; h < L::kQkHalves; ++h)
         tma_load(base + L::kQ + h * kBQ * kRowBytes, &tq, bar_q, 64 * h, q0,
                  bh);
     }
@@ -817,13 +859,15 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap tq,
         const uint32_t full = bar_full + 8 * stage;
         if (lane == 0) {
           info_s[stage] = make_int2(t * kBK, unmasked);
-          mbar_arrive_tx(full, 2 * L::kTileBytes);
+          mbar_arrive_tx(full, L::kKBytes + L::kVBytes);
 #pragma unroll
-          for (int h = 0; h < L::kHalves; ++h) {
-            const uint32_t off = stage * L::kTileBytes + h * kBK * kRowBytes;
-            tma_load(base + L::kK + off, &tk, full, 64 * h, t * kBK, bh);
-            tma_load(base + L::kV + off, &tv, full, 64 * h, t * kBK, bh);
-          }
+          for (int h = 0; h < L::kQkHalves; ++h)
+            tma_load(base + L::kK + stage * L::kKBytes + h * kBK * kRowBytes,
+                     &tk, full, 64 * h, t * kBK, bh);
+#pragma unroll
+          for (int h = 0; h < L::kVHalves; ++h)
+            tma_load(base + L::kV + stage * L::kVBytes + h * kBK * kRowBytes,
+                     &tv, full, 64 * h, t * kBK, bh);
         } else {
           mbar_arrive(full);
         }
@@ -849,9 +893,9 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const int qp0 = r0 < Sq ? qpos[r0] : -1;
     const int qp1 = r0 + 8 < Sq ? qpos[r0 + 8] : -1;
 
-    float o[D / 2];
+    float o[N / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < N / 2; ++i) o[i] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f, a0, a1;
     float s[kBK / 2];
     uint32_t ph[kBK / 16][4], pl[kBK / 16][4];
@@ -863,7 +907,7 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const int2 first = info_s[0];
     if (first.x != kEnd) {
       // the first tile: S, its softmax and P (O is still zero)
-      issue_qk<D>(s, qa, base + L::kK);
+      issue_qk<DQK>(s, qa, base + L::kK);
       wgmma_wait<0>();
       fence_regs(s);
       softmax_tile(s, first.y, kpos_s, cq, qp0, qp1, scale, causal,
@@ -880,8 +924,8 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_wait(bar_full + 8 * next, next_round);
         const int2 info = info_s[next];
         if (info.x == kEnd) break;
-        issue_qk<D>(s, qa, base + L::kK + next * L::kTileBytes);
-        issue_pv<D>(o, ph, pl, base + L::kV + stage * L::kTileBytes);
+        issue_qk<DQK>(s, qa, base + L::kK + next * L::kKBytes);
+        issue_pv<N>(o, ph, pl, base + L::kV + stage * L::kVBytes);
         wgmma_wait<1>();
         fence_regs(s);
         softmax_tile(s, info.y, kpos_s + next * kBK, cq, qp0, qp1, scale,
@@ -890,7 +934,7 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap tq,
         fence_regs(o);
         mbar_arrive(bar_empty + 8 * stage);
 #pragma unroll
-        for (int i = 0; i < D / 8; ++i) {
+        for (int i = 0; i < N / 8; ++i) {
           o[4 * i] *= a0;
           o[4 * i + 1] *= a0;
           o[4 * i + 2] *= a1;
@@ -901,7 +945,7 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap tq,
         round = next_round;
       }
       // P V of the last tile
-      issue_pv<D>(o, ph, pl, base + L::kV + stage * L::kTileBytes);
+      issue_pv<N>(o, ph, pl, base + L::kV + stage * L::kVBytes);
       wgmma_wait<0>();
       fence_regs(o);
       mbar_arrive(bar_empty + 8 * stage);
@@ -914,17 +958,17 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap tq,
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
     const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-    __nv_bfloat16* ob = out + static_cast<size_t>(bh) * Sq * D;
+    __nv_bfloat16* ob = out + static_cast<size_t>(bh) * Sq * DV;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < DV / 8; ++i) {
       const int c = 8 * i + cq;
       if (r0 < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(r0) * D +
+        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(r0) * DV +
                                            c) =
             __floats2bfloat162_rn(o[4 * i] / d0, o[4 * i + 1] / d0);
       if (r0 + 8 < Sq)
         *reinterpret_cast<__nv_bfloat162*>(
-            ob + static_cast<size_t>(r0 + 8) * D + c) =
+            ob + static_cast<size_t>(r0 + 8) * DV + c) =
             __floats2bfloat162_rn(o[4 * i + 2] / d1, o[4 * i + 3] / d1);
     }
   }
@@ -958,7 +1002,8 @@ EncodeTiled encode_tiled() {
 }
 
 // A (d, rows, BH) bf16 map with (64, box_rows, 1) boxes, 128-byte swizzle;
-// rows past `rows` read as zeros and never from the next bh.
+// rows past `rows`, and columns past d (the second box of d 80), read as
+// zeros and never from the next row or bh.
 bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int D,
               int rows, int BH, int box_rows) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
@@ -975,7 +1020,7 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int D,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, const int* qpos,
            const int* kpos, void* out, int BH, int Sq, int Sk, float scale,
            int causal, int has_window, int window, cudaStream_t stream) {
@@ -983,19 +1028,23 @@ int launch(const void* q, const void* k, const void* v, const int* qpos,
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const int nq = (Sq + kBQ - 1) / kBQ;
   if (nq > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  // with no keys the K/V maps are never read: q stands in for them
+  // with no keys the K/V maps are never read: q (BH, Sq, DQK) stands in
+  // for K and out (BH, Sq, DV) for V, each a map of the right width
   CUtensorMap mq, mk, mv;
-  if (!make_map(encode, &mq, q, D, Sq, BH, kBQ) ||
-      !make_map(encode, &mk, Sk > 0 ? k : q, D, Sk > 0 ? Sk : Sq, BH, kBK) ||
-      !make_map(encode, &mv, Sk > 0 ? v : q, D, Sk > 0 ? Sk : Sq, BH, kBK))
+  if (!make_map(encode, &mq, q, DQK, Sq, BH, kBQ) ||
+      !make_map(encode, &mk, Sk > 0 ? k : q, DQK, Sk > 0 ? Sk : Sq, BH,
+                kBK) ||
+      !make_map(encode, &mv, Sk > 0 ? v : out, DV, Sk > 0 ? Sk : Sq, BH,
+                kBK))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int smem = Smem<D>::kAlloc;
+  constexpr int smem = Smem<DQK, DV>::kAlloc;
   static_assert(smem <= 232448, "227 KB of shared memory per block");
-  const cudaError_t err = cudaFuncSetAttribute(
-      fa_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err =
+      cudaFuncSetAttribute(fa_tc_kernel<DQK, DV>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(BH, nq);
-  fa_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
+  fa_tc_kernel<DQK, DV><<<grid, kThreads, smem, stream>>>(
       mq, mk, mv, qpos, kpos, static_cast<__nv_bfloat16*>(out), Sq, Sk, scale,
       causal, has_window, window);
   return static_cast<int>(cudaGetLastError());
@@ -1024,45 +1073,49 @@ int flash_attention_bhsd_launch(const void* q, const void* k, const void* v,
                   causal, has_window, window, static_cast<cudaStream_t>(stream));
 }
 
-// The tensor-core route: bf16 only, d one of 64, 128.  Same arguments and
-// return codes as flash_attention_bhsd_launch (no dtype: always bfloat16);
-// also cudaErrorInvalidValue when a tensor map cannot be encoded (a base
+// The tensor-core route: bf16 only, (d, dv) one of (64, 64), (80, 80),
+// (128, 128), (192, 128).  Same arguments and return codes as
+// flash_attention_bhsd_launch (no dtype: always bfloat16); also
+// cudaErrorInvalidValue when a tensor map cannot be encoded (a base
 // address not 16-byte aligned) or Sq needs more than 65535 query tiles.
 int flash_attention_bhsd_tc_launch(const void* q, const void* k,
                                    const void* v, const void* qpos,
                                    const void* kpos, void* out, int BH, int Sq,
-                                   int Sk, int d, float scale, int causal,
-                                   int has_window, int window, void* stream) {
+                                   int Sk, int d, int dv, float scale,
+                                   int causal, int has_window, int window,
+                                   void* stream) {
   if (BH <= 0 || Sq <= 0) return 0;
   const auto* qp = static_cast<const int*>(qpos);
   const auto* kp = static_cast<const int*>(kpos);
   const auto st = static_cast<cudaStream_t>(stream);
-#define TC_CASE(D)                                                         \
-  case D:                                                                  \
-    return tc::launch<D>(q, k, v, qp, kp, out, BH, Sq, Sk, scale, causal, \
-                         has_window, window, st);
-  switch (d) {
-    TC_CASE(64)
-    TC_CASE(128)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define TC_CASE(DQK, DV)                                                    \
+  if (d == DQK && dv == DV)                                                 \
+    return tc::launch<DQK, DV>(q, k, v, qp, kp, out, BH, Sq, Sk, scale,     \
+                               causal, has_window, window, st);
+  TC_CASE(64, 64)
+  TC_CASE(80, 80)
+  TC_CASE(128, 128)
+  TC_CASE(192, 128)
 #undef TC_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Local memory per thread (spill space and stack frame) of the
-// tensor-core instance for head dim d (64 or 128), as the runtime reports
-// it for the loaded module; -1 for another d or a failed query.  The
-// wrapper refuses a build where this is not 0 (see the header note).
-int flash_attention_tc_local_bytes(int d) {
+// tensor-core instance for (dqk, dv), as the runtime reports it for the
+// loaded module; -1 for a pair without an instance (the TC_CASE list) or
+// a failed query.  The wrapper refuses a build where this is not 0 (see
+// the header note).
+int flash_attention_tc_local_bytes(int dqk, int dv) {
   cudaFuncAttributes attr;
-  cudaError_t err;
-  if (d == 64)
-    err = cudaFuncGetAttributes(&attr, tc::fa_tc_kernel<64>);
-  else if (d == 128)
-    err = cudaFuncGetAttributes(&attr, tc::fa_tc_kernel<128>);
-  else
-    return -1;
+  cudaError_t err = cudaErrorInvalidValue;
+#define TC_LOCAL(DQK, DV)                                              \
+  if (dqk == DQK && dv == DV)                                          \
+    err = cudaFuncGetAttributes(&attr, tc::fa_tc_kernel<DQK, DV>);
+  TC_LOCAL(64, 64)
+  TC_LOCAL(80, 80)
+  TC_LOCAL(128, 128)
+  TC_LOCAL(192, 128)
+#undef TC_LOCAL
   return err == cudaSuccess ? static_cast<int>(attr.localSizeBytes) : -1;
 }
 
@@ -1078,8 +1131,6 @@ int flash_attention_simt_local_bytes(int dtype, int dqk, int dv) {
     err = cudaFuncGetAttributes(&attr, flash_attention_kernel<T, DQK, DV>);
   if (dtype == 1) {
     FA_LOCAL(__nv_bfloat16, 48, 48)
-    FA_LOCAL(__nv_bfloat16, 80, 80)
-    FA_LOCAL(__nv_bfloat16, 192, 128)
   } else if (dtype == 0) {
     FA_LOCAL(float, 48, 48)
     FA_LOCAL(float, 64, 64)

@@ -11,10 +11,12 @@ q and k carry the nope and rope parts (128 + 64) over a v of 128.
 
 On the card it launches one of the two hand-written CUDA kernels of
 ``csrc/flash_attention.cu`` (see the source for both designs), chosen by
-dtype and head dims alone (:func:`card_route`): bfloat16 at equal dims of
-64 and 128 takes the tensor-core kernel (``wgmma`` fed by TMA, P split
-into bf16 hi + lo), every other supported case the SIMT kernel (float32
-FMAs on the CUDA cores).  On the CPU it runs
+dtype and head dims alone (:func:`card_route`): bfloat16 at the ``(d,
+dv)`` pairs of :data:`TC_HEAD_DIMS` (every pair a config serves with: 64,
+80, 128 and MLA's 192 over 128) takes the tensor-core kernel (``wgmma``
+fed by TMA, P split into bf16 hi + lo), float32 and bfloat16 at d 48 (the
+trainer presets' head dim) the SIMT kernel (float32 FMAs on the CUDA
+cores).  On the CPU it runs
 :func:`flash_attention_bhsd_ref`, the same function in plain PyTorch ops:
 the port of ``repro.kernels.ref.flash_attention_ref`` with the kernel's
 ``qpos >= 0`` mask added (the reference oracle omits it; the two differ
@@ -41,7 +43,8 @@ __all__ = ["NEG_INF", "SUPPORTED_HEAD_DIMS", "TC_HEAD_DIMS", "card_route",
 NEG_INF = -1e30
 # (q/k head dim, v head dim) pairs with a kernel, in both dtypes
 SUPPORTED_HEAD_DIMS = ((48, 48), (64, 64), (80, 80), (128, 128), (192, 128))
-TC_HEAD_DIMS = (64, 128)   # bfloat16 head dims (q/k = v) of the tensor-core kernel
+# bfloat16 (q/k, v) pairs of the tensor-core kernel
+TC_HEAD_DIMS = ((64, 64), (80, 80), (128, 128), (192, 128))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535   # BH is the y dimension of the SIMT kernel's grid
 
@@ -74,18 +77,19 @@ def flash_attention_bhsd_ref(q, k, v, qpos, kpos, *, causal: bool = True,
 
 def card_route(dtype: torch.dtype, d: int, dv: Optional[int] = None) -> str:
     """The kernel a CUDA call takes: ``"tc"`` (tensor cores) for bfloat16
-    with q/k and v at one head dim of :data:`TC_HEAD_DIMS`, else
-    ``"simt"``.  ``dv`` defaults to ``d``."""
+    at a ``(d, dv)`` pair of :data:`TC_HEAD_DIMS`, else ``"simt"``.
+    ``dv`` defaults to ``d``."""
     dv = d if dv is None else dv
-    return ("tc" if dtype == torch.bfloat16 and d == dv
-            and d in TC_HEAD_DIMS else "simt")
+    return ("tc" if dtype == torch.bfloat16 and (d, dv) in TC_HEAD_DIMS
+            else "simt")
 
 
 def _tc_local_bytes(lib) -> dict:
     """Local memory per thread (spills and stack) of each tensor-core
-    instance, by head dim, as the runtime reports it; -1 where it could
+    instance, by ``(d, dv)``, as the runtime reports it; -1 where it could
     not say."""
-    return {d: lib.flash_attention_tc_local_bytes(d) for d in TC_HEAD_DIMS}
+    return {(d, dv): lib.flash_attention_tc_local_bytes(d, dv)
+            for d, dv in TC_HEAD_DIMS}
 
 
 def simt_instances():
@@ -113,7 +117,7 @@ def _bind(lib):
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     tc = lib.flash_attention_bhsd_tc_launch
-    tc.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    tc.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_float] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     tc.restype = ctypes.c_int
@@ -121,7 +125,7 @@ def _bind(lib):
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     local = lib.flash_attention_tc_local_bytes
-    local.argtypes = [ctypes.c_int]
+    local.argtypes = [ctypes.c_int] * 2
     local.restype = ctypes.c_int
     simt = lib.flash_attention_simt_local_bytes
     simt.argtypes = [ctypes.c_int] * 3
@@ -143,7 +147,7 @@ def _lib():
     if any(used.values()):
         raise RuntimeError(
             "flash_attention_bhsd: this build uses local memory (bytes per "
-            f"thread by tensor-core head dim and by SIMT (dtype, d, dv): "
+            f"thread by tensor-core (d, dv) and by SIMT (dtype, d, dv): "
             f"{used}, -1 = unknown); spilling builds of this kernel gave "
             "wrong outputs on the card, so it is refused")
     return lib
@@ -203,14 +207,14 @@ def flash_attention_bhsd(q, k, v, qpos, kpos, *, causal: bool = True,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
-                kpos.data_ptr(), out.data_ptr(), BH, Sq, k.shape[1], d)
+                kpos.data_ptr(), out.data_ptr(), BH, Sq, k.shape[1], d, dv)
         tail = (float(scale), int(causal), int(window is not None),
                 int(window or 0), stream)
         if route == "tc":
             code = lib.flash_attention_bhsd_tc_launch(*ptrs, *tail)
         else:
             code = lib.flash_attention_bhsd_launch(
-                *ptrs, dv, _DTYPE_CODES[q.dtype], *tail)
+                *ptrs, _DTYPE_CODES[q.dtype], *tail)
     if code != 0:
         raise RuntimeError(
             f"flash_attention_bhsd launch failed ({route} kernel): "

@@ -262,10 +262,10 @@ def _emulate_tc(q, k, v, qpos, kpos, *, causal, window, scale, p_mode,
         return torch.where(y < 2.0 ** -126, 0.0, y)
 
     qf, kf, vf = q.float(), k.float(), v.float()
-    BH, Sq, d = q.shape
+    BH, Sq = q.shape[:2]
     m = torch.full((BH, Sq, 1), fa.NEG_INF)
     l = torch.zeros(BH, Sq, 1)
-    o = torch.zeros(BH, Sq, d)
+    o = torch.zeros(BH, Sq, v.shape[-1])
     for k0 in range(0, k.shape[1], EMULATED_KEY_TILE):
         kt = kf[:, k0:k0 + EMULATED_KEY_TILE]
         vt = vf[:, k0:k0 + EMULATED_KEY_TILE]
@@ -286,49 +286,74 @@ def _emulate_tc(q, k, v, qpos, kpos, *, causal, window, scale, p_mode,
     return (o / torch.clamp(l, min=1e-30)).to(v.dtype)
 
 
-def _folded_case(G, S, holes, seed):
-    """One KV head's folded prompt: q (1, G S, 128), k/v (1, S, 128) bf16
-    from numpy N(0, 1), query positions tile(arange(S), G); ring holes put
-    -1 in every third key."""
+def _folded_case(G, S, holes, seed, dims=(128, 128)):
+    """One KV head's folded prompt: q (1, G S, dqk), k (1, S, dqk), v (1,
+    S, dv) bf16 from numpy N(0, 1), query positions tile(arange(S), G);
+    ring holes put -1 in every third key."""
     rng = np.random.default_rng(seed)
-    q, k, v = (torch.from_numpy(rng.standard_normal((1, n, 128)).astype(
-        np.float32)).bfloat16() for n in (G * S, S, S))
+    dqk, dv = dims
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, n, d)).astype(
+        np.float32)).bfloat16() for n, d in ((G * S, dqk), (S, dqk), (S, dv)))
     pos = torch.arange(S, dtype=torch.int32)
     kpos = (torch.where(torch.arange(S) % 3 == 0, -1, pos).to(torch.int32)
             if holes else pos)
     return q, k, v, pos.repeat(G), kpos
 
 
-EMULATION_CASES = [  # (G, S, causal, window, ring holes)
-    (1, 300, True, None, False), (5, 300, True, 9, False),
-    (5, 300, False, None, False), (1, 2048, True, None, True),
-    (5, 2048, True, None, False)]
+EMULATION_CASES = [  # (G, S, causal, window, ring holes, (q/k, v) dims)
+    (1, 300, True, None, False, (128, 128)),
+    (5, 300, True, 9, False, (128, 128)),
+    (5, 300, False, None, False, (128, 128)),
+    (1, 2048, True, None, True, (128, 128)),
+    (5, 2048, True, None, False, (128, 128)),
+    # the instances at zamba2's and hubert's d 80 and MLA's 192 over 128
+    (5, 2048, True, None, False, (80, 80)),
+    (1, 2048, True, None, True, (80, 80)),
+    (5, 300, False, None, False, (80, 80)),
+    (1, 2048, False, None, False, (80, 80)),
+    (1, 2048, True, None, False, (192, 128)),
+    (5, 300, True, 9, False, (192, 128)),
+    (1, 2048, True, None, True, (192, 128))]
+
+
+def _case_id(case) -> str:
+    """The d 128 cases keep the ids they had before the dims were added."""
+    *head, dims = case
+    return "-".join(map(str, head)) + (
+        "" if dims == (128, 128) else f"-{dims[0]}x{dims[1]}")
 
 
 @pytest.mark.parametrize("exp_mode", ["exp", "exp2"])
-@pytest.mark.parametrize("G,S,causal,window,holes", EMULATION_CASES)
+@pytest.mark.parametrize("G,S,causal,window,holes,dims", EMULATION_CASES,
+                         ids=list(map(_case_id, EMULATION_CASES)))
 def test_split_p_emulation_stays_inside_the_bf16_envelope(G, S, causal,
                                                            window, holes,
-                                                           exp_mode):
+                                                           dims, exp_mode):
     """The tensor-core kernel's design, P split into bf16 hi + lo, against
     the plain version: no element outside B6's bf16 envelope, with the
     plain version's expf and with the kernel's ex2.approx.ftz of the
-    folded argument."""
-    q, k, v, qpos, kpos = _folded_case(G, S, holes, seed=G * S)
-    kw = dict(causal=causal, window=window, scale=128 ** -0.5)
+    folded argument, at each tensor-core instance's (q/k, v) head dims but
+    64 (d 128 bounds it: a longer dot product, the same P)."""
+    q, k, v, qpos, kpos = _folded_case(G, S, holes, seed=G * S, dims=dims)
+    kw = dict(causal=causal, window=window, scale=dims[0] ** -0.5)
     want = fa.flash_attention_bhsd_ref(q, k, v, qpos, kpos, **kw)
     got = _emulate_tc(q, k, v, qpos, kpos, p_mode="split",
                       exp_mode=exp_mode, **kw)
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert got.shape[-1] == dims[1]
     assert _bf16_envelope_outside(got, want) == 0
 
 
-@pytest.mark.parametrize("G,S", [(1, 300), (5, 2048)])
-def test_single_bf16_p_leaves_the_bf16_envelope(G, S):
+@pytest.mark.parametrize("G,S,dims", [
+    (1, 300, (128, 128)), (5, 2048, (128, 128)), (5, 2048, (80, 80)),
+    (1, 2048, (192, 128))], ids=["1-300", "5-2048", "5-2048-80x80",
+                                 "1-2048-192x128"])
+def test_single_bf16_p_leaves_the_bf16_envelope(G, S, dims):
     """Why P is split: rounded once to bf16 (the usual flash-attention
-    shortcut), P moves outputs of a causal prompt out of the envelope."""
-    q, k, v, qpos, kpos = _folded_case(G, S, False, seed=G * S)
-    kw = dict(causal=True, window=None, scale=128 ** -0.5)
+    shortcut), P moves outputs of a causal prompt out of the envelope, at
+    d 128 and at the new instances' dims."""
+    q, k, v, qpos, kpos = _folded_case(G, S, False, seed=G * S, dims=dims)
+    kw = dict(causal=True, window=None, scale=dims[0] ** -0.5)
     want = fa.flash_attention_bhsd_ref(q, k, v, qpos, kpos, **kw)
     got = _emulate_tc(q, k, v, qpos, kpos, p_mode="bf16", exp_mode="exp",
                       **kw)
@@ -393,15 +418,23 @@ class _FakeLib:
         self.flash_attention_bhsd_launch = fn(lambda *a: 0)
         self.flash_attention_bhsd_tc_launch = fn(lambda *a: 0)
         self.flash_attention_error_string = fn(lambda code: b"")
-        self.flash_attention_tc_local_bytes = fn(local_bytes.__getitem__)
+        self.flash_attention_tc_local_bytes = fn(
+            lambda d, dv: local_bytes[(d, dv)])
         self.flash_attention_simt_local_bytes = fn(
             lambda dtype, d, dv: simt.get((dtype, d, dv), 0))
 
 
+def _tc_bytes(**over):
+    """Tensor-core local bytes by (d, dv): 0 but where ``over`` names an
+    instance as ``d{d}_{dv}``."""
+    return {(d, dv): over.get(f"d{d}_{dv}", 0) for d, dv in fa.TC_HEAD_DIMS}
+
+
 @pytest.mark.parametrize("local_bytes,simt_bytes,refused", [
-    ({64: 0, 128: 0}, None, False), ({64: 0, 128: 64}, None, True),
-    ({64: -1, 128: 0}, None, True), ({64: 0, 128: 0}, {(0, 64, 64): 24}, True),
-    ({64: 0, 128: 0}, {(1, 192, 128): -1}, True)])
+    (_tc_bytes(), None, False), (_tc_bytes(d128_128=64), None, True),
+    (_tc_bytes(d64_64=-1), None, True), (_tc_bytes(), {(0, 64, 64): 24}, True),
+    (_tc_bytes(), {(0, 192, 128): -1}, True),
+    (_tc_bytes(d192_128=32), None, True), (_tc_bytes(d80_80=-1), None, True)])
 def test_lib_refuses_a_tensor_core_build_with_local_memory(
         local_bytes, simt_bytes, refused, monkeypatch):
     """The wrapper's guard on the serving path: a build whose tensor-core
@@ -430,11 +463,11 @@ def test_lib_refuses_a_tensor_core_build_with_local_memory(
 def test_kernel_source_matches_its_wrapper():
     """The CUDA source builds for sm_90a, has an instance for every (q/k,
     v) head-dim pair the wrapper accepts in each dtype (float32 all on
-    the SIMT kernel; bf16 on the SIMT kernel but for the tensor-core
-    kernel's equal dims), returns cudaGetLastError() after the launch,
-    and the wrapper raises on a nonzero code and on unsupported inputs;
-    bf16 at d 128 takes the tensor-core kernel (wgmma fed by TMA), bf16
-    at d 80 and at 192 over 128 the SIMT kernel."""
+    the SIMT kernel; bf16 on the tensor-core kernel but at d 48), returns
+    cudaGetLastError() after the launch, and the wrapper raises on a
+    nonzero code and on unsupported inputs; bf16 at d 64, 80, 128 and at
+    192 over 128 takes the tensor-core kernel (wgmma fed by TMA, with an
+    m64n80 product for d 80's P V), bf16 at d 48 the SIMT kernel."""
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     src = (build.CSRC_DIR / "flash_attention.cu").read_text()
     cases = re.findall(r"FA_CASE\((float|__nv_bfloat16), (\d+), (\d+)\)",
@@ -443,22 +476,34 @@ def test_kernel_source_matches_its_wrapper():
             for t in ("float", "__nv_bfloat16")}
     assert len(cases) == sum(map(len, simt.values()))   # no duplicate
     assert simt["float"] == set(fa.SUPPORTED_HEAD_DIMS)
-    tc_pairs = {(d, d) for d in fa.TC_HEAD_DIMS}
+    tc_pairs = set(fa.TC_HEAD_DIMS)
     assert simt["__nv_bfloat16"] | tc_pairs == set(fa.SUPPORTED_HEAD_DIMS)
     assert not simt["__nv_bfloat16"] & tc_pairs
+    assert simt["__nv_bfloat16"] == {(48, 48)}
     for d, dv in fa.SUPPORTED_HEAD_DIMS:
         assert fa.card_route(torch.float32, d, dv) == "simt"
         assert fa.card_route(torch.bfloat16, d, dv) == (
             "tc" if (d, dv) in tc_pairs else "simt")
-    assert fa.card_route(torch.bfloat16, 80) == "simt"
-    assert fa.card_route(torch.bfloat16, 192, 128) == "simt"
+    assert fa.card_route(torch.bfloat16, 80) == "tc"
+    assert fa.card_route(torch.bfloat16, 192, 128) == "tc"
+    assert fa.card_route(torch.float32, 80) == "simt"
+    assert fa.card_route(torch.float32, 192, 128) == "simt"
     assert "return static_cast<int>(cudaGetLastError());" in src
     assert "repro/kernels/flash_attention.py" in src
-    # the tensor-core route: wgmma fed by TMA, a bf16 instance for each of
-    # TC_HEAD_DIMS (d 128 among them), the key tile the emulation assumes
+    # the tensor-core route: wgmma fed by TMA, a bf16 instance for each
+    # pair of TC_HEAD_DIMS, the key tile the emulation assumes, and a P V
+    # form for each v head dim
     assert "wgmma.mma_async" in src and "cp.async.bulk.tensor" in src
-    tc_dims = tuple(int(x) for x in re.findall(r"TC_CASE\((\d+)\)", src))
-    assert tc_dims == fa.TC_HEAD_DIMS and 128 in tc_dims
+    tc_dims = tuple((int(a), int(b)) for a, b in
+                    re.findall(r"TC_CASE\((\d+), (\d+)\)", src))
+    assert tc_dims == fa.TC_HEAD_DIMS
+    assert {(80, 80), (192, 128)} <= set(tc_dims)
+    for dv in {dv for _, dv in tc_dims}:
+        assert f"void wgmma_rs<{dv}>(float (&d)[{dv // 2}]" in src
+        assert f"m64n{dv}k16.f32.bf16.bf16" in src
+    tc_local = tuple((int(a), int(b)) for a, b in
+                     re.findall(r"TC_LOCAL\((\d+), (\d+)\)", src))
+    assert tc_local == tc_dims
     tile = re.search(r"constexpr int kBK = (\d+);",
                      src.split("namespace tc {")[1])
     assert int(tile.group(1)) == EMULATED_KEY_TILE
@@ -471,7 +516,7 @@ def test_kernel_source_matches_its_wrapper():
     assert any("launch failed" in r for r in raises)
     assert any("no kernel for head dim" in r for r in raises)
     # the guard against spilling tensor-core builds reads the runtime
-    assert "int flash_attention_tc_local_bytes(int d)" in src
+    assert "int flash_attention_tc_local_bytes(int dqk, int dv)" in src
     assert "localSizeBytes" in src
     assert any("uses local memory" in r for r in raises)
     # the SIMT guard asks the runtime for exactly the instances built
@@ -493,8 +538,9 @@ _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
                                     "flash_attention_simt_local_bytes"])
 def test_ctypes_bindings_match_the_c_interface(symbol):
     """``_bind`` declares exactly the parameter types of each C entry of
-    ``flash_attention.cu`` (the SIMT entry takes v's head dim ``dv`` after
-    ``d``): a wrong count or width would pass garbage to the card."""
+    ``flash_attention.cu`` (both launch entries take v's head dim ``dv``
+    after ``d``, and the tensor-core guard asks by ``(dqk, dv)``): a wrong
+    count or width would pass garbage to the card."""
     src = (build.CSRC_DIR / "flash_attention.cu").read_text()
     m = re.search(r"int\s+" + symbol + r"\(([^)]*)\)", src)
     params = [re.sub(r"\s*\w+$", "", p.strip()) for p in
@@ -506,5 +552,9 @@ def test_ctypes_bindings_match_the_c_interface(symbol):
     fa._bind(lib)
     assert getattr(lib, symbol).argtypes == [_C_TYPES[p] for p in params]
     assert getattr(lib, symbol).restype == ctypes.c_int
-    if symbol == "flash_attention_bhsd_launch":
-        assert re.sub(r"\s+", " ", m.group(1)).count("int d, int dv,") == 1
+    params_text = re.sub(r"\s+", " ", m.group(1))
+    if symbol in ("flash_attention_bhsd_launch",
+                  "flash_attention_bhsd_tc_launch"):
+        assert params_text.count("int d, int dv,") == 1
+    if symbol == "flash_attention_tc_local_bytes":
+        assert params_text == "int dqk, int dv"

@@ -10,9 +10,9 @@ so it runs on a machine that has only PyTorch.
 
 Envelopes:
 
-* B6 (flash attention), both routes (bf16 at d 64 and 128 on the
-  tensor-core kernel, float32 and bf16 at d 48, at d 80 and at q/k 192
-  over v 128 on the SIMT kernel):
+* B6 (flash attention), both routes (bf16 at d 64, 80, 128 and at q/k
+  192 over v 128 on the tensor-core kernel, float32 at every pair and
+  bf16 at d 48 on the SIMT kernel):
   float32 within 1e-5 of max|out|; bfloat16 within 2 bf16 ulps of the
   plain output plus that float32 envelope (the two sum in other orders,
   and a value that cancels near zero has ulps finer than the float32
@@ -148,9 +148,10 @@ NEW_PAIRS = [(80, 80), (192, 128)]   # zamba2 / hubert; MLA's prefill
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None),
                                            (True, 9)])
 def test_b6_simt_pairs_match_plain(cuda, dtype, dims, causal, window):
-    """The SIMT instances at d 80 and at q/k 192 over v 128, both dtypes:
-    every launch on the SIMT route, the output (BH, Sq, dv), ring holes
-    (kpos -1) in every other shape; B6's envelopes."""
+    """d 80 and q/k 192 over v 128 in both dtypes: float32 on the SIMT
+    route, bf16 on the tensor-core route (each launch counted on its
+    route), the output (BH, Sq, dv), ring holes (kpos -1) in every other
+    shape; B6's envelopes."""
     d, dv = dims
     gen = torch.Generator().manual_seed(d + dv)
     for i, (Sq, Sk) in enumerate([(1, 1), (17, 17), (64, 64), (300, 300),
@@ -169,8 +170,10 @@ def test_b6_simt_pairs_match_plain(cuda, dtype, dims, causal, window):
         got = fa.flash_attention_bhsd(q, k, v, qp, kp, causal=causal,
                                       window=window, scale=d ** -0.5)
         after = _counts()
-        assert (after[0] - before[0], after[1] - before[1]) == (0, 1)
-        assert fa.card_route(dtype, d, dv) == "simt"
+        route = "simt" if dtype == torch.float32 else "tc"
+        assert fa.card_route(dtype, d, dv) == route
+        assert (after[0] - before[0], after[1] - before[1]) == (
+            (0, 1) if route == "simt" else (1, 0))
         want = fa.flash_attention_bhsd_ref(q, k, v, qp, kp, causal=causal,
                                            window=window, scale=d ** -0.5)
         torch.cuda.synchronize()
@@ -182,8 +185,8 @@ def test_b6_simt_pairs_match_plain(cuda, dtype, dims, causal, window):
 @pytest.mark.parametrize("G", [1, 2])
 def test_b6_fold_keeps_v_head_dim(cuda, dtype, G):
     """``kernels.ops.flash_attention`` at q/k 192 over v 128 (MLA's
-    prefill, G 1) and with G 2 heads folded: one SIMT launch, the card
-    against the CPU's plain version."""
+    prefill, G 1) and with G 2 heads folded: one launch (float32 SIMT,
+    bf16 tensor-core), the card against the CPU's plain version."""
     gen = torch.Generator().manual_seed(G)
     B, KV, S = 2, 3, 130
     q = torch.randn(B, S, KV * G, 192, generator=gen).to(dtype)
@@ -194,7 +197,8 @@ def test_b6_fold_keeps_v_head_dim(cuda, dtype, G):
     got = flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), pos.to(cuda),
                           pos.to(cuda), causal=True, scale=192 ** -0.5)
     after = _counts()
-    assert (after[0] - before[0], after[1] - before[1]) == (0, 1)
+    assert (after[0] - before[0], after[1] - before[1]) == (
+        (0, 1) if dtype == torch.float32 else (1, 0))
     want = flash_attention(q, k, v, pos, pos, causal=True, scale=192 ** -0.5)
     torch.cuda.synchronize()
     assert tuple(got.shape) == (B, S, KV * G, 128)
@@ -234,19 +238,24 @@ def _counts():
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"),
     (torch.bfloat16, 48, "simt"), (torch.float32, 128, "simt"),
-    (torch.float32, 64, "simt"), (torch.bfloat16, 80, "simt"),
-    (torch.float32, 80, "simt")])
+    (torch.float32, 64, "simt"), (torch.bfloat16, 80, "tc"),
+    (torch.float32, 80, "simt"), (torch.bfloat16, 192, "tc"),
+    (torch.float32, 192, "simt")])
 def test_b6_route_by_dtype_and_head_dim(cuda, dtype, d, route):
-    """bf16 at d 64 and 128 launches the tensor-core kernel; float32 (and
-    bf16 at d 48) the SIMT kernel: one launch, counted on its route."""
+    """bf16 at d 64, 80, 128 and at q/k 192 (over v 128) launches the
+    tensor-core kernel; float32 (and bf16 at d 48) the SIMT kernel: one
+    launch, counted on its route."""
+    dv = 128 if d == 192 else d
     gen = torch.Generator().manual_seed(d)
-    q, k, v = _case(gen, 2, 300, 300, d, dtype, cuda)
+    q, k = (torch.randn(2, 300, d, generator=gen).to(dtype).to(cuda)
+            for _ in range(2))
+    v = torch.randn(2, 300, dv, generator=gen).to(dtype).to(cuda)
     pos = torch.arange(300, dtype=torch.int32).to(cuda)
     before = _counts()
     got = fa.flash_attention_bhsd(q, k, v, pos, pos, causal=True,
                                   scale=d ** -0.5)
     after = _counts()
-    assert fa.card_route(dtype, d) == route
+    assert fa.card_route(dtype, d, dv) == route
     assert (after[0] - before[0], after[1] - before[1]) == \
         ((1, 0) if route == "tc" else (0, 1))
     want = fa.flash_attention_bhsd_ref(q, k, v, pos, pos, causal=True,
@@ -255,42 +264,60 @@ def test_b6_route_by_dtype_and_head_dim(cuda, dtype, d, route):
     check(got, want)
 
 
-def _folded(gen, G, S, d, dev, holes=False):
-    """A folded prompt of one batch row and 2 KV heads: q (2, G S, d) with
-    positions tile(pos, G); ring holes put -1 in every third key."""
+def _folded(gen, G, S, d, dev, holes=False, dv=None):
+    """A folded prompt of one batch row and 2 KV heads: q (2, G S, d), k
+    (2, S, d), v (2, S, dv) (dv defaults to d) with query positions
+    tile(pos, G); ring holes put -1 in every third key."""
+    dv = d if dv is None else dv
     q = torch.randn(2, G * S, d, generator=gen).to(torch.bfloat16).to(dev)
-    k, v = (torch.randn(2, S, d, generator=gen).to(torch.bfloat16).to(dev)
-            for _ in range(2))
+    k = torch.randn(2, S, d, generator=gen).to(torch.bfloat16).to(dev)
+    v = torch.randn(2, S, dv, generator=gen).to(torch.bfloat16).to(dev)
     pos = torch.arange(S, dtype=torch.int32)
     kpos = torch.where(torch.arange(S) % 3 == 0, -1, pos).to(torch.int32) \
         if holes else pos
     return q, k, v, pos.repeat(G).to(dev), kpos.to(dev)
 
 
+TC_PAIRS = [(128, 128), (80, 80), (192, 128)]   # the tensor-core (dqk, dv)
+
+
+@pytest.mark.parametrize("dims", TC_PAIRS)
 @pytest.mark.parametrize("G,S", [(5, 4096), (5, 77), (5, 200), (1, 333)])
-@pytest.mark.parametrize("window,holes", [(None, False), (9, False),
-                                          (None, True)])
-def test_b6_tc_folded_prompt_matches_plain(cuda, G, S, window, holes):
-    """The tensor-core kernel at a folded long prompt (G 5, S 4096) and at
-    Sq not a multiple of 128 (G S = 385, 1000, 333), where a query tile
-    holds rows of two heads; window 9 and ring holes; unchanged envelope."""
+@pytest.mark.parametrize("causal,window,holes", [
+    (True, None, False), (True, 9, False), (True, None, True),
+    (False, None, False)])
+def test_b6_tc_folded_prompt_matches_plain(cuda, G, S, causal, window, holes,
+                                           dims):
+    """The tensor-core kernel at each of its (q/k, v) pairs but 64, at a
+    folded long prompt (G 5, S 4096) and at Sq not a multiple of 128 (G S
+    = 385, 1000, 333), where a query tile holds rows of two heads; causal
+    with window 9 and with ring holes, and bidirectional; one tensor-core
+    launch; unchanged envelope."""
+    d, dv = dims
     gen = torch.Generator().manual_seed(G * S)
-    q, k, v, qpos, kpos = _folded(gen, G, S, 128, cuda, holes)
+    q, k, v, qpos, kpos = _folded(gen, G, S, d, cuda, holes, dv)
     before = _counts()
-    got = fa.flash_attention_bhsd(q, k, v, qpos, kpos, causal=True,
-                                  window=window, scale=128 ** -0.5)
-    assert _counts()[0] - before[0] == 1
-    want = fa.flash_attention_bhsd_ref(q, k, v, qpos, kpos, causal=True,
-                                       window=window, scale=128 ** -0.5)
+    got = fa.flash_attention_bhsd(q, k, v, qpos, kpos, causal=causal,
+                                  window=window, scale=d ** -0.5)
+    after = _counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 0)
+    want = fa.flash_attention_bhsd_ref(q, k, v, qpos, kpos, causal=causal,
+                                       window=window, scale=d ** -0.5)
     torch.cuda.synchronize()
+    assert tuple(got.shape) == (2, G * S, dv)
     check(got, want)
 
 
-def test_b6_tc_fully_masked_rows_are_zero(cuda):
-    """bf16 d 128: rows with qpos -1, rows that see no key, and a call
-    whose keys are all holes come out as zeros; the other rows do not."""
+@pytest.mark.parametrize("dims", TC_PAIRS)
+def test_b6_tc_fully_masked_rows_are_zero(cuda, dims):
+    """bf16 at each tensor-core pair but 64: rows with qpos -1, rows that
+    see no key, and a call whose keys are all holes come out as zeros; the
+    other rows do not; no keys at all (Sk 0) gives zeros too."""
+    d, dv = dims
     gen = torch.Generator().manual_seed(1)
-    q, k, v = _case(gen, 2, 300, 300, 128, torch.bfloat16, cuda)
+    q, k = (torch.randn(2, 300, d, generator=gen).to(torch.bfloat16).to(cuda)
+            for _ in range(2))
+    v = torch.randn(2, 300, dv, generator=gen).to(torch.bfloat16).to(cuda)
     qp = torch.arange(300, dtype=torch.int32)
     qp[::7] = -1
     kp = torch.arange(300, dtype=torch.int32) + 150   # rows < 150 see none
@@ -306,15 +333,39 @@ def test_b6_tc_fully_masked_rows_are_zero(cuda):
     none = fa.flash_attention_bhsd(q, k, v, qp.to(cuda), holes, causal=False,
                                    scale=0.1)
     assert bool((none == 0).all())
+    empty = fa.flash_attention_bhsd(q, k[:, :0].contiguous(),
+                                    v[:, :0].contiguous(), qp.to(cuda),
+                                    holes[:0].contiguous(), causal=False,
+                                    scale=0.1)
+    torch.cuda.synchronize()
+    assert tuple(empty.shape) == (2, 300, dv) and bool((empty == 0).all())
 
 
 def test_b6_tensor_core_kernels_do_not_spill(cuda):
-    """Both tensor-core instances (d 64, 128) use no local memory, as the
-    runtime reports it for the loaded build: the wrapper's own guard
-    (``_lib`` refuses such a build) passes.  The builds of this design that
-    spilled (S, the split P and O of 96- and 128-key tiles) ran slower,
-    and some gave wrong outputs on the card."""
-    assert fa._tc_local_bytes(fa._lib()) == {64: 0, 128: 0}
+    """All four tensor-core instances ((64, 64), (80, 80), (128, 128),
+    (192, 128)) use no local memory, as the runtime reports it for the
+    loaded build: the wrapper's own guard (``_lib`` refuses such a build)
+    passes.  The builds of this design that spilled (S, the split P and O
+    of 96- and 128-key tiles) ran slower, and some gave wrong outputs on
+    the card."""
+    assert fa._tc_local_bytes(fa._lib()) == {
+        (64, 64): 0, (80, 80): 0, (128, 128): 0, (192, 128): 0}
+
+
+def test_b6_tensor_core_instances_issue_wgmma_fed_by_tma(cuda):
+    """Each tensor-core instance, (64, 64), (80, 80), (128, 128) and (192,
+    128) by its mangled template arguments, issues warpgroup products
+    (``HGMMA`` in its SASS) and TMA tile loads (``UTMALDG``): the route
+    that bf16 at d 80 and at 192 over 128 now takes is the tensor-core
+    one, not the SIMT kernel under another name."""
+    from repro_torch.kernels import build
+    funcs = _sass_functions(build.load("flash_attention").path)
+    names = {tuple(map(int, m.groups())): n for n in funcs
+             for m in [re.search(r"fa_tc_kernelILi(\d+)ELi(\d+)EE", n)] if m}
+    assert sorted(names) == sorted(fa.TC_HEAD_DIMS), sorted(funcs)
+    for pair, name in names.items():
+        assert any("HGMMA" in ln for ln in funcs[name]), pair
+        assert any("UTMALDG" in ln for ln in funcs[name]), pair
 
 
 def test_b6_simt_kernels_do_not_spill(cuda):
@@ -326,7 +377,7 @@ def test_b6_simt_kernels_do_not_spill(cuda):
     used = fa._simt_local_bytes(fa._lib())
     assert set(used) == {(str(dt)[6:], d, dv)
                          for dt, d, dv in fa.simt_instances()}
-    assert len(used) == 8 and not any(used.values()), used
+    assert len(used) == 6 and not any(used.values()), used
 
 
 def test_model_prefill_on_the_card_matches_the_cpu(cuda):

@@ -200,9 +200,10 @@ def test_fold_at_unequal_head_dims_matches_reference_attend(dims, causal,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_matches_reference_oracle_at_new_pairs(dims, causal, window,
                                                      dtype):
-    """B6's plain version at the head-dim pairs of the new SIMT instances
-    (zamba2 / hubert d 80, MLA's prefill 192 over 128), ring holes in
-    kpos, against ``repro.kernels.ref.flash_attention_ref``."""
+    """B6's plain version at the head-dim pairs of zamba2 / hubert (d 80)
+    and MLA's prefill (192 over 128), whose kernels are the float32 SIMT
+    and the bf16 tensor-core instances, ring holes in kpos, against
+    ``repro.kernels.ref.flash_attention_ref``."""
     d, dv = dims
     BH, Sq, Sk = 3, 40, 70
     rng = np.random.default_rng(d + dv)

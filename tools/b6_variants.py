@@ -3,6 +3,7 @@
     python3 tools/b6_variants.py ablation      # parts of the work left out
     python3 tools/b6_variants.py spill         # builds that spill
     python3 tools/b6_variants.py simt          # the SIMT kernel's spill
+    python3 tools/b6_variants.py tc_vs_simt    # d 80 and 192/128: both routes
 
 Each variant is ``src/repro_torch/kernels/csrc/flash_attention.cu`` with a
 preset's string edits applied (each must find its target).  All
@@ -26,7 +27,19 @@ The preset ``simt`` studies the SIMT kernel instead: for each variant it
 prints every SIMT instance's registers (ptxas) and local memory (the
 runtime's ``flash_attention_simt_local_bytes``), holds each instance
 against the plain version at (2, 300) causal, and times it eagerly at
-(32, 2048) causal and at phase 17b's three 8192-token bf16 prefills.
+(32, 2048) causal.
+
+The preset ``tc_vs_simt`` compares the two routes at the pairs whose bf16
+calls moved to the tensor cores, d 80 and q/k 192 over v 128, on one
+host: its variant ``simt_back`` builds the bf16 SIMT instances of those
+pairs back into the source (its tensor-core instances are the committed
+ones), and ``pv128`` runs d 80's P V at N 128 over V's zero-filled
+columns instead of N 80.  For each it prints every tensor-core and bf16
+SIMT instance's registers and local memory, then at phase 17b's three
+8192-token bf16 prefills holds each route against the plain version
+(B6's bf16 envelope) and times it as ``chip_smoke.py`` times a kernel
+(graph-replayed and eager, in turns: SIMT, tensor-core, tensor-core,
+SIMT), with the bound and the achieved TFLOP/s of each.
 
 The wrapper refuses a build whose tensor-core instances use local memory;
 this tool launches its variants without that check, to study them.
@@ -85,19 +98,33 @@ NO_EXP = [("ex2((x - (e < 2 ? mn0 : mn1)) * kLog2e)",
            "((x - (e < 2 ? mn0 : mn1)) * kLog2e)")]
 NO_LO = [("""#pragma unroll
   for (int j = 0; j < kBK / 16; ++j)
-    wgmma_rs<D>(o, pl[j],
+    wgmma_rs<N>(o, pl[j],
                 sw128_desc(va + j * 16 * kRowBytes, kBK * kRowBytes, 1024));
 """, "")]
 NO_SOFTMAX = [("float& m1, float& l0, float& l1, float& a0, float& a1) {\n",
                "float& m1, float& l0, float& l1, float& a0, float& a1) {\n"
                "  a0 = a1 = 1.f;\n  if (scale != -1.f) return;\n")]
-_SIMT_BOUNDS = "__launch_bounds__(kThreads)\nflash_attention_kernel("
-SIMT_MIN1 = [(_SIMT_BOUNDS,
-              "__launch_bounds__(kThreads, 1)\nflash_attention_kernel(")]
+_SIMT_BOUNDS = "__launch_bounds__(kThreads, 1)\nflash_attention_kernel("
+SIMT_MIN0 = [(_SIMT_BOUNDS,
+              "__launch_bounds__(kThreads)\nflash_attention_kernel(")]
 SIMT_MIN2 = [(_SIMT_BOUNDS,
               "__launch_bounds__(kThreads, 2)\nflash_attention_kernel(")]
 SIMT_UNROLL4 = [("#pragma unroll 8\n    for (int c = 0; c < DQK; ++c) {",
                  "#pragma unroll 4\n    for (int c = 0; c < DQK; ++c) {")]
+# the bf16 SIMT instances that the tensor-core route replaced at d 80 and
+# at q/k 192 over v 128 (PR 27's), built back into the SIMT entry and its
+# local-memory query
+SIMT_BACK = [("    FA_CASE(__nv_bfloat16, 48, 48)\n",
+              "    FA_CASE(__nv_bfloat16, 48, 48)\n"
+              "    FA_CASE(__nv_bfloat16, 80, 80)\n"
+              "    FA_CASE(__nv_bfloat16, 192, 128)\n"),
+             ("    FA_LOCAL(__nv_bfloat16, 48, 48)\n",
+              "    FA_LOCAL(__nv_bfloat16, 48, 48)\n"
+              "    FA_LOCAL(__nv_bfloat16, 80, 80)\n"
+              "    FA_LOCAL(__nv_bfloat16, 192, 128)\n")]
+# P V over all of V's 64-column halves (N 128 at d 80, V's columns 80-127
+# TMA's zeros) instead of N = dv
+PV128 = [("constexpr int N = DV;", "constexpr int N = 64 * L::kVHalves;")]
 PRESETS = {
     "ablation": {"abl_base": [], "abl_no_exp": NO_EXP, "abl_no_lo": NO_LO,
                  "abl_no_softmax": NO_SOFTMAX,
@@ -109,11 +136,14 @@ PRESETS = {
               "keys128_thread_wg": KEYS_128 + THREAD_WG,
               "keys128_exp2f": KEYS_128 + EXP2F,
               "cap128": CAP_128, "cap128_thread_wg": CAP_128 + THREAD_WG},
-    # the SIMT kernel: the committed source, a minimum of one and of two
-    # blocks a multiprocessor in its launch bounds, and the score loop
-    # unrolled by 4 instead of 8
-    "simt": {"base": [], "min1": SIMT_MIN1, "min2": SIMT_MIN2,
-             "unroll4": SIMT_UNROLL4, "min1_unroll4": SIMT_MIN1 + SIMT_UNROLL4}}
+    # the SIMT kernel: the committed source (a minimum of one block a
+    # multiprocessor in its launch bounds), no minimum, a minimum of two,
+    # and the score loop unrolled by 4 instead of 8
+    "simt": {"base": [], "min0": SIMT_MIN0, "min2": SIMT_MIN2,
+             "unroll4": SIMT_UNROLL4},
+    # the bf16 SIMT instances at d 80 and 192 over 128 built back in,
+    # beside the committed tensor-core ones; d 80's P V at N 128
+    "tc_vs_simt": {"simt_back": SIMT_BACK, "pv128": PV128}}
 # phase 17b's 8192-token bf16 prefills: (name, (d, dv), BH, causal)
 SIMT_17B = (("zamba2", (80, 80), 32, True), ("mla", (192, 128), 128, True),
             ("hubert", (80, 80), 16, False))
@@ -232,16 +262,64 @@ def run_simt(name: str) -> dict:
             else:
                 row["eager_us_32x2048"] = _eager_us(call, reps)
         out[f"{str(dt)[6:]} ({d}, {dv})"] = row
+    return out
+
+
+def _simt_bf16(lib, q, k, v, qpos, kpos, *, causal, scale):
+    """One launch of the bf16 SIMT instance at q's and v's head dims
+    through the SIMT C entry (the wrapper sends these pairs to the
+    tensor-core route)."""
+    BH, Sq, d = q.shape
+    out = torch.empty(BH, Sq, v.shape[2], dtype=v.dtype, device=v.device)
+    code = lib.flash_attention_bhsd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
+        kpos.data_ptr(), out.data_ptr(), BH, Sq, k.shape[1], d, v.shape[2],
+        1, float(scale), int(causal), 0, 0,
+        torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"SIMT launch failed ({code})")
+    return out
+
+
+def run_compare(name: str) -> dict:
+    """Both routes (the SIMT one where the variant has its bf16 instance)
+    at phase 17b's three 8192-token bf16 prefills: checked against the
+    plain version, then timed by ``chip_smoke._time_kernel`` in turns."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    lib = fa._lib()
+    out = {}
     for arch, (d, dv), BH, causal in SIMT_17B:
+        gen = torch.Generator(device="cuda").manual_seed(8192 + d)
         q, k = (torch.randn(BH, 8192, d, generator=gen, device="cuda",
                             dtype=torch.bfloat16) for _ in range(2))
         v = torch.randn(BH, 8192, dv, generator=gen, device="cuda",
                         dtype=torch.bfloat16)
         pos = torch.arange(8192, dtype=torch.int32, device="cuda")
-        out[f"17b {arch} eager_us"] = _eager_us(
-            lambda: fa.flash_attention_bhsd(q, k, v, pos, pos, causal=causal,
-                                            scale=d ** -0.5), 3)
+        kw = dict(causal=causal, scale=d ** -0.5)
+        calls = {"tc": lambda: fa.flash_attention_bhsd(q, k, v, pos, pos,
+                                                       **kw)}
+        if lib.flash_attention_simt_local_bytes(1, d, dv) >= 0:
+            calls["simt"] = lambda: _simt_bf16(lib, q, k, v, pos, pos, **kw)
+        want = cs._fa_plain_rows(q, k, v, pos, pos, **kw)
+        nbytes, flops = cs.attention_work(BH, d, pos, pos, causal=causal,
+                                          window=None, itemsize=2, dv=dv)
+        bound_ms = max(nbytes / cs.HBM_BYTES_PER_S,
+                       flops / cs.BF16_OPS_PER_S) * 1e3
+        row = {"bound_us": bound_ms * 1e3}
+        for route, call in calls.items():
+            row[f"{route}_max_abs_err"] = cs._fa_check(call(), want)
+        del want
+        torch.cuda.empty_cache()
+        order = ["simt", "tc", "tc", "simt"] if "simt" in calls else ["tc"]
+        for i, route in enumerate(order):
+            graph_ms, eager_ms, _, _ = cs._time_kernel(calls[route])
+            row[f"{route}_{i}_graph_us"] = graph_ms * 1e3
+            row[f"{route}_{i}_eager_us"] = eager_ms * 1e3
+            row[f"{route}_{i}_tflops"] = flops / (graph_ms * 1e9)
+        out[f"{arch} ({d}, {dv}) BH {BH} causal {causal}"] = row
         del q, k, v
+        torch.cuda.empty_cache()
     return out
 
 
@@ -261,7 +339,8 @@ def main() -> None:
         name = sys.argv[3]
         lib = fa._bind(load_variant(name, todo[name], src_dir).lib)
         fa._lib = lambda: lib
-        run = run_simt if which == "simt" else run_one
+        run = {"simt": run_simt, "tc_vs_simt": run_compare}.get(which,
+                                                                run_one)
         print("RESULT " + json.dumps(run(name)), flush=True)
         return
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -284,16 +363,24 @@ def main() -> None:
                      f": {child.stderr[-1500:]}"), flush=True)
             continue
         regs = re.findall(r"Function properties for \S*fa_tc_kernelILi(\d+)"
-                          r"EE\S*\n[^\n]*\n[^\n]*Used (\d+) registers",
-                          b.ptxas)
+                          r"ELi(\d+)EE\S*\n[^\n]*\n[^\n]*Used (\d+) "
+                          r"registers", b.ptxas)
         serialized = sorted(set(re.findall(r"\((C75\d\d)\)", b.ptxas)))
+        lib = fa._bind(b.lib)
+        simt = ""
+        if which == "tc_vs_simt":
+            simt = (f", SIMT registers {_simt_registers(b.ptxas)}, bf16 "
+                    "local bytes by (d, dv) " + str({
+                        p: lib.flash_attention_simt_local_bytes(1, *p)
+                        for p in ((80, 80), (192, 128))}))
         child = subprocess.run([sys.executable, __file__, which, "--one",
                                 name], capture_output=True, text=True,
-                               timeout=300)
+                               timeout=600)
         line = [s for s in child.stdout.splitlines()
                 if s.startswith("RESULT ")]
-        print(f"{name}: tensor-core registers by d {dict(regs)}, local "
-              f"bytes {fa._tc_local_bytes(fa._bind(b.lib))}, wgmma "
+        print(f"{name}: tensor-core registers by (d, dv) "
+              f"{ {(int(a), int(c)): int(r) for a, c, r in regs} }, local "
+              f"bytes {fa._tc_local_bytes(lib)}{simt}, wgmma "
               f"serialization warnings {serialized}; "
               + (line[0][7:] if line else f"failed ({child.returncode}): "
                  f"{child.stderr[-1500:]}"), flush=True)
