@@ -52,6 +52,11 @@ PyTorch version on the card, and drives the port's main paths:
 * the federated trainer ``launch.train_federated``: CI's convex run, 400
   uploads through B2 and with ``buffer_size=4`` through B3, card against
   CPU (FT1), and the 25m transformer preset's host loop (FT2, no kernel).
+* the sharded trainer ``launch.run_distributed`` (D1): qwen2-moe-a2.7b at
+  full width (depth cut to fit one card beside the unsharded step) on a
+  2x4 ("data", "model") mesh that lists the card eight times, parameters
+  and moments cut by the sharding planner, against the unsharded step
+  from the same initial state; no hand-written kernel runs there.
 
 * training: ``launch.train.run_training`` and ``launch.train_bcd`` on the
   100m preset at full width and depth (TR1, TR3), card against CPU at a
@@ -127,10 +132,12 @@ from repro_torch.launch import sweep as tsweep  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.launch import train_bcd as tbcd  # noqa: E402
 from repro_torch.launch import train_federated as tfed  # noqa: E402
+from repro_torch.launch import run_distributed as trdist  # noqa: E402
+from repro_torch.launch.steps import make_trainer  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.data import EmbedStream  # noqa: E402
 from repro_torch.models import (decode_step, forward,  # noqa: E402
-                                init_params, prefill)
+                                init_params, param_specs, prefill)
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.models.transformer import (Layer,  # noqa: E402
                                             Transformer)
@@ -139,7 +146,10 @@ from repro_torch.sweep.policies import POLICY_IDS, PolicyParams  # noqa: E402
 from repro_torch.sweep.cache import clear_program_cache  # noqa: E402
 from repro_torch.sweep.grid import make_grid  # noqa: E402
 from repro_torch.sweep.runners import fed_bucket_races  # noqa: E402
-from repro_torch.mesh import cell_mesh, grid_mesh  # noqa: E402
+from repro_torch.mesh import (batch_shardings, cell_mesh,  # noqa: E402
+                              device_put, dp_size, grid_mesh, make_mesh,
+                              position_bytes)
+from repro_torch.core.pytree import tree_leaves  # noqa: E402
 from repro_torch.staticcheck import cachekey as sc_cachekey  # noqa: E402
 from repro_torch.staticcheck import contracts as sc_contracts  # noqa: E402
 from repro_torch.staticcheck import lint as sc_lint  # noqa: E402
@@ -3055,6 +3065,149 @@ def phase_card_vs_cpu(tag: str, archs, overrides=None) -> None:
         "tokens equal: " + "; ".join(parts))
 
 
+# ------------------------------------------------- the sharded trainer ----
+
+# D1: launch.run_distributed on qwen2-moe-a2.7b at full width (d_model
+# 2048, 16 heads of 128, 60 experts of 1408, shared expert 5632, vocab
+# 151936, bf16 parameters) on a 2x4 ("data", "model") mesh that lists the
+# card eight times: experts 60 / 4 and the vocab on "model", FSDP over
+# "data".  Depth is the one cut: the largest (at least 2) at which the
+# unsharded and the sharded step, one after the other, leave DIST_FREE
+# bytes of the card free by the estimate below, checked against the
+# measured peaks.
+DIST_MESH = (2, 4)
+DIST_BATCH, DIST_SEQ, DIST_STEPS = 8, 512, 3
+DIST_FREE = 10e9
+# the estimate of a step's peak reserved bytes: a line through the
+# unsharded step's measured peaks at depths 2 and 3 (62.44 and 80.07 GB at
+# 1.763 and 2.330 B params on an H100 80GB HBM3; the sharded step's were
+# 57.50 and 76.11): 31 bytes a parameter (bf16 parameters, float32 AdamW
+# moments; the update holds the old and new moments, the clipped gradients
+# and the float32 update at once) and 7.6 GB besides (the activations:
+# 4096 tokens' float32 log-softmax over 151936 logits and its gradient)
+DIST_BYTES_PER_PARAM = 31
+DIST_ACT_BYTES = 7.6e9
+
+
+def _dist_params(cfg, depth: int) -> int:
+    return sum(t.numel() for t in
+               tree_leaves(param_specs(cfg.replace(n_layers=depth))))
+
+
+def _dist_depth(cfg, room: float) -> int:
+    """The largest depth of at least 2 whose estimated peak leaves
+    ``DIST_FREE`` of ``room`` bytes."""
+    depth = 2
+    while depth < cfg.n_layers and (
+            DIST_BYTES_PER_PARAM * _dist_params(cfg, depth + 1)
+            + DIST_ACT_BYTES <= room - DIST_FREE):
+        depth += 1
+    return depth
+
+
+def phase_d1_run_distributed(name: str, depth: Optional[int] = None
+                             ) -> None:
+    """``launch.run_distributed.run`` at full width on the card listed at
+    every position of a 2x4 mesh, after the unsharded step from the same
+    initial state: the step-0 loss bitwise, taus exact, gammas bitwise,
+    losses finite, no hand-written kernel launched; steps/s, each step's
+    gather / compute / cut-and-update seconds, peaks, the bytes a mesh
+    position holds, and one profiled step's launch calls and idle
+    share."""
+    t_phase = time.perf_counter()
+    clear_program_cache()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(CARD).total_memory
+    room = total - torch.cuda.memory_allocated(CARD)
+    full = get_config(MOE_ARCH)
+    depth = depth or _dist_depth(full, room)
+    cfg = full.replace(n_layers=depth)
+    n_params = _dist_params(full, depth)
+    mesh = make_mesh(DIST_MESH, devices=[CARD] * int(np.prod(DIST_MESH)))
+    n_workers = dp_size(mesh)
+    trainer = make_trainer(cfg.replace(attention_impl="chunked"),
+                           n_workers=n_workers, lr=1e-3)
+    stream = ttrain.make_stream(cfg, DIST_BATCH, DIST_SEQ, device=CARD)
+    reset_counts()
+    # the unsharded step from the same initial state (the port's
+    # initializer, seed 0), its memory freed before the sharded run
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init(device=CARD)
+    plain, plain_walls = [], []
+    for k in range(DIST_STEPS):
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, stream.batch_at(k),
+                                      k % n_workers)
+        plain.append((float(m["loss"]), float(m["gamma"]), int(m["tau"])))
+        plain_walls.append(time.perf_counter() - t0)
+    del state, m
+    torch.cuda.empty_cache()
+    peak_plain = torch.cuda.max_memory_reserved(CARD)
+    torch.cuda.reset_peak_memory_stats()
+    state, log = trdist.run(cfg, mesh, DIST_STEPS, DIST_BATCH, DIST_SEQ,
+                            device=CARD)
+    peak_sharded = torch.cuda.max_memory_reserved(CARD)
+    launched = {fn.__name__: fn.launches for fn in COUNTERS if fn.launches}
+    if launched:
+        raise AssertionError(f"D1: hand-written kernels launched: {launched}")
+    losses = [r["loss"] for r in log]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"D1: losses {losses}")
+    if losses[0] != plain[0][0]:
+        raise AssertionError(f"D1: step-0 loss {losses[0]!r} sharded, "
+                             f"{plain[0][0]!r} unsharded")
+    for r, (_, gamma, tau) in zip(log, plain):
+        if r["tau"] != tau or np.float32(r["gamma"]).view(np.int32) != \
+                np.float32(gamma).view(np.int32):
+            raise AssertionError(f"D1: step {r['step']} sharded {r}, "
+                                 f"unsharded gamma {gamma} tau {tau}")
+    if not max(peak_plain, peak_sharded) <= total - DIST_FREE:
+        raise AssertionError(
+            f"D1: peaks {peak_plain / 1e9:.2f} / {peak_sharded / 1e9:.2f} GB "
+            f"leave less than {DIST_FREE / 1e9:g} GB of {total / 1e9:.2f}")
+    held = position_bytes(state)
+    # one more step, profiled
+    with mesh:
+        b = stream.batch_at(DIST_STEPS)
+        b = device_put(b, batch_shardings(b, mesh, DIST_BATCH))
+        wall, by_name, launch_calls = _profile(
+            lambda: trdist.sharded_train_step(trainer, state, b,
+                                              DIST_STEPS % n_workers, CARD),
+            warm=False)
+    busy = sum(by_name.values()) / 1e6
+    idle = f"{1 - busy / wall:.3f}" if busy > 0 else "not measured"
+    del state, b
+    torch.cuda.empty_cache()
+    walls = [r["wall_s"] for r in log]
+    say("D1 run_distributed", f"launch.run_distributed {MOE_ARCH} at full "
+        f"width, depth cut to {depth} of {full.n_layers} layers "
+        f"({n_params / 1e9:.3f} B bf16 params), mesh {DIST_MESH} "
+        f"('data', 'model') listing {CARD} 8 times, batch {DIST_BATCH} x "
+        f"seq {DIST_SEQ}, {DIST_STEPS} steps: {DIST_STEPS / sum(walls):.3f} "
+        f"steps/s sharded, {DIST_STEPS / sum(plain_walls):.3f} unsharded "
+        f"(run first: its first step warms the card); steps after the "
+        f"first {(DIST_STEPS - 1) / sum(walls[1:]):.3f} sharded, "
+        f"{(DIST_STEPS - 1) / sum(plain_walls[1:]):.3f} unsharded; step "
+        f"walls s sharded {', '.join(f'{w:.4f}' for w in walls)}, "
+        f"unsharded {', '.join(f'{w:.4f}' for w in plain_walls)}; "
+        "per step gather / compute / cut+update s: "
+        + "; ".join(f"{r['gather_s']:.4f} / {r['compute_s']:.4f} / "
+                    f"{r['update_s']:.4f}" for r in log)
+        + f"; losses {', '.join(f'{v:.6f}' for v in losses)} (step 0 "
+        f"bitwise the unsharded step's; unsharded "
+        f"{', '.join(f'{p[0]:.6f}' for p in plain)}); taus "
+        f"{[r['tau'] for r in log]}, gammas bitwise; peak reserved "
+        f"{peak_plain / 1e9:.2f} GB unsharded, {peak_sharded / 1e9:.2f} GB "
+        f"sharded of {total / 1e9:.2f} GB (estimate "
+        f"{(DIST_BYTES_PER_PARAM * n_params + DIST_ACT_BYTES) / 1e9:.2f}); a "
+        f"mesh position holds {held.max() / 1e9:.3f} GB at most, "
+        f"{held.min() / 1e9:.3f} GB at least; one profiled step: wall "
+        f"{wall:.3f} s, device busy {busy:.3f} s, idle share {idle}, "
+        f"{launch_calls} kernel launch calls on the host; no hand-written "
+        f"kernel launched; card {name}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 # ------------------------------------------- B4, B5, B7 and kernels.ops ----
 
 def _bf16_ulp(w: torch.Tensor) -> torch.Tensor:
@@ -3549,6 +3702,9 @@ def main() -> None:
     phases_training()
     fed_cli_runs = phase_ft1_federated_convex()
     phase_ft2_federated_transformer()
+    # the model sharded over a 2x4 mesh of the card (no kernel: training
+    # takes the chunked attention)
+    phase_d1_run_distributed(name)
     torch.cuda.empty_cache()
     # the serving path (B6): the kernel alone first, then the full model
     fa_err = phase_fa_vs_plain()

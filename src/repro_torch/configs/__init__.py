@@ -4,8 +4,8 @@
 ``get_config(arch_id)`` returns the shape-only ``ModelConfig`` of every
 architecture in ``ARCH_IDS``; the ten modules are data copied from the
 reference, field for field.  ``paper_logreg`` holds the paper's convex
-workloads.  The input shapes of the dry-run (``repro.configs.shapes``)
-come with the dry-run tooling (ROADMAP item 15).
+workloads; ``shapes`` the dry-run's four input shapes and their abstract
+inputs (``meta`` tensors).
 """
 from importlib import import_module
 from typing import List
@@ -36,4 +36,7 @@ def get_config(arch_id: str) -> ModelConfig:
     return cfg
 
 
-__all__ = ["ARCH_IDS", "get_config"]
+from .shapes import SHAPES, InputShape, applicable, input_specs  # noqa: E402
+
+__all__ = ["ARCH_IDS", "get_config", "SHAPES", "InputShape", "applicable",
+           "input_specs"]

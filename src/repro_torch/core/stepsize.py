@@ -27,7 +27,7 @@ from typing import ClassVar, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ..kernels.dispatch import resolve_device
+from ..kernels.dispatch import resolve_device_or_meta
 
 DEFAULT_HORIZON = 4096
 
@@ -67,8 +67,9 @@ class StepsizeState(NamedTuple):
 def init_state(horizon: int = DEFAULT_HORIZON,
                batch_shape: Tuple[int, ...] = (),
                device=None) -> StepsizeState:
-    """Fresh policy state; ``batch_shape`` prepends cell dimensions."""
-    dev = resolve_device(device)
+    """Fresh policy state; ``batch_shape`` prepends cell dimensions
+    (``device="meta"``: shapes only)."""
+    dev = resolve_device_or_meta(device)
     shape = tuple(batch_shape)
     return StepsizeState(
         k=torch.zeros(shape, dtype=torch.int32, device=dev),

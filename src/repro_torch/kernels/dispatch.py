@@ -21,7 +21,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "kernel_route", "current_stream_handle"]
+__all__ = ["resolve_device", "resolve_device_or_meta", "kernel_route",
+           "current_stream_handle"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -36,6 +37,16 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def resolve_device_or_meta(device=None) -> torch.device:
+    """:func:`resolve_device`, and ``meta`` as well: tensors that carry a
+    shape and a dtype and no storage, for the trees the sharding planner
+    plans at full size (``models.param_specs``, ``Trainer.state_specs``,
+    ``configs.input_specs``)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
 
 
 def kernel_route(*tensors: torch.Tensor) -> str:

@@ -7,8 +7,9 @@ gradient for the arriving worker's batch, write-event delay bookkeeping
 (principle (8) via core.stepsize) and the (optionally proximal) parameter
 update.  Parameters are the reference-layout tree of tensors
 (``models.param_tree``); gradients come from ``torch.autograd`` with
-respect to its leaves.  The reference's ``Trainer.state_specs`` (abstract
-shapes for the dry-run) comes with ROADMAP queue A item 15.
+respect to its leaves.  ``Trainer.state_specs`` is the train state on the
+``meta`` device (shapes only), which the sharding planner plans at full
+size.
 """
 from __future__ import annotations
 
@@ -58,6 +59,14 @@ class Trainer:
         as the reference-layout tree, and a fresh optimizer state."""
         from ..models import init_params
         params = param_tree(init_params(self.cfg, generator, device=device))
+        return TrainState(params=params, opt=self.optimizer.init(params))
+
+    def state_specs(self) -> TrainState:
+        """The parameters (``models.param_specs``) and ``optimizer.init``
+        of them, every leaf on ``meta``: shapes and dtypes, no allocation
+        (the reference's ``jax.eval_shape`` of the state)."""
+        from ..models import param_specs
+        params = param_specs(self.cfg)
         return TrainState(params=params, opt=self.optimizer.init(params))
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],

@@ -27,19 +27,47 @@ Exactness contract (as the reference's): for a loss that is a mean over a
 leading sample axis plus x-only terms, the data-parallel gradient equals
 the full one up to the order of the float sums; the sample count must
 divide by ``size``, else ``ValueError``.
+
+The model half (the reference's production meshes and sharding planner):
+
+* :class:`PartitionSpec` (``P``), :class:`NamedSharding` and
+  :class:`AbstractMesh` (axis names and sizes, no devices: the 256- and
+  512-device production meshes are planned without them);
+* :func:`make_production_mesh` / :func:`make_mesh` -- ``("data",
+  "model")`` meshes (``"pod"`` in front for three axes) over every CUDA
+  card by default, raising when there are fewer; an explicit device list
+  may repeat a device.  A model mesh lives in one process;
+* the planner -- :func:`param_shardings`, :func:`batch_shardings`,
+  :func:`cache_shardings`, :func:`replicated`, :func:`describe_shardings`
+  -- with the reference's rules, over the port's pytrees; leaves may be
+  tensors on any device (``meta`` too) or anything with a ``shape``;
+* ``with mesh:`` -- the ambient model mesh that ``models.act_constraint``
+  checks its spec against (:func:`current_mesh`);
+* :func:`device_put` / :func:`gather` -- a tensor cut by its sharding
+  into one block a mesh position (a :class:`ShardedTensor`) and put back
+  together bitwise.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+import threading
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .core.pytree import (tree_flatten_with_path, tree_leaves, tree_map,
+                          tree_map_with_path)
 
 __all__ = ["CELL_AXIS", "DATA_AXIS", "Mesh", "cell_mesh", "grid_mesh",
            "cell_axis_size", "data_axis_size", "mesh_topology",
            "default_devices", "pmean_grad", "data_parallel_grad",
            "split_samples", "init_distributed", "maybe_init_distributed",
-           "process_count", "process_index"]
+           "process_count", "process_index", "PartitionSpec", "P",
+           "NamedSharding", "AbstractMesh", "ShardedTensor", "current_mesh",
+           "make_production_mesh", "make_mesh", "dp_axes", "dp_size",
+           "model_size", "param_shardings", "batch_shardings",
+           "cache_shardings", "replicated", "describe_shardings",
+           "device_put", "gather", "position_bytes"]
 
 CELL_AXIS = "cells"
 DATA_AXIS = "data"
@@ -87,6 +115,16 @@ class Mesh:
         shard, all of them (one per data-axis entry) its gradients."""
         n = cell_axis_size(self)
         return [list(self.devices.reshape(n, -1)[r]) for r in range(n)]
+
+    def __enter__(self) -> "Mesh":
+        """``with mesh:`` makes this the ambient model mesh
+        (:func:`current_mesh`), as the reference's ``with mesh:``."""
+        _one_process(self)
+        _ambient_stack().append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _ambient_stack().pop()
 
     def row_process(self, r: int) -> int:
         """The rank that runs row ``r`` (a row lives in one process)."""
@@ -333,3 +371,510 @@ def pmean_grad(loss_fn: Callable, axis: str = DATA_AXIS, size: int = 1,
                                                               axis))])
 
     return grad_fn
+
+
+# ---------------------------------------------------------------------------
+# model meshes: specs, shardings and the ambient mesh
+# ---------------------------------------------------------------------------
+
+class PartitionSpec(tuple):
+    """``jax.sharding.PartitionSpec``: one entry a dim, each ``None``
+    (replicated), an axis name, or a tuple of axis names (major first);
+    dims past the last entry are replicated."""
+
+    def __new__(cls, *entries):
+        for e in entries:
+            if not (e is None or isinstance(e, str) or (
+                    isinstance(e, tuple)
+                    and all(isinstance(a, str) for a in e))):
+                raise TypeError(f"a PartitionSpec entry is None, an axis "
+                                f"name or a tuple of them; got {e!r}")
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:  # jax's text, ``PartitionSpec('model',)``
+        return "PartitionSpec" + tuple.__repr__(self)
+
+    __str__ = __repr__
+
+
+P = PartitionSpec
+
+
+def _axes_of(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+class AbstractMesh:
+    """Axis names and sizes without devices (``jax.sharding.AbstractMesh``):
+    enough to plan a mesh that is not here."""
+
+    def __init__(self, sizes: Sequence[int], names: Sequence[str]):
+        self.axis_names: Tuple[str, ...] = tuple(names)
+        self._sizes = tuple(int(s) for s in sizes)
+        if len(self._sizes) != len(self.axis_names):
+            raise ValueError(f"sizes {self._sizes} do not fit the axes "
+                             f"{self.axis_names}")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self._sizes))
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
+
+
+_AMBIENT = threading.local()
+
+
+def _ambient_stack() -> list:
+    if not hasattr(_AMBIENT, "stack"):
+        _AMBIENT.stack = []
+    return _AMBIENT.stack
+
+
+def current_mesh() -> Optional[Mesh]:
+    """The innermost ``with mesh:`` of this thread, or None."""
+    stack = _ambient_stack()
+    return stack[-1] if stack else None
+
+
+def _one_process(mesh: Mesh) -> None:
+    """A model mesh lives in one process: raise when its entries belong to
+    several ``torch.distributed`` ranks, or to another one."""
+    procs = sorted(set(int(p) for p in np.asarray(mesh.processes).flat))
+    if len(procs) > 1:
+        raise ValueError(
+            f"a model mesh lives in one process; this one spans the "
+            f"torch.distributed ranks {procs} (multi-process model meshes "
+            "are not supported)")
+    if procs != [process_index()]:
+        raise ValueError(f"this mesh's devices belong to rank {procs[0]}; "
+                         f"this process is rank {process_index()}")
+
+
+def _check_spec(mesh, spec: PartitionSpec) -> None:
+    seen = []
+    for e in spec:
+        for a in _axes_of(e):
+            if a not in mesh.axis_names:
+                raise ValueError(f"axis {a!r} of {spec!r} is not in the mesh "
+                                 f"{tuple(mesh.axis_names)}")
+            if a in seen:
+                raise ValueError(f"axis {a!r} appears twice in {spec!r}")
+            seen.append(a)
+
+
+class NamedSharding:
+    """A ``PartitionSpec`` over a mesh (``jax.sharding.NamedSharding``):
+    dim i is cut into the product of the sizes of ``spec[i]``'s axes."""
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.spec = (spec if isinstance(spec, PartitionSpec)
+                     else PartitionSpec(*spec))
+        _check_spec(mesh, self.spec)
+
+    def _factors(self, ndim: int) -> List[int]:
+        if len(self.spec) > ndim:
+            raise ValueError(f"{self.spec!r} has more entries than the "
+                             f"{ndim} dims it shards")
+        sizes = self.mesh.shape
+        spec = tuple(self.spec) + (None,) * (ndim - len(self.spec))
+        return [int(np.prod([sizes[a] for a in _axes_of(e)], dtype=np.int64))
+                for e in spec]
+
+    def shard_shape(self, global_shape: Sequence[int]) -> Tuple[int, ...]:
+        """The shape of one block; raises when a dim does not divide."""
+        shape = tuple(int(n) for n in global_shape)
+        out = []
+        for i, (n, f) in enumerate(zip(shape, self._factors(len(shape)))):
+            if n % f:
+                raise ValueError(
+                    f"{self!r} cuts dim {i} of {shape} into {f} blocks, "
+                    f"which does not divide {n}")
+            out.append(n // f)
+        return tuple(out)
+
+    def block_index(self, pos: Tuple[int, ...], ndim: int) -> Tuple[int, ...]:
+        """The block that mesh position ``pos`` holds: for each dim, the
+        position's coordinates along that dim's axes in mixed radix
+        (the first axis major)."""
+        coords = dict(zip(self.mesh.axis_names, pos))
+        sizes = self.mesh.shape
+        spec = tuple(self.spec) + (None,) * (ndim - len(self.spec))
+        out = []
+        for e in spec:
+            b = 0
+            for a in _axes_of(e):
+                b = b * sizes[a] + coords[a]
+            out.append(b)
+        return tuple(out)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding(mesh={self.mesh!r}, spec={self.spec!r})"
+
+
+# ---------------------------------------------------------------------------
+# production meshes
+# ---------------------------------------------------------------------------
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence[Any]] = None) -> Mesh:
+    """Single pod 16x16 ("data","model"); multi-pod 2x16x16 adds "pod"."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices)
+
+
+def make_mesh(shape: Tuple[int, ...], axes: Optional[Tuple[str, ...]] = None,
+              devices: Optional[Sequence[Any]] = None) -> Mesh:
+    """A mesh of ``shape`` over the first ``prod(shape)`` of ``devices``
+    (default: every CUDA card, raising without enough of them; a list may
+    repeat a device, e.g. ``["cpu"] * 8`` for (2, 4)); ``axes`` default to
+    the last ``len(shape)`` of ("pod", "data", "model")."""
+    shape = tuple(int(s) for s in shape)
+    if axes is None:
+        axes = ("pod", "data", "model")[-len(shape):]
+    if not shape or len(axes) != len(shape) or any(s < 1 for s in shape):
+        raise ValueError(f"mesh shape {shape} does not fit the axes {axes}")
+    need = int(np.prod(shape))
+    devs, procs = _device_list(devices, None)
+    if len(devs) < need:
+        raise ValueError(f"mesh shape {shape} needs {need} devices, only "
+                         f"{len(devs)} available")
+    mesh = Mesh(_object_array(devs[:need]).reshape(shape), axes,
+                np.asarray(procs[:need]).reshape(shape))
+    _one_process(mesh)
+    return mesh
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    """Axes that carry data parallelism (pod folds into data)."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def dp_size(mesh) -> int:
+    s = 1
+    for a in dp_axes(mesh):
+        s *= mesh.shape[a]
+    return s
+
+
+def model_size(mesh) -> int:
+    return mesh.shape.get("model", 1)
+
+
+# ---------------------------------------------------------------------------
+# sharding planner
+#
+# Rules (divisibility-checked -- any dim not divisible by its axis size is
+# left replicated rather than unevenly sharded):
+#
+# * parameters: the largest divisible feature dim goes to "model" (ties
+#   break toward the *later* dim, i.e. column-parallel for up-projections
+#   and row-parallel for down-projections); a second divisible dim goes to
+#   the data axes (FSDP/ZeRO-3).  The leading stacked-layers axis is never
+#   sharded.
+# * MoE expert tensors: the expert dim goes to "model" when divisible
+#   (expert parallelism); otherwise the feature rule (qwen2-moe's 60
+#   experts on a 16-way model axis).
+# * batches: the global-batch dim is sharded over ("pod","data");
+#   everything else replicated.  Batch 1 shards the cache sequence dim
+#   over the data axes instead (context parallelism).
+# * optimizer state: same rule as its parameter (identical shapes).
+# ---------------------------------------------------------------------------
+
+def _key_names(path) -> Tuple[str, ...]:
+    names = []
+    for k in path:
+        if hasattr(k, "key"):
+            names.append(str(k.key))
+        elif hasattr(k, "name"):
+            names.append(str(k.name))
+        elif hasattr(k, "idx"):
+            names.append(f"#{k.idx}")
+    return tuple(names)
+
+
+def _param_spec(names: Tuple[str, ...], shape: Tuple[int, ...], mesh,
+                fsdp: bool = True, small_out_threshold: int = 0
+                ) -> PartitionSpec:
+    md = model_size(mesh)
+    dps = dp_axes(mesh)
+    dsz = dp_size(mesh)
+    ndim = len(shape)
+    spec: list = [None] * ndim
+
+    # the leading stacked-layers axis (L or G) is never sharded
+    start = 1 if ("layers" in names and ndim >= 2) else 0
+    cand = list(range(start, ndim))
+
+    # expert parallelism: 4-D (L, E, D, F) expert tensors
+    model_dim: Optional[int] = None
+    if any("w" in n for n in names) and "moe" in names and ndim >= 4:
+        e_dim = start
+        if shape[e_dim] % md == 0:
+            model_dim = e_dim
+    if model_dim is None:
+        best = -1
+        for i in cand:
+            if md > 1 and shape[i] % md == 0 and shape[i] >= md:
+                if shape[i] >= best:
+                    best = shape[i]
+                    model_dim = i
+    # a row-parallel projection with a small output (MLA's w_dkv: 5120 ->
+    # 576) would all-reduce partial sums larger than the weight: replicate
+    # it over "model" (FSDP still shards it over data)
+    if (small_out_threshold and model_dim is not None and ndim >= 2 and
+            model_dim == ndim - 2 and shape[-1] <= small_out_threshold):
+        model_dim = None
+    if model_dim is not None and md > 1:
+        spec[model_dim] = "model"
+
+    if fsdp and dps:
+        best = -1
+        fsdp_dim = None
+        for i in cand:
+            if i == model_dim:
+                continue
+            if shape[i] % dsz == 0 and shape[i] >= dsz:
+                if shape[i] > best:
+                    best = shape[i]
+                    fsdp_dim = i
+        if fsdp_dim is not None:
+            spec[fsdp_dim] = dps if len(dps) > 1 else dps[0]
+    return PartitionSpec(*spec)
+
+
+def param_shardings(tree: Any, mesh, fsdp: bool = True,
+                    small_out_threshold: int = 0):
+    """NamedShardings for a parameter-shaped pytree (params or opt state)."""
+    def one(path, leaf):
+        shape = tuple(leaf.shape)
+        if len(shape) == 0:
+            return NamedSharding(mesh, PartitionSpec())
+        return NamedSharding(mesh, _param_spec(
+            _key_names(path), shape, mesh, fsdp=fsdp,
+            small_out_threshold=small_out_threshold))
+    return tree_map_with_path(one, tree)
+
+
+def _dp_entry(mesh):
+    dps = dp_axes(mesh)
+    return dps if len(dps) > 1 else (dps[0] if dps else None)
+
+
+def batch_shardings(tree: Any, mesh, global_batch: int):
+    """Shard the global-batch dim over ("pod","data")."""
+    dsz = dp_size(mesh)
+    dp = _dp_entry(mesh)
+
+    def one(leaf):
+        shape = tuple(leaf.shape)
+        spec: list = [None] * len(shape)
+        if global_batch % max(dsz, 1) == 0 and dsz > 1:
+            for i, s in enumerate(shape):
+                if s == global_batch:
+                    spec[i] = dp
+                    break
+        return NamedSharding(mesh, PartitionSpec(*spec))
+    return tree_map(one, tree)
+
+
+def cache_shardings(tree: Any, mesh, global_batch: int, seq_len: int,
+                    context_parallel: bool = False):
+    """Decode-cache sharding.
+
+    Baseline: batch dim -> data axes; a KV/feature dim -> "model" when
+    divisible; batch=1 -> cache sequence dim -> data axes.
+
+    ``context_parallel=True``: the cache *sequence* dim is sharded over
+    "model" instead of the feature dim, so a decode token gathers only
+    O(B*H*S) score statistics instead of the whole cache."""
+    dsz = dp_size(mesh)
+    md = model_size(mesh)
+    dp = _dp_entry(mesh)
+
+    def one(leaf):
+        shape = tuple(leaf.shape)
+        ndim = len(shape)
+        spec: list = [None] * ndim
+        if ndim <= 1:
+            return NamedSharding(mesh, PartitionSpec(*spec))
+        dp_dim = None
+        if dsz > 1 and global_batch % dsz == 0 and global_batch > 1:
+            for i in range(1, ndim):
+                if shape[i] == global_batch:
+                    dp_dim = i
+                    spec[i] = dp
+                    break
+        elif dsz > 1:
+            # batch too small: context-parallel the sequence dim over data
+            for i in range(1, ndim):
+                if shape[i] == seq_len and seq_len % dsz == 0:
+                    dp_dim = i
+                    spec[i] = dp
+                    break
+        if md > 1:
+            mdim = None
+            if context_parallel:
+                for i in range(1, ndim):
+                    if i != dp_dim and shape[i] == seq_len and \
+                            seq_len % md == 0:
+                        mdim = i
+                        break
+            if mdim is None and not context_parallel:
+                best = -1
+                for i in range(1, ndim):
+                    if i == dp_dim or shape[i] == seq_len:
+                        continue
+                    if shape[i] % md == 0 and shape[i] >= md and \
+                            shape[i] > best:
+                        best = shape[i]
+                        mdim = i
+            if mdim is not None:
+                spec[mdim] = "model"
+        return NamedSharding(mesh, PartitionSpec(*spec))
+    return tree_map(one, tree)
+
+
+def replicated(tree: Any, mesh):
+    return tree_map(lambda _: NamedSharding(mesh, PartitionSpec()), tree)
+
+
+def describe_shardings(tree, shardings, max_rows: int = 0):
+    """Human-readable (path, shape, spec) rows."""
+    rows = []
+    flat_t = tree_flatten_with_path(tree)[0]
+    flat_s = tree_leaves(shardings)
+    for (path, leaf), sh in zip(flat_t, flat_s):
+        rows.append(("/".join(_key_names(path)), tuple(leaf.shape),
+                     str(sh.spec)))
+    if max_rows:
+        rows = rows[:max_rows]
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# sharded tensors
+# ---------------------------------------------------------------------------
+
+class ShardedTensor:
+    """A global tensor of ``shape`` cut by ``sharding`` onto its mesh:
+    ``shards[pos]`` is the block that mesh position ``pos`` holds, on that
+    position's device.  Positions that hold one block on one device share
+    one tensor (replicas along the axes the spec leaves out)."""
+
+    def __init__(self, sharding: NamedSharding, shape: Tuple[int, ...],
+                 shards: np.ndarray):
+        self.sharding = sharding
+        self.shape = tuple(shape)
+        self.shards = shards
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards.flat[0].dtype
+
+    @property
+    def n_blocks(self) -> int:
+        """The number of distinct blocks (the product of the cut factors)."""
+        return int(np.prod(self.sharding._factors(len(self.shape)),
+                           dtype=np.int64))
+
+    def _positions(self):
+        return np.ndindex(*self.shards.shape)
+
+    def blocks(self) -> List[torch.Tensor]:
+        """One tensor a distinct block, in mesh index order (the first
+        position that holds it)."""
+        seen: Dict[tuple, torch.Tensor] = {}
+        for pos in self._positions():
+            b = self.sharding.block_index(pos, len(self.shape))
+            seen.setdefault(b, self.shards[pos])
+        return list(seen.values())
+
+    def with_blocks(self, blocks: Sequence[torch.Tensor]) -> "ShardedTensor":
+        """This sharding holding ``blocks`` (as :meth:`blocks` orders them)
+        in place of its own, each on its positions' devices."""
+        order: Dict[tuple, int] = {}
+        for pos in self._positions():
+            order.setdefault(self.sharding.block_index(pos, len(self.shape)),
+                             len(order))
+        return _place(self.sharding, self.shape,
+                      lambda b, dev: blocks[order[b]].to(dev))
+
+    def __repr__(self) -> str:
+        return (f"ShardedTensor(shape={self.shape}, dtype={self.dtype}, "
+                f"sharding={self.sharding!r})")
+
+
+def _block_slices(sharding: NamedSharding, shape, block) -> tuple:
+    sub = sharding.shard_shape(shape)
+    return tuple(slice(b * n, (b + 1) * n) for b, n in zip(block, sub))
+
+
+def _place(sharding: NamedSharding, shape, make_block) -> ShardedTensor:
+    """A ``ShardedTensor`` whose position ``pos`` holds ``make_block(block
+    index, device)``, made once per (device, block)."""
+    mesh = sharding.mesh
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"{mesh!r} holds no devices to put a tensor on")
+    _one_process(mesh)
+    sharding.shard_shape(shape)  # raises where a dim does not divide
+    made: Dict[tuple, torch.Tensor] = {}
+    shards = np.empty(mesh.devices.shape, dtype=object)
+    for pos in np.ndindex(*mesh.devices.shape):
+        dev = mesh.devices[pos]
+        b = sharding.block_index(pos, len(shape))
+        if (str(dev), b) not in made:
+            made[(str(dev), b)] = make_block(b, dev)
+        shards[pos] = made[(str(dev), b)]
+    return ShardedTensor(sharding, shape, shards)
+
+
+def _put(x: torch.Tensor, sharding: NamedSharding) -> ShardedTensor:
+    shape = tuple(x.shape)
+
+    def cut(block, dev):
+        piece = x[_block_slices(sharding, shape, block)]
+        return torch.empty(piece.shape, dtype=piece.dtype,
+                           device=dev).copy_(piece)
+    return _place(sharding, shape, cut)
+
+
+def device_put(tree: Any, shardings: Any) -> Any:
+    """Each tensor leaf of ``tree`` cut by the ``NamedSharding`` at the same
+    place of ``shardings`` into a :class:`ShardedTensor`: one block a mesh
+    position, copied onto that position's device.  A dim that does not
+    divide into its axes raises."""
+    return tree_map(_put, tree, shardings)
+
+
+def gather(x: ShardedTensor, device=None) -> torch.Tensor:
+    """The all-gather: ``x``'s blocks put together in mesh index order on
+    ``device`` (default the mesh's first); bitwise the tensor that was
+    cut."""
+    dev = torch.device(device if device is not None
+                       else x.sharding.mesh.devices.flat[0])
+    out = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    seen = set()
+    for pos in x._positions():
+        b = x.sharding.block_index(pos, len(x.shape))
+        if b not in seen:
+            seen.add(b)
+            out[_block_slices(x.sharding, x.shape, b)].copy_(x.shards[pos])
+    return out
+
+
+def position_bytes(tree: Any) -> np.ndarray:
+    """The bytes each mesh position holds of the ``ShardedTensor`` leaves
+    of ``tree`` (an array of the mesh's shape; a tensor that several
+    positions share counts once for each)."""
+    total = None
+    for leaf in tree_leaves(tree):
+        sizes = np.vectorize(lambda t: t.numel() * t.element_size(),
+                             otypes=[np.int64])(leaf.shards)
+        total = sizes if total is None else total + sizes
+    return total

@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from .config import ModelConfig
-from .layers import _normal, apply_rope, rmsnorm
+from .layers import _normal, act_constraint, apply_rope, rmsnorm
 
 __all__ = ["NEG_INF", "attn_params", "attend", "init_cache",
            "gqa_attention", "mla_attention", "attention_block"]
@@ -311,7 +311,7 @@ def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, rope_cs, positions,
     q = q.reshape(B, S, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
 
-    ckv_full = x @ p["w_dkv"].to(dt)
+    ckv_full = act_constraint(x @ p["w_dkv"].to(dt), cfg)  # batch-sharded
     ckv, k_rope = ckv_full[..., :r], ckv_full[..., r:]
     ckv = rmsnorm(ckv, p["kv_norm"])
     if rope_cs is not None:

@@ -15,20 +15,49 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..mesh import NamedSharding, PartitionSpec, current_mesh
 from .config import ModelConfig
 
-__all__ = ["act_constraint", "rmsnorm", "layernorm", "apply_norm",
+__all__ = ["act_constraint", "act_spec", "rmsnorm", "layernorm", "apply_norm",
            "norm_params", "activation", "mlp_params", "mlp", "embed_params",
            "embed", "unembed", "rope_angles", "apply_rope", "mrope_angles",
            "make_positions", "rope_cos_sin"]
 
 
+def act_spec(x: torch.Tensor, cfg: ModelConfig,
+             seq_dim: int = 1) -> PartitionSpec:
+    """The reference's activation spec for ``x``: batch over
+    ``cfg.act_dp_axes`` when there is more than one row, and, with
+    ``cfg.seq_shard``, the sequence over "model" (Megatron-style sequence
+    parallelism for the norm / elementwise segments)."""
+    dp = (cfg.act_dp_axes if len(cfg.act_dp_axes) > 1
+          else cfg.act_dp_axes[0])
+    spec = [None] * x.ndim
+    if x.shape[0] > 1:
+        spec[0] = dp
+    if cfg.seq_shard and x.ndim >= 3 and x.shape[seq_dim] > 1:
+        spec[seq_dim] = "model"
+    return PartitionSpec(*spec)
+
+
 def act_constraint(x: torch.Tensor, cfg: ModelConfig,
                    seq_dim: int = 1) -> torch.Tensor:
-    """The reference pins activation shardings on a device mesh here.  The
-    port's mesh shards sweep cells (``repro_torch.mesh``, ``sweep.shard``)
-    but not a model's activations, which wait for the model-sharding
-    planner (ROADMAP item 12b); so this is the identity."""
+    """Where the reference pins activation shardings.  No-op unless
+    ``cfg.shard_activations``; then :func:`act_spec` must name axes of the
+    ambient mesh (``with mesh:``), raising as the reference's
+    ``with_sharding_constraint`` does without one or with an axis it
+    lacks.  Returns ``x``: the port's sharded step computes on gathered
+    tensors, so there is no layout to pin, and the values do not depend on
+    it in the reference either."""
+    if not cfg.shard_activations:
+        return x
+    spec = act_spec(x, cfg, seq_dim)
+    mesh = current_mesh()
+    if mesh is None:
+        raise RuntimeError(
+            f"act_constraint: cfg.shard_activations needs an ambient mesh "
+            f"(``with mesh:``) to pin {spec!r} on")
+    NamedSharding(mesh, spec)  # raises for an axis the mesh lacks
     return x
 
 

@@ -63,17 +63,18 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.stepsize import f32
-from ..kernels.dispatch import resolve_device
+from ..kernels.dispatch import resolve_device, resolve_device_or_meta
 from .attention import attention_block, attn_params, init_cache
 from .config import ModelConfig
-from .layers import (apply_norm, embed, embed_params, make_positions, mlp,
-                     mlp_params, norm_params, rope_cos_sin, unembed)
+from .layers import (act_constraint, apply_norm, embed, embed_params,
+                     make_positions, mlp, mlp_params, norm_params,
+                     rope_cos_sin, unembed)
 from .moe import moe_block, moe_block_capacity, moe_params
 from .ssm import init_ssm_state, mamba2_block, ssm_params
 
 __all__ = ["Transformer", "init_params", "forward", "loss_fn", "param_tree",
            "make_cache", "prefill", "decode_step", "layer_parts",
-           "SHARED_PARTS"]
+           "param_specs", "SHARED_PARTS"]
 
 # the hybrid's shared attention + MLP block (the reference's
 # ``_shared_block_params``)
@@ -107,6 +108,7 @@ def layer_apply(p, x, cfg: ModelConfig, rope_cs, positions, mode: str,
     returns (x, cache, aux).  ``cache`` is the layer's attention cache or
     Mamba2 state, updated in place where one is given; ``aux`` is its MoE
     balance loss, None without experts."""
+    x = act_constraint(x, cfg)
     if "mixer" in p:
         h, state = mamba2_block(p["mixer"], apply_norm(p["ln"], x, cfg),
                                 cfg, mode, state=cache)
@@ -189,6 +191,15 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         generator = torch.Generator(device=dev).manual_seed(0)
     with torch.no_grad():
         return Transformer(cfg, generator, dev)
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The reference-layout parameter tree (:func:`param_tree`) with every
+    leaf on the ``meta`` device: shapes and dtypes, no allocation (the
+    reference's ``jax.eval_shape`` of ``init_params``), for planning a
+    full-size model's shardings."""
+    with torch.no_grad():
+        return param_tree(Transformer(cfg, None, torch.device("meta")))
 
 
 # ----------------------------------------------------------- trunk
@@ -415,8 +426,8 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
     the zero Mamba2 state of every layer (``max_len`` and ``ring`` do not
     enter it); for a hybrid model ``{"attn": ..., "ssm": ...}`` with the
     attention cache stacked over the G groups and the state over (G,
-    attn_every)."""
-    dev = resolve_device(device)
+    attn_every); ``device="meta"`` gives its shapes alone."""
+    dev = resolve_device_or_meta(device)
 
     def stacked(c, lead):
         return {n: t[(None,) * len(lead)].repeat(lead + (1,) * t.ndim)

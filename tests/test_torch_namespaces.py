@@ -6,7 +6,8 @@ Every name in the ``__all__`` of the reference's ``core``, ``sweep``,
 ``kernels``, ``telemetry``, ``faults``, ``checkpoint``, ``optim``,
 ``data`` and ``staticcheck`` (and of ``sweep.cache``) either resolves in the port's package of the same name or is
 listed in ``UNPORTED`` under the numbered ROADMAP queue A item that will
-bring it, or with the reason it has no counterpart.
+bring it, or with the reason it has no counterpart; so does every module
+of the reference's ``launch``.
 A name that resolves must not also be listed.  ``get_config`` matches the
 reference field by field for every architecture, except the port's
 deliberate ``attention_impl`` default; and importing every module of the
@@ -14,9 +15,11 @@ port loads neither JAX nor the reference.
 """
 import dataclasses
 import importlib
+import importlib.util
 import json
 import os
 import pathlib
+import pkgutil
 import subprocess
 import sys
 
@@ -40,9 +43,10 @@ PACKAGES = ("core", "sweep", "federated", "api", "models", "serving",
 
 # name -> the ROADMAP queue A item that ports it
 _ITEMS = {
-    "item 15 (XLA/TPU tooling: dry-run)": [
-        "models.param_specs", "configs.SHAPES", "configs.InputShape",
-        "configs.applicable", "configs.input_specs"],
+    "item 15's remainder (XLA/TPU tooling: the dry-run and its cost, "
+    "roofline and probe modules)": [
+        "launch.dryrun", "launch.hlo_cost", "launch.roofline",
+        "launch.perf_probe"],
     "no counterpart (the port has no interpreter; kernels.dispatch "
     "resolve_device and kernel_route route by device)": [
         "kernels.default_interpret", "kernels.resolve_interpret"],
@@ -88,9 +92,25 @@ def test_every_sweep_cache_name_resolves():
     assert set(ref_cache.__all__) <= set(port_cache.__all__)
 
 
+def _reference_launch_modules():
+    return sorted(m.name for m in pkgutil.iter_modules(
+        [str(ROOT / "src" / "repro" / "launch")]))
+
+
 def test_unported_list_names_only_reference_names():
     names = {f"{p}.{n}" for p, n in _reference_names()}
+    names |= {f"launch.{m}" for m in _reference_launch_modules()}
     assert set(UNPORTED) <= names, sorted(set(UNPORTED) - names)
+
+
+def test_every_reference_launch_module_has_a_counterpart_or_its_item():
+    """``repro.launch`` has no ``__all__``: its modules are the names.
+    Each has a module of the same name in ``repro_torch.launch`` or is
+    listed under its item, and not both."""
+    for m in _reference_launch_modules():
+        present = importlib.util.find_spec(f"repro_torch.launch.{m}") \
+            is not None
+        assert present != (f"launch.{m}" in UNPORTED), m
 
 
 @pytest.fixture(scope="module")
@@ -138,7 +158,10 @@ NEW_MODULES = ("repro_torch.kernels.ops", "repro_torch.kernels.ref",
                "repro_torch.core.runtime", "repro_torch.core.async_sgd",
                "repro_torch.optim.optimizers", "repro_torch.data.synthetic",
                "repro_torch.launch.train_bcd", "repro_torch.launch.steps",
-               "repro_torch.models.moe", "repro_torch.launch.train_federated")
+               "repro_torch.models.moe", "repro_torch.launch.train_federated",
+               "repro_torch.configs.shapes", "repro_torch.launch.mesh",
+               "repro_torch.launch.sharding", "repro_torch.launch.recipes",
+               "repro_torch.launch.run_distributed")
 
 
 def test_every_port_module_imports_without_jax_or_the_reference(
