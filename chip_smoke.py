@@ -56,7 +56,14 @@ PyTorch version on the card, and drives the port's main paths:
   full width (depth cut to fit one card beside the unsharded step) on a
   2x4 ("data", "model") mesh that lists the card eight times, parameters
   and moments cut by the sharding planner, against the unsharded step
-  from the same initial state; no hand-written kernel runs there.
+  from the same initial state, in float32 first (D1f, the basis of the
+  bf16 envelope of the later losses) and then in bf16; DR counts D1's
+  step op by op on ``meta`` tensors on the host (``launch.dryrun``,
+  ``launch.op_cost``, ``launch.roofline``) and reads it against D1's
+  seconds: model TFLOP/s, MFU, the update's bandwidth and the H100
+  roofline bound; no hand-written kernel runs there.
+  ``python3 chip_smoke.py --only-dist`` runs D1f, D1 and DR alone and
+  prints no result.
 
 * training: ``launch.train.run_training`` and ``launch.train_bcd`` on the
   100m preset at full width and depth (TR1, TR3), card against CPU at a
@@ -133,6 +140,8 @@ from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.launch import train_bcd as tbcd  # noqa: E402
 from repro_torch.launch import train_federated as tfed  # noqa: E402
 from repro_torch.launch import run_distributed as trdist  # noqa: E402
+from repro_torch.launch.dryrun import sharded_step_costs  # noqa: E402
+from repro_torch.launch.roofline import H100, RooflineTerms  # noqa: E402
 from repro_torch.launch.steps import make_trainer  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.data import EmbedStream  # noqa: E402
@@ -3087,6 +3096,22 @@ DIST_FREE = 10e9
 # 4096 tokens' float32 log-softmax over 151936 logits and its gradient)
 DIST_BYTES_PER_PARAM = 31
 DIST_ACT_BYTES = 7.6e9
+# the same in float32 (D1f): parameters, gradients and their blocks and
+# the clipped gradients take 4 bytes where bf16 takes 2 (31 + 2 + 4 + 2),
+# and the activations of a float32 trunk besides the log-softmax
+DIST_F32_BYTES_PER_PARAM = 39
+DIST_F32_ACT_BYTES = 9e9
+# Later losses, sharded against unsharded, relative to the first loss.
+# float32: the CPU tests' envelope (tests/test_torch_run_distributed.py);
+# only the clip's global norm sums in another order.  bf16: D1f holds
+# 1e-6 in float32 on the card, so the bf16 gap (3.2e-5 measured at depth 2)
+# is the parameters' rounding to bf16 (8 significant bits) after updates
+# that differ in their last float32 bits under the acting clip; the
+# envelope is the trainers' card-vs-CPU loss envelope, 1e-4 of the first.
+DIST_LOSS_F32_ENV = 1e-6
+DIST_LOSS_BF16_ENV = 1e-4
+# DR: no measured rate may exceed its peak by more than timing noise
+DR_SHARE_MAX = 1.05
 
 
 def _dist_params(cfg, depth: int) -> int:
@@ -3094,43 +3119,27 @@ def _dist_params(cfg, depth: int) -> int:
                tree_leaves(param_specs(cfg.replace(n_layers=depth))))
 
 
-def _dist_depth(cfg, room: float) -> int:
-    """The largest depth of at least 2 whose estimated peak leaves
+def _dist_depth(cfg, room: float, per_param: float, act: float,
+                least: int) -> int:
+    """The largest depth of at least ``least`` whose estimated peak
+    (``per_param`` bytes a parameter and ``act`` besides) leaves
     ``DIST_FREE`` of ``room`` bytes."""
-    depth = 2
+    depth = least
     while depth < cfg.n_layers and (
-            DIST_BYTES_PER_PARAM * _dist_params(cfg, depth + 1)
-            + DIST_ACT_BYTES <= room - DIST_FREE):
+            per_param * _dist_params(cfg, depth + 1) + act
+            <= room - DIST_FREE):
         depth += 1
     return depth
 
 
-def phase_d1_run_distributed(name: str, depth: Optional[int] = None
-                             ) -> None:
-    """``launch.run_distributed.run`` at full width on the card listed at
-    every position of a 2x4 mesh, after the unsharded step from the same
-    initial state: the step-0 loss bitwise, taus exact, gammas bitwise,
-    losses finite, no hand-written kernel launched; steps/s, each step's
-    gather / compute / cut-and-update seconds, peaks, the bytes a mesh
-    position holds, and one profiled step's launch calls and idle
-    share."""
-    t_phase = time.perf_counter()
-    clear_program_cache()
-    torch.cuda.empty_cache()
-    total = torch.cuda.get_device_properties(CARD).total_memory
-    room = total - torch.cuda.memory_allocated(CARD)
-    full = get_config(MOE_ARCH)
-    depth = depth or _dist_depth(full, room)
-    cfg = full.replace(n_layers=depth)
-    n_params = _dist_params(full, depth)
-    mesh = make_mesh(DIST_MESH, devices=[CARD] * int(np.prod(DIST_MESH)))
+def _d1_runs(cfg, mesh, trainer):
+    """The unsharded step ``DIST_STEPS`` times, its memory then freed, and
+    ``launch.run_distributed.run`` from the same initial state (the
+    port's initializer, seed 0) and stream: the stream, the unsharded
+    steps' (loss, gamma, tau) and walls, the sharded state and log, and
+    the peaks reserved of each run."""
     n_workers = dp_size(mesh)
-    trainer = make_trainer(cfg.replace(attention_impl="chunked"),
-                           n_workers=n_workers, lr=1e-3)
     stream = ttrain.make_stream(cfg, DIST_BATCH, DIST_SEQ, device=CARD)
-    reset_counts()
-    # the unsharded step from the same initial state (the port's
-    # initializer, seed 0), its memory freed before the sharded run
     torch.cuda.reset_peak_memory_stats()
     state = trainer.init(device=CARD)
     plain, plain_walls = [], []
@@ -3147,20 +3156,111 @@ def phase_d1_run_distributed(name: str, depth: Optional[int] = None
     state, log = trdist.run(cfg, mesh, DIST_STEPS, DIST_BATCH, DIST_SEQ,
                             device=CARD)
     peak_sharded = torch.cuda.max_memory_reserved(CARD)
-    launched = {fn.__name__: fn.launches for fn in COUNTERS if fn.launches}
-    if launched:
-        raise AssertionError(f"D1: hand-written kernels launched: {launched}")
+    return stream, plain, plain_walls, state, log, peak_plain, peak_sharded
+
+
+def _d1_check(tag: str, log, plain, env: float) -> float:
+    """The step-0 loss bitwise, taus exact, gammas bitwise and the later
+    losses within ``env`` of the first, sharded against unsharded (``~(err
+    <= env)``, so a NaN fails); returns the later losses' largest
+    difference relative to the first loss."""
     losses = [r["loss"] for r in log]
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"D1: losses {losses}")
+        raise AssertionError(f"{tag}: losses {losses}")
     if losses[0] != plain[0][0]:
-        raise AssertionError(f"D1: step-0 loss {losses[0]!r} sharded, "
+        raise AssertionError(f"{tag}: step-0 loss {losses[0]!r} sharded, "
                              f"{plain[0][0]!r} unsharded")
     for r, (_, gamma, tau) in zip(log, plain):
         if r["tau"] != tau or np.float32(r["gamma"]).view(np.int32) != \
                 np.float32(gamma).view(np.int32):
-            raise AssertionError(f"D1: step {r['step']} sharded {r}, "
+            raise AssertionError(f"{tag}: step {r['step']} sharded {r}, "
                                  f"unsharded gamma {gamma} tau {tau}")
+    err = max(abs(r["loss"] - p[0]) for r, p in zip(log[1:], plain[1:])) \
+        / abs(plain[0][0])
+    if not err <= env:
+        raise AssertionError(
+            f"{tag}: later losses {losses[1:]} sharded, "
+            f"{[p[0] for p in plain[1:]]} unsharded: {err:.3e} of the first "
+            f"loss, over the envelope {env:g}")
+    return err
+
+
+def phase_d1f_float32(name: str) -> float:
+    """D1's comparison in float32 (parameters and compute), at the largest
+    depth whose estimated peak leaves ``DIST_FREE`` of the card: the basis
+    of the bf16 envelope ``DIST_LOSS_BF16_ENV``.  Holds the later losses
+    to ``DIST_LOSS_F32_ENV`` of the first, the CPU tests' envelope."""
+    t_phase = time.perf_counter()
+    clear_program_cache()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(CARD).total_memory
+    room = total - torch.cuda.memory_allocated(CARD)
+    full = get_config(MOE_ARCH).replace(param_dtype="float32",
+                                        compute_dtype="float32")
+    depth = _dist_depth(full, room, DIST_F32_BYTES_PER_PARAM,
+                        DIST_F32_ACT_BYTES, least=1)
+    cfg = full.replace(n_layers=depth)
+    mesh = make_mesh(DIST_MESH, devices=[CARD] * int(np.prod(DIST_MESH)))
+    trainer = make_trainer(cfg.replace(attention_impl="chunked"),
+                           n_workers=dp_size(mesh), lr=1e-3)
+    _, plain, _, state, log, peak_plain, peak_sharded = _d1_runs(
+        cfg, mesh, trainer)
+    del state
+    torch.cuda.empty_cache()
+    err = _d1_check("D1f", log, plain, DIST_LOSS_F32_ENV)
+    if not max(peak_plain, peak_sharded) <= total - DIST_FREE:
+        raise AssertionError(
+            f"D1f: peaks {peak_plain / 1e9:.2f} / {peak_sharded / 1e9:.2f} "
+            f"GB leave less than {DIST_FREE / 1e9:g} GB of "
+            f"{total / 1e9:.2f}")
+    say("D1f float32", f"D1's comparison in float32: {MOE_ARCH} at full "
+        f"width, depth {depth} of {full.n_layers} "
+        f"({_dist_params(full, depth) / 1e9:.3f} B float32 params), mesh "
+        f"{DIST_MESH} listing {CARD} 8 times, batch {DIST_BATCH} x seq "
+        f"{DIST_SEQ}, {DIST_STEPS} steps: losses sharded "
+        f"{', '.join(repr(r['loss']) for r in log)}, unsharded "
+        f"{', '.join(repr(p[0]) for p in plain)}; step 0 bitwise, taus and "
+        f"gammas bitwise; later losses {err:.3e} of the first apart "
+        f"(envelope {DIST_LOSS_F32_ENV:g}); peak reserved "
+        f"{peak_plain / 1e9:.2f} GB unsharded, {peak_sharded / 1e9:.2f} GB "
+        f"sharded of {total / 1e9:.2f} GB (estimate "
+        f"{(DIST_F32_BYTES_PER_PARAM * _dist_params(full, depth) + DIST_F32_ACT_BYTES) / 1e9:.2f});"
+        f" card {name}; phase wall {time.perf_counter() - t_phase:.1f} s")
+    return err
+
+
+def phase_d1_run_distributed(name: str, depth: Optional[int] = None
+                             ) -> dict:
+    """``launch.run_distributed.run`` at full width on the card listed at
+    every position of a 2x4 mesh, after the unsharded step from the same
+    initial state: the step-0 loss bitwise, taus exact, gammas bitwise,
+    later losses within ``DIST_LOSS_BF16_ENV`` of the first, no
+    hand-written kernel launched; steps/s, each step's gather / compute /
+    cut-and-update seconds, peaks, the bytes a mesh position holds, and one
+    profiled step's launch calls and idle share.  Returns the config, the
+    depth and the sharded run's per-step records."""
+    t_phase = time.perf_counter()
+    clear_program_cache()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(CARD).total_memory
+    room = total - torch.cuda.memory_allocated(CARD)
+    full = get_config(MOE_ARCH)
+    depth = depth or _dist_depth(full, room, DIST_BYTES_PER_PARAM,
+                                 DIST_ACT_BYTES, least=2)
+    cfg = full.replace(n_layers=depth)
+    n_params = _dist_params(full, depth)
+    mesh = make_mesh(DIST_MESH, devices=[CARD] * int(np.prod(DIST_MESH)))
+    n_workers = dp_size(mesh)
+    trainer = make_trainer(cfg.replace(attention_impl="chunked"),
+                           n_workers=n_workers, lr=1e-3)
+    reset_counts()
+    stream, plain, plain_walls, state, log, peak_plain, peak_sharded = \
+        _d1_runs(cfg, mesh, trainer)
+    launched = {fn.__name__: fn.launches for fn in COUNTERS if fn.launches}
+    if launched:
+        raise AssertionError(f"D1: hand-written kernels launched: {launched}")
+    err = _d1_check("D1", log, plain, DIST_LOSS_BF16_ENV)
+    losses = [r["loss"] for r in log]
     if not max(peak_plain, peak_sharded) <= total - DIST_FREE:
         raise AssertionError(
             f"D1: peaks {peak_plain / 1e9:.2f} / {peak_sharded / 1e9:.2f} GB "
@@ -3193,9 +3293,10 @@ def phase_d1_run_distributed(name: str, depth: Optional[int] = None
         "per step gather / compute / cut+update s: "
         + "; ".join(f"{r['gather_s']:.4f} / {r['compute_s']:.4f} / "
                     f"{r['update_s']:.4f}" for r in log)
-        + f"; losses {', '.join(f'{v:.6f}' for v in losses)} (step 0 "
+        + f"; losses {', '.join(repr(v) for v in losses)} (step 0 "
         f"bitwise the unsharded step's; unsharded "
-        f"{', '.join(f'{p[0]:.6f}' for p in plain)}); taus "
+        f"{', '.join(repr(p[0]) for p in plain)}; later losses {err:.3e} "
+        f"of the first apart, envelope {DIST_LOSS_BF16_ENV:g}); taus "
         f"{[r['tau'] for r in log]}, gammas bitwise; peak reserved "
         f"{peak_plain / 1e9:.2f} GB unsharded, {peak_sharded / 1e9:.2f} GB "
         f"sharded of {total / 1e9:.2f} GB (estimate "
@@ -3205,6 +3306,77 @@ def phase_d1_run_distributed(name: str, depth: Optional[int] = None
         f"{wall:.3f} s, device busy {busy:.3f} s, idle share {idle}, "
         f"{launch_calls} kernel launch calls on the host; no hand-written "
         f"kernel launched; card {name}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"cfg": cfg, "depth": depth, "records": log}
+
+
+def phase_dr_cost(name: str, d1: dict) -> None:
+    """DR: D1's own step counted op by op on ``meta`` tensors on the host
+    (``launch.dryrun.sharded_step_costs``: the gather, ``loss_and_grad``,
+    the cut and the optimizer over the blocks by ``launch.op_cost``; model
+    FLOPs and moved bytes by ``launch.roofline``), read against D1's
+    measured seconds: the step's model TFLOP/s and share of the bf16 peak,
+    its MFU, the update's and the gather's bandwidth and share of HBM, and
+    the H100 roofline bound.  Fails on a share above ``DR_SHARE_MAX`` or a
+    counted update below the bytes its tensors must cross once.  Launches
+    nothing on the card."""
+    t_phase = time.perf_counter()
+    log = d1["records"]
+    costs = sharded_step_costs(d1["cfg"], DIST_MESH, DIST_BATCH, DIST_SEQ,
+                               devices=[CARD] * int(np.prod(DIST_MESH)))
+    cost = {k: costs[k] for k in ("gather", "compute", "cut", "update")}
+    uncounted = {k: c.uncounted for k, c in cost.items() if c.uncounted}
+    if uncounted:
+        raise AssertionError(f"DR: ops without a count: {uncounted}")
+    once, mf, moved = costs["update_once"], costs["model_flops"], \
+        costs["moved"]
+    med = {k: float(np.median([r[k] for r in log]))
+           for k in ("gather_s", "compute_s", "update_s", "wall_s")}
+    flops = cost["compute"].flops + cost["update"].flops
+    step_bytes = sum(c.bytes for c in cost.values())
+    tflops = cost["compute"].flops / med["compute_s"]
+    mfu = mf / med["wall_s"] / H100.peak_flops
+    upd_bytes = cost["cut"].bytes + cost["update"].bytes
+    upd_bw = upd_bytes / med["update_s"]
+    gather_bw = cost["gather"].bytes / med["gather_s"]
+    shares = {"compute TFLOP/s of peak": tflops / H100.peak_flops,
+              "step MFU": mfu, "cut+update HBM": upd_bw / H100.hbm_bw,
+              "gather HBM": gather_bw / H100.hbm_bw}
+    terms = RooflineTerms(flops, step_bytes, float(sum(moved.values())), mf,
+                          chips=1, hardware=H100)
+    bad = {k: v for k, v in shares.items() if not v <= DR_SHARE_MAX}
+    if bad:
+        raise AssertionError(f"DR: shares above {DR_SHARE_MAX}: {bad}")
+    if not cost["update"].bytes >= once:
+        raise AssertionError(
+            f"DR: the update counted {cost['update'].bytes:.4e} B, below the "
+            f"{once:.4e} B its tensors must cross once")
+    say("DR cost", f"D1's step ({MOE_ARCH}, depth {d1['depth']}, batch "
+        f"{DIST_BATCH} x {DIST_SEQ}, chunked attention, bf16) counted on "
+        f"meta by launch.op_cost: loss_and_grad {cost['compute'].flops:.6e} "
+        f"FLOPs, {cost['compute'].bytes:.6e} B; gather "
+        f"{cost['gather'].bytes:.6e} B; cut {cost['cut'].bytes:.6e} B; "
+        f"update {cost['update'].bytes:.6e} B ({cost['update'].flops:.6e} "
+        f"FLOPs; its tensors once {once:.6e} B); model_flops "
+        f"{mf:.6e} (6 N_active D); moved_bytes {moved}; medians over "
+        f"{len(log)} sharded steps: gather {med['gather_s']:.6f} s, compute "
+        f"{med['compute_s']:.6f} s, cut+update {med['update_s']:.6f} s, "
+        f"wall {med['wall_s']:.6f} s; model TFLOP/s (counted FLOPs over "
+        f"compute) {tflops / 1e12:.3f}, {shares['compute TFLOP/s of peak']:.4f} "
+        f"of {H100.peak_flops / 1e12:g}; step MFU (model_flops over the step "
+        f"wall) {mfu:.4f}; cut+update {upd_bw / 1e9:.2f} GB/s, "
+        f"{shares['cut+update HBM']:.4f} of {H100.hbm_bw / 1e12:g} TB/s; "
+        f"gather (its copies' reads and writes) {gather_bw / 1e9:.2f} GB/s, "
+        f"{shares['gather HBM']:.4f} of HBM; moved bytes: the gather's "
+        f"{moved['gather'] / med['gather_s'] / 1e9:.2f} GB/s over gather_s, "
+        f"the cut's {moved['cut'] / med['update_s'] / 1e9:.2f} GB/s over "
+        f"cut+update; "
+        f"H100 roofline of the step (RooflineTerms, {H100.name}): compute "
+        f"{terms.t_compute:.6f} s, memory {terms.t_memory:.6f} s, moved "
+        f"{terms.t_collective:.6f} s, bound {terms.step_time:.6f} s "
+        f"({terms.dominant}), the measured wall {med['wall_s'] / terms.step_time:.3f}x "
+        f"it; counted step FLOPs over model_flops "
+        f"{flops / mf:.4f}; card {name}; phase wall "
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
@@ -3638,7 +3810,22 @@ def phases_training() -> None:
         f"{time.perf_counter() - t_train:.1f} s")
 
 
+def phases_dist(name: str) -> None:
+    """D1f, D1 and DR (no hand-written kernel runs there)."""
+    phase_d1f_float32(name)
+    d1 = phase_d1_run_distributed(name)
+    torch.cuda.empty_cache()
+    phase_dr_cost(name, d1)
+
+
 def main() -> None:
+    if sys.argv[1:] == ["--only-dist"]:
+        # the sharded trainer's phases alone (no kernel is built: none runs
+        # there); prints no result line
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        phases_dist(phase_device())
+        return
     if sys.argv[1:] == ["--only-training"]:
         # the training and runtime phases alone (no kernel is built: none
         # runs there); prints no result line
@@ -3703,9 +3890,9 @@ def main() -> None:
     fed_cli_runs = phase_ft1_federated_convex()
     phase_ft2_federated_transformer()
     # the model sharded over a 2x4 mesh of the card (no kernel: training
-    # takes the chunked attention)
-    phase_d1_run_distributed(name)
-    torch.cuda.empty_cache()
+    # takes the chunked attention): float32 first, the basis of the bf16
+    # envelope, then bf16, then its step counted on the host (DR)
+    phases_dist(name)
     # the serving path (B6): the kernel alone first, then the full model
     fa_err = phase_fa_vs_plain()
     t_fa = phase_fa_timing(name, 4, 64, fa_err)

@@ -6,7 +6,10 @@ transformer preset), ``steps`` (the trainer's step), ``sweep`` (the
 spec-driven sweep CLI, every backend), ``report`` (the run ledger's
 terminal report), ``run_distributed`` (the trainer with the model sharded
 over a ("data", "model") mesh), ``recipes`` (the per-shape knob table),
-and ``mesh`` / ``sharding``, which re-export the production meshes and
-the sharding planner of ``repro_torch.mesh``.  The dry-run, cost,
-roofline and probe tooling is ROADMAP item 15's remainder (its
-static-analysis half is ``repro_torch.staticcheck``)."""
+``mesh`` / ``sharding``, which re-export the production meshes and
+the sharding planner of ``repro_torch.mesh``, and the cost tooling:
+``dryrun`` (every (arch, shape) step built on ``meta`` and counted),
+``op_cost`` (FLOPs and bytes from the aten ops a call runs: the
+counterpart of ``hlo_cost``), ``roofline`` (model FLOPs, roofline terms
+and the sharded step's moved bytes) and ``perf_probe`` (the top ops of
+one step)."""

@@ -45,7 +45,8 @@ from ..models.config import ModelConfig
 from .steps import Trainer, TrainState, loss_and_grad, make_trainer
 from .train import PRESETS, make_stream
 
-__all__ = ["shard_state", "sharded_train_step", "run", "main"]
+__all__ = ["shard_state", "gather_inputs", "cut_gradients",
+           "update_blocks", "sharded_train_step", "run", "main"]
 
 
 def shard_state(state: TrainState, mesh: Mesh) -> TrainState:
@@ -81,6 +82,28 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def gather_inputs(state: TrainState, batch, device):
+    """Step 1: the parameters and the batch gathered onto ``device``."""
+    return (tree_map(lambda s: gather(s, device), state.params),
+            tree_map(lambda s: gather(s, device), batch))
+
+
+def cut_gradients(grads, state: TrainState):
+    """Step 3: each gradient leaf cut by its parameter's sharding."""
+    return tree_map(lambda g, s: device_put(g, s.sharding), grads,
+                    state.params)
+
+
+def update_blocks(trainer: Trainer, state: TrainState, cut, worker
+                  ) -> Tuple[TrainState, torch.Tensor, torch.Tensor]:
+    """Step 4: the optimizer over the distinct blocks; the new sharded
+    state, gamma and tau."""
+    params, opt, gamma, tau = trainer.optimizer.update(
+        _blocks(state.params), _blocks(cut), _blocks(state.opt), worker)
+    return (TrainState(params=_unblocks(state.params, params),
+                       opt=_unblocks(state.opt, opt)), gamma, tau)
+
+
 def sharded_train_step(trainer: Trainer, state: TrainState, batch, worker,
                        device=None) -> Tuple[TrainState, Dict[str, Any]]:
     """One step of ``trainer`` on a state made by :func:`shard_state` and a
@@ -92,21 +115,16 @@ def sharded_train_step(trainer: Trainer, state: TrainState, batch, worker,
     first = tree_leaves(state.params)[0].sharding.mesh.devices.flat[0]
     dev = torch.device(device if device is not None else first)
     t0 = time.perf_counter()
-    params = tree_map(lambda s: gather(s, dev), state.params)
-    full = tree_map(lambda s: gather(s, dev), batch)
+    params, full = gather_inputs(state, batch, dev)
     _sync(dev)
     t1 = time.perf_counter()
     loss, metrics, grads = loss_and_grad(params, trainer.cfg, full)
     del params, full
     _sync(dev)
     t2 = time.perf_counter()
-    cut = tree_map(lambda g, s: device_put(g, s.sharding), grads,
-                   state.params)
+    cut = cut_gradients(grads, state)
     del grads
-    params, opt, gamma, tau = trainer.optimizer.update(
-        _blocks(state.params), _blocks(cut), _blocks(state.opt), worker)
-    new = TrainState(params=_unblocks(state.params, params),
-                     opt=_unblocks(state.opt, opt))
+    new, gamma, tau = update_blocks(trainer, state, cut, worker)
     _sync(dev)
     t3 = time.perf_counter()
     metrics = dict(metrics)

@@ -38,12 +38,15 @@ class TrainState(NamedTuple):
 def loss_and_grad(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Any]:
     """``(loss, metrics, grads)`` of ``models.loss_fn`` at a parameter
-    tree; ``grads`` has the tree's structure, everything is detached."""
+    tree; ``grads`` has the tree's structure, everything is detached.  A
+    leaf the loss does not read (a VLM's text token table under image
+    embeddings) gets a zero gradient, as ``jax.grad`` gives it."""
     leaves, spec = tree_flatten(params)
     live = [leaf.detach().requires_grad_(True) for leaf in leaves]
     with torch.enable_grad():
         loss, metrics = loss_fn(tree_unflatten(spec, live), cfg, batch)
-        grads = torch.autograd.grad(loss, live)
+        grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                    materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_unflatten(spec, list(grads)))
 

@@ -421,6 +421,20 @@ class AbstractMesh:
     def shape(self) -> dict:
         return dict(zip(self.axis_names, self._sizes))
 
+    @property
+    def size(self) -> int:
+        return int(np.prod(self._sizes, dtype=np.int64))
+
+    def __enter__(self) -> "AbstractMesh":
+        """``with mesh:`` makes this the ambient mesh that
+        ``models.act_constraint`` checks its specs against (a dry run
+        plans the production meshes without their devices)."""
+        _ambient_stack().append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _ambient_stack().pop()
+
     def __repr__(self) -> str:
         return f"AbstractMesh({self.shape})"
 
@@ -434,8 +448,9 @@ def _ambient_stack() -> list:
     return _AMBIENT.stack
 
 
-def current_mesh() -> Optional[Mesh]:
-    """The innermost ``with mesh:`` of this thread, or None."""
+def current_mesh() -> Optional[Any]:
+    """The innermost ``with mesh:`` of this thread (a ``Mesh`` or an
+    ``AbstractMesh``), or None."""
     stack = _ambient_stack()
     return stack[-1] if stack else None
 

@@ -182,12 +182,14 @@ class DelayAdaptiveOptimizer:
 
     def observe(self, state: DelayAdaptiveState, worker
                 ) -> Tuple[torch.Tensor, DelayAdaptiveState]:
-        """Write-event delay bookkeeping (Algorithm 1 lines 12/15)."""
+        """Write-event delay bookkeeping (Algorithm 1 lines 12/15).  The
+        stamp is read and written by index ops, with no host read of
+        ``worker``, so the step also runs on ``meta`` tensors."""
         w = torch.as_tensor(worker, dtype=torch.int64,
-                            device=state.step.device)
-        tau = state.step - state.worker_stamp[w]
-        stamps = state.worker_stamp.clone()
-        stamps[w] = state.step + 1
+                            device=state.step.device).reshape(1)
+        tau = state.step - state.worker_stamp.index_select(0, w)[0]
+        stamps = state.worker_stamp.index_put(
+            (w,), (state.step + 1).reshape(1))
         return tau, state._replace(worker_stamp=stamps)
 
     @torch.no_grad()

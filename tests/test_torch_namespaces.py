@@ -41,12 +41,11 @@ PACKAGES = ("core", "sweep", "federated", "api", "models", "serving",
             "configs", "kernels", "telemetry", "faults", "checkpoint",
             "optim", "data", "staticcheck")
 
-# name -> the ROADMAP queue A item that ports it
+# name -> its counterpart under another name, or why it has none (every
+# ROADMAP queue A item that listed names here is ported)
 _ITEMS = {
-    "item 15's remainder (XLA/TPU tooling: the dry-run and its cost, "
-    "roofline and probe modules)": [
-        "launch.dryrun", "launch.hlo_cost", "launch.roofline",
-        "launch.perf_probe"],
+    "counterpart: `launch.op_cost` (torch has no HLO)": [
+        "launch.hlo_cost"],
     "no counterpart (the port has no interpreter; kernels.dispatch "
     "resolve_device and kernel_route route by device)": [
         "kernels.default_interpret", "kernels.resolve_interpret"],
@@ -54,6 +53,14 @@ _ITEMS = {
         "staticcheck.jaxpr"],
 }
 UNPORTED = {name: item for item, names in _ITEMS.items() for name in names}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _reference_names():
@@ -161,7 +168,9 @@ NEW_MODULES = ("repro_torch.kernels.ops", "repro_torch.kernels.ref",
                "repro_torch.models.moe", "repro_torch.launch.train_federated",
                "repro_torch.configs.shapes", "repro_torch.launch.mesh",
                "repro_torch.launch.sharding", "repro_torch.launch.recipes",
-               "repro_torch.launch.run_distributed")
+               "repro_torch.launch.run_distributed",
+               "repro_torch.launch.roofline", "repro_torch.launch.op_cost",
+               "repro_torch.launch.dryrun", "repro_torch.launch.perf_probe")
 
 
 def test_every_port_module_imports_without_jax_or_the_reference(
