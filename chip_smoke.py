@@ -142,7 +142,9 @@ from repro_torch.launch import train_federated as tfed  # noqa: E402
 from repro_torch.launch import run_distributed as trdist  # noqa: E402
 from repro_torch.launch.dryrun import sharded_step_costs  # noqa: E402
 from repro_torch.launch.roofline import H100, RooflineTerms  # noqa: E402
-from repro_torch.launch.steps import make_trainer  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    data_parallel_loss_and_grad, loss_and_grad, make_trainer)
+from repro_torch.models.transformer import loss_parts  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.data import EmbedStream  # noqa: E402
 from repro_torch.models import (decode_step, forward,  # noqa: E402
@@ -3080,7 +3082,11 @@ def phase_card_vs_cpu(tag: str, archs, overrides=None) -> None:
 # 2048, 16 heads of 128, 60 experts of 1408, shared expert 5632, vocab
 # 151936, bf16 parameters) on a 2x4 ("data", "model") mesh that lists the
 # card eight times: experts 60 / 4 and the vocab on "model", FSDP over
-# "data".  Depth is the one cut: the largest (at least 2) at which the
+# "data".  The step is data-parallel: each of the two "data" rows computes
+# the loss and the gradients of its 4 x 512 tokens
+# (launch.steps.rows_loss_and_grad), the label count, the MoE statistics
+# and the gradients summed in row order; the parameters are gathered onto
+# the card once a step.  Depth is the one cut: the largest (at least 2) at which the
 # unsharded and the sharded step, one after the other, leave DIST_FREE
 # bytes of the card free by the estimate below, checked against the
 # measured peaks.
@@ -3101,15 +3107,24 @@ DIST_ACT_BYTES = 7.6e9
 # and the activations of a float32 trunk besides the log-softmax
 DIST_F32_BYTES_PER_PARAM = 39
 DIST_F32_ACT_BYTES = 9e9
-# Later losses, sharded against unsharded, relative to the first loss.
-# float32: the CPU tests' envelope (tests/test_torch_run_distributed.py);
-# only the clip's global norm sums in another order.  bf16: D1f holds
-# 1e-6 in float32 on the card, so the bf16 gap (3.2e-5 measured at depth 2)
-# is the parameters' rounding to bf16 (8 significant bits) after updates
-# that differ in their last float32 bits under the acting clip; the
-# envelope is the trainers' card-vs-CPU loss envelope, 1e-4 of the first.
+# Losses, sharded against unsharded, relative to the first loss (the
+# step-0 loss too: the rows sum the cross-entropy and the MoE statistics
+# in row order, the unsharded step the whole batch at once).  float32: the
+# CPU tests' envelope (tests/test_torch_dp_step.py).  bf16: D1f holds
+# 1e-6 in float32 on the card, so a bf16 gap is the parameters' and the
+# activations' rounding to bf16 (8 significant bits); the envelope is the
+# trainers' card-vs-CPU loss envelope, 1e-4 of the first.
 DIST_LOSS_F32_ENV = 1e-6
 DIST_LOSS_BF16_ENV = 1e-4
+# float32 later losses on the card: a capacity layer keeps or drops a
+# (token, slot) by a comparison, so the rows' rounding, amplified by
+# AdamW's m / (sqrt(v) + eps) where a gradient element is near zero, can
+# move a token's routing after step 0 and its loss by ~1/T of its own:
+# measured 8.425e-06 of the first loss at depth 1 on an H100 80GB HBM3 at
+# 700 W (ROADMAP queue C), held to 2e-5.  The step-0 loss keeps 1e-6 and the
+# step-0 gradients DIST_GRAD_F32_ENV of each leaf's largest |value|.
+DIST_LOSS_F32_LATER_ENV = 2e-5
+DIST_GRAD_F32_ENV = 1e-5
 # DR: no measured rate may exceed its peak by more than timing noise
 DR_SHARE_MAX = 1.05
 
@@ -3136,18 +3151,24 @@ def _d1_runs(cfg, mesh, trainer):
     """The unsharded step ``DIST_STEPS`` times, its memory then freed, and
     ``launch.run_distributed.run`` from the same initial state (the
     port's initializer, seed 0) and stream: the stream, the unsharded
-    steps' (loss, gamma, tau) and walls, the sharded state and log, and
-    the peaks reserved of each run."""
+    steps' (loss, gamma, tau, each MoE layer's dropped (token, slot)
+    pairs over the whole batch, from a no-grad forward before the step)
+    and walls, the sharded state and log, and the peaks reserved of each
+    run."""
     n_workers = dp_size(mesh)
     stream = ttrain.make_stream(cfg, DIST_BATCH, DIST_SEQ, device=CARD)
     torch.cuda.reset_peak_memory_stats()
     state = trainer.init(device=CARD)
     plain, plain_walls = [], []
     for k in range(DIST_STEPS):
+        b = stream.batch_at(k)
+        with torch.no_grad():
+            dropped = [int(st.dropped) for st in
+                       loss_parts(state.params, trainer.cfg, b).moe]
         t0 = time.perf_counter()
-        state, m = trainer.train_step(state, stream.batch_at(k),
-                                      k % n_workers)
-        plain.append((float(m["loss"]), float(m["gamma"]), int(m["tau"])))
+        state, m = trainer.train_step(state, b, k % n_workers)
+        plain.append((float(m["loss"]), float(m["gamma"]), int(m["tau"]),
+                      dropped))
         plain_walls.append(time.perf_counter() - t0)
     del state, m
     torch.cuda.empty_cache()
@@ -3159,18 +3180,26 @@ def _d1_runs(cfg, mesh, trainer):
     return stream, plain, plain_walls, state, log, peak_plain, peak_sharded
 
 
-def _d1_check(tag: str, log, plain, env: float) -> float:
-    """The step-0 loss bitwise, taus exact, gammas bitwise and the later
-    losses within ``env`` of the first, sharded against unsharded (``~(err
-    <= env)``, so a NaN fails); returns the later losses' largest
-    difference relative to the first loss."""
+def _d1_check(tag: str, log, plain, env0: float, env: float
+              ) -> Tuple[float, float]:
+    """Taus exact, gammas bitwise, the step-0 loss within ``env0`` and the
+    later losses within ``env`` of the first, and every MoE layer's
+    dropped (token, slot) count at step 0 equal, sharded against
+    unsharded (``~(err <= env)``, so a NaN fails); returns the step-0 and
+    the later losses' largest difference relative to the first loss."""
     losses = [r["loss"] for r in log]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{tag}: losses {losses}")
-    if losses[0] != plain[0][0]:
+    err0 = abs(losses[0] - plain[0][0]) / abs(plain[0][0])
+    if not err0 <= env0:
         raise AssertionError(f"{tag}: step-0 loss {losses[0]!r} sharded, "
-                             f"{plain[0][0]!r} unsharded")
-    for r, (_, gamma, tau) in zip(log, plain):
+                             f"{plain[0][0]!r} unsharded: {err0:.3e} apart, "
+                             f"over the envelope {env0:g}")
+    if log[0]["dropped"] != plain[0][3]:
+        raise AssertionError(f"{tag}: step-0 dropped (token, slot) pairs "
+                             f"{log[0]['dropped']} sharded, {plain[0][3]} "
+                             "unsharded")
+    for r, (_, gamma, tau, _) in zip(log, plain):
         if r["tau"] != tau or np.float32(r["gamma"]).view(np.int32) != \
                 np.float32(gamma).view(np.int32):
             raise AssertionError(f"{tag}: step {r['step']} sharded {r}, "
@@ -3181,15 +3210,27 @@ def _d1_check(tag: str, log, plain, env: float) -> float:
         raise AssertionError(
             f"{tag}: later losses {losses[1:]} sharded, "
             f"{[p[0] for p in plain[1:]]} unsharded: {err:.3e} of the first "
-            f"loss, over the envelope {env:g}")
-    return err
+            f"loss, over the envelope {env:g}; {_d1_rows(log, plain)}")
+    return err0, err
+
+
+def _d1_rows(log, plain) -> str:
+    """Each step's per-row compute seconds and each MoE layer's dropped
+    (token, slot) pairs, sharded beside unsharded."""
+    return "; ".join(
+        f"step {r['step']} rows "
+        f"{', '.join(f'{t:.4f}' for t in r['compute_rows_s'])} s, dropped "
+        f"{r['dropped']} sharded / {p[3]} unsharded"
+        for r, p in zip(log, plain))
 
 
 def phase_d1f_float32(name: str) -> float:
     """D1's comparison in float32 (parameters and compute), at the largest
     depth whose estimated peak leaves ``DIST_FREE`` of the card: the basis
-    of the bf16 envelope ``DIST_LOSS_BF16_ENV``.  Holds the later losses
-    to ``DIST_LOSS_F32_ENV`` of the first, the CPU tests' envelope."""
+    of the bf16 envelope ``DIST_LOSS_BF16_ENV``.  Holds the step-0 loss to
+    ``DIST_LOSS_F32_ENV`` of the first (the CPU tests' envelope), the
+    step-0 gradients to ``DIST_GRAD_F32_ENV`` of each leaf's max and the
+    later losses to ``DIST_LOSS_F32_LATER_ENV``."""
     t_phase = time.perf_counter()
     clear_program_cache()
     torch.cuda.empty_cache()
@@ -3203,11 +3244,26 @@ def phase_d1f_float32(name: str) -> float:
     mesh = make_mesh(DIST_MESH, devices=[CARD] * int(np.prod(DIST_MESH)))
     trainer = make_trainer(cfg.replace(attention_impl="chunked"),
                            n_workers=dp_size(mesh), lr=1e-3)
-    _, plain, _, state, log, peak_plain, peak_sharded = _d1_runs(
+    stream, plain, _, state, log, peak_plain, peak_sharded = _d1_runs(
         cfg, mesh, trainer)
     del state
     torch.cuda.empty_cache()
-    err = _d1_check("D1f", log, plain, DIST_LOSS_F32_ENV)
+    # the step-0 gradients, the rows' against the whole batch's
+    params = trainer.init(device=CARD).params
+    b0 = stream.batch_at(0)
+    want = tree_leaves(loss_and_grad(params, trainer.cfg, b0)[2])
+    got = tree_leaves(data_parallel_loss_and_grad(params, trainer.cfg, b0,
+                                                  mesh)[2])
+    grad_err = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                   for a, b in zip(got, want))
+    del params, want, got
+    torch.cuda.empty_cache()
+    if not grad_err <= DIST_GRAD_F32_ENV:
+        raise AssertionError(f"D1f: step-0 gradients {grad_err:.3e} of a "
+                             f"leaf's max apart, over {DIST_GRAD_F32_ENV:g}")
+    err0, err = _d1_check("D1f", log, plain, DIST_LOSS_F32_ENV,
+                          DIST_LOSS_F32_LATER_ENV)
     if not max(peak_plain, peak_sharded) <= total - DIST_FREE:
         raise AssertionError(
             f"D1f: peaks {peak_plain / 1e9:.2f} / {peak_sharded / 1e9:.2f} "
@@ -3219,9 +3275,12 @@ def phase_d1f_float32(name: str) -> float:
         f"{DIST_MESH} listing {CARD} 8 times, batch {DIST_BATCH} x seq "
         f"{DIST_SEQ}, {DIST_STEPS} steps: losses sharded "
         f"{', '.join(repr(r['loss']) for r in log)}, unsharded "
-        f"{', '.join(repr(p[0]) for p in plain)}; step 0 bitwise, taus and "
-        f"gammas bitwise; later losses {err:.3e} of the first apart "
-        f"(envelope {DIST_LOSS_F32_ENV:g}); peak reserved "
+        f"{', '.join(repr(p[0]) for p in plain)}; step 0 {err0:.3e} "
+        f"(envelope {DIST_LOSS_F32_ENV:g}) and later losses {err:.3e} "
+        f"(envelope {DIST_LOSS_F32_LATER_ENV:g}) of the first apart, step-0 "
+        f"gradients {grad_err:.3e} of a leaf's max (envelope "
+        f"{DIST_GRAD_F32_ENV:g}), taus and gammas bitwise; "
+        f"{_d1_rows(log, plain)}; peak reserved "
         f"{peak_plain / 1e9:.2f} GB unsharded, {peak_sharded / 1e9:.2f} GB "
         f"sharded of {total / 1e9:.2f} GB (estimate "
         f"{(DIST_F32_BYTES_PER_PARAM * _dist_params(full, depth) + DIST_F32_ACT_BYTES) / 1e9:.2f});"
@@ -3232,13 +3291,15 @@ def phase_d1f_float32(name: str) -> float:
 def phase_d1_run_distributed(name: str, depth: Optional[int] = None
                              ) -> dict:
     """``launch.run_distributed.run`` at full width on the card listed at
-    every position of a 2x4 mesh, after the unsharded step from the same
-    initial state: the step-0 loss bitwise, taus exact, gammas bitwise,
-    later losses within ``DIST_LOSS_BF16_ENV`` of the first, no
+    every position of a 2x4 mesh (two data-parallel rows), after the
+    unsharded step from the same initial state: taus exact, gammas
+    bitwise, the step-0 and later losses within ``DIST_LOSS_BF16_ENV`` of
+    the first, the step-0 dropped (token, slot) counts equal, no
     hand-written kernel launched; steps/s, each step's gather / compute /
-    cut-and-update seconds, peaks, the bytes a mesh position holds, and one
-    profiled step's launch calls and idle share.  Returns the config, the
-    depth and the sharded run's per-step records."""
+    cut-and-update seconds and each row's compute seconds, the dropped
+    counts beside the unsharded step's, peaks, the bytes a mesh position
+    holds, and one profiled step's launch calls and idle share.  Returns
+    the config, the depth and the sharded run's per-step records."""
     t_phase = time.perf_counter()
     clear_program_cache()
     torch.cuda.empty_cache()
@@ -3259,7 +3320,8 @@ def phase_d1_run_distributed(name: str, depth: Optional[int] = None
     launched = {fn.__name__: fn.launches for fn in COUNTERS if fn.launches}
     if launched:
         raise AssertionError(f"D1: hand-written kernels launched: {launched}")
-    err = _d1_check("D1", log, plain, DIST_LOSS_BF16_ENV)
+    err0, err = _d1_check("D1", log, plain, DIST_LOSS_BF16_ENV,
+                          DIST_LOSS_BF16_ENV)
     losses = [r["loss"] for r in log]
     if not max(peak_plain, peak_sharded) <= total - DIST_FREE:
         raise AssertionError(
@@ -3272,7 +3334,7 @@ def phase_d1_run_distributed(name: str, depth: Optional[int] = None
         b = device_put(b, batch_shardings(b, mesh, DIST_BATCH))
         wall, by_name, launch_calls = _profile(
             lambda: trdist.sharded_train_step(trainer, state, b,
-                                              DIST_STEPS % n_workers, CARD),
+                                              DIST_STEPS % n_workers),
             warm=False)
     busy = sum(by_name.values()) / 1e6
     idle = f"{1 - busy / wall:.3f}" if busy > 0 else "not measured"
@@ -3293,10 +3355,11 @@ def phase_d1_run_distributed(name: str, depth: Optional[int] = None
         "per step gather / compute / cut+update s: "
         + "; ".join(f"{r['gather_s']:.4f} / {r['compute_s']:.4f} / "
                     f"{r['update_s']:.4f}" for r in log)
-        + f"; losses {', '.join(repr(v) for v in losses)} (step 0 "
-        f"bitwise the unsharded step's; unsharded "
-        f"{', '.join(repr(p[0]) for p in plain)}; later losses {err:.3e} "
-        f"of the first apart, envelope {DIST_LOSS_BF16_ENV:g}); taus "
+        + f"; {_d1_rows(log, plain)}"
+        + f"; losses {', '.join(repr(v) for v in losses)} (unsharded "
+        f"{', '.join(repr(p[0]) for p in plain)}; step 0 {err0:.3e} and "
+        f"later losses {err:.3e} of the first apart, envelope "
+        f"{DIST_LOSS_BF16_ENV:g}); taus "
         f"{[r['tau'] for r in log]}, gammas bitwise; peak reserved "
         f"{peak_plain / 1e9:.2f} GB unsharded, {peak_sharded / 1e9:.2f} GB "
         f"sharded of {total / 1e9:.2f} GB (estimate "
@@ -3312,7 +3375,8 @@ def phase_d1_run_distributed(name: str, depth: Optional[int] = None
 
 def phase_dr_cost(name: str, d1: dict) -> None:
     """DR: D1's own step counted op by op on ``meta`` tensors on the host
-    (``launch.dryrun.sharded_step_costs``: the gather, ``loss_and_grad``,
+    (``launch.dryrun.sharded_step_costs``: the gather, the rows' loss and
+    gradients (``steps.rows_loss_and_grad``),
     the cut and the optimizer over the blocks by ``launch.op_cost``; model
     FLOPs and moved bytes by ``launch.roofline``), read against D1's
     measured seconds: the step's model TFLOP/s and share of the bf16 peak,
@@ -3353,7 +3417,7 @@ def phase_dr_cost(name: str, d1: dict) -> None:
             f"{once:.4e} B its tensors must cross once")
     say("DR cost", f"D1's step ({MOE_ARCH}, depth {d1['depth']}, batch "
         f"{DIST_BATCH} x {DIST_SEQ}, chunked attention, bf16) counted on "
-        f"meta by launch.op_cost: loss_and_grad {cost['compute'].flops:.6e} "
+        f"meta by launch.op_cost: the rows' loss and gradients {cost['compute'].flops:.6e} "
         f"FLOPs, {cost['compute'].bytes:.6e} B; gather "
         f"{cost['gather'].bytes:.6e} B; cut {cost['cut'].bytes:.6e} B; "
         f"update {cost['update'].bytes:.6e} B ({cost['update'].flops:.6e} "

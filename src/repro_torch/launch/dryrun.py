@@ -51,8 +51,8 @@ from ..mesh import (AbstractMesh, batch_shardings, cache_shardings,
 from . import op_cost
 from . import run_distributed as rd
 from .roofline import H100, RooflineTerms, model_flops, moved_bytes
-from .steps import (loss_and_grad, make_prefill_step, make_serve_step,
-                    make_trainer)
+from .steps import (make_prefill_step, make_serve_step, make_trainer,
+                    rows_loss_and_grad)
 
 __all__ = ["DEFAULT_OUT", "Step", "abstract_mesh", "production_mesh",
            "mesh_tag", "build_step", "make_step", "sharded_step_costs",
@@ -110,8 +110,8 @@ def build_step(arch: str, shape_name: str, mesh, *, fsdp: bool = True,
     """The step of one (arch, shape) planned on ``mesh`` (``(None,
     why)`` where ``configs.applicable`` skips the combo).  The keyword
     knobs are the reference's beyond-paper optimizations, all off by
-    default; the port's attention ignores ``remat_chunk`` (it recomputes
-    nothing of its own in the backward pass)."""
+    default; ``remat_chunk`` recomputes each attention chunk's scores in
+    the backward pass, as the reference's ``jax.checkpoint`` does."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     ok, why = applicable(cfg, shape)
@@ -151,7 +151,7 @@ def make_step(cfg, shape, mesh, *, fsdp: bool = True, small_out: int = 0,
                 "inputs": (batch, batch_shardings(batch, mesh, B))}
         worker = torch.zeros((), dtype=torch.int32, device="meta")
         return Step("train", trainer.train_step, (state, batch, worker),
-                    plan, moved_bytes(state, batch, mesh, B, fsdp=fsdp,
+                    plan, moved_bytes(state, mesh, fsdp=fsdp,
                                       small_out=small_out))
 
     with torch.no_grad():
@@ -188,8 +188,9 @@ def sharded_step_costs(cfg, mesh_shape, batch: int, seq: int,
     """``launch.run_distributed.sharded_train_step`` for ``cfg`` (any
     size) at ``batch`` x ``seq`` on a ("data", "model") mesh of
     ``mesh_shape``, counted part by part on ``meta`` tensors: the
-    :class:`op_cost.Cost` of the gather, of ``loss_and_grad`` (chunked
-    attention), of the cut and of the optimizer over the blocks; the
+    :class:`op_cost.Cost` of the gather, of the rows' loss and gradients
+    (``steps.rows_loss_and_grad``, chunked attention), of the cut and of
+    the optimizer over the blocks; the
     model FLOPs; the moved bytes on a mesh of ``devices`` (default a
     device a position); and ``update_once``, the bytes the update's
     tensors must cross once (the parameter and gradient blocks and the
@@ -205,10 +206,10 @@ def sharded_step_costs(cfg, mesh_shape, batch: int, seq: int,
     plain_batch = input_specs(cfg, shape)["batch"]
     cut_batch = device_put(plain_batch,
                            batch_shardings(plain_batch, mesh, batch))
-    g_tr = op_cost.trace(rd.gather_inputs, state, cut_batch, meta)
-    params, full = g_tr.result
-    c_tr = op_cost.trace(loss_and_grad, params, cfg, full)
-    del params, full
+    g_tr = op_cost.trace(rd.gather_params, state)
+    c_tr = op_cost.trace(rows_loss_and_grad, g_tr.result, cfg,
+                         rd.row_batches(cut_batch, mesh), mesh)
+    g_tr.result = None
     k_tr = op_cost.trace(rd.cut_gradients, c_tr.result[2], state)
     u_tr = op_cost.trace(rd.update_blocks, trainer, state, k_tr.result, 0)
     moved_mesh = (abstract_mesh(mesh_shape) if devices is None
@@ -216,7 +217,7 @@ def sharded_step_costs(cfg, mesh_shape, batch: int, seq: int,
     return {"gather": g_tr.cost(), "compute": c_tr.cost(),
             "cut": k_tr.cost(), "update": u_tr.cost(),
             "model_flops": model_flops(cfg, shape),
-            "moved": moved_bytes(specs, plain_batch, moved_mesh, batch),
+            "moved": moved_bytes(specs, moved_mesh),
             "update_once": (3 * _tree_bytes(specs.params)
                             + 2 * _tree_bytes(specs.opt))}
 

@@ -74,9 +74,7 @@ def main(argv=None) -> None:
     if args.metric == "coll":
         rows = []
         if step.kind == "train":
-            state, batch = step.args[0], step.args[1]
-            rows = sorted(moved_rows(state, batch, mesh,
-                                     SHAPES[args.shape].global_batch,
+            rows = sorted(moved_rows(step.args[0], mesh,
                                      small_out=args.small_out),
                           key=lambda r: r[0], reverse=True)[:args.top]
         for v, kind, path, shape in rows:

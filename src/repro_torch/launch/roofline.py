@@ -14,9 +14,9 @@ Terms (seconds, one step, on the hardware given):
 The reference reads its collective bytes from optimized HLO
 (``parse_collective_bytes``); torch has no HLO.  The port's collectives
 are ``launch.run_distributed``'s copies, so :func:`moved_bytes` counts
-them from the plan: the gather of the parameters and the batch onto the
-compute device, the cut of each gradient into its blocks, and the copies
-of each updated block onto the other positions that hold it.
+them from the plan: the gather of the parameters onto each data-parallel
+row's device, the rows' gradient sum and its cut into blocks, and the
+copies of each updated block onto the other positions that hold it.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from ..core.pytree import tree_flatten_with_path, tree_leaves, tree_map
-from ..mesh import Mesh, NamedSharding, P, batch_shardings, param_shardings
+from ..mesh import Mesh, NamedSharding, P, dp_rows, dp_size, param_shardings
 
 __all__ = ["Hardware", "H100", "RooflineTerms", "count_params",
            "model_flops", "moved_bytes", "moved_rows", "MOVED_KINDS"]
@@ -162,8 +162,8 @@ def _path_text(path) -> str:
                     for k in path)
 
 
-def moved_rows(state, batch, mesh, global_batch: int, *, fsdp: bool = True,
-               small_out: int = 0) -> List[Tuple[int, str, str, tuple]]:
+def moved_rows(state, mesh, *, fsdp: bool = True, small_out: int = 0
+               ) -> List[Tuple[int, str, str, tuple]]:
     """:func:`moved_bytes` leaf by leaf: ``(bytes, kind, path, shape)``
     rows, one a leaf and kind that moves anything."""
     positions = _position_keys(mesh)
@@ -177,40 +177,45 @@ def moved_rows(state, batch, mesh, global_batch: int, *, fsdp: bool = True,
                 rows.append((n, kind, prefix + _path_text(path),
                              tuple(leaf.shape)))
 
+    row_devs = ([str(d) for _, d, _ in dp_rows(mesh)]
+                if isinstance(mesh, Mesh) else list(range(dp_size(mesh))))
+    hops = sum(a != b for a, b in zip(row_devs, row_devs[1:]))
     p_sh = param_shardings(state.params, mesh, fsdp=fsdp,
                            small_out_threshold=small_out)
-    add("gather", state.params, p_sh, "params/", lambda d, p: d)
-    add("cut", state.params, p_sh, "params/", lambda d, p: p)
+    add("gather", state.params, p_sh, "params/",
+        lambda d, p: d * len(set(row_devs)))
+    add("cut", state.params, p_sh, "params/", lambda d, p: p + d * hops)
     add("replicate", state.params, p_sh, "params/", lambda d, p: p - d)
     opt = state.opt._replace(inner=param_shardings(
         state.opt.inner, mesh, fsdp=fsdp, small_out_threshold=small_out))
     o_sh = tree_map(lambda s: s if isinstance(s, NamedSharding)
                     else NamedSharding(mesh, P()), opt)
     add("replicate", state.opt, o_sh, "opt/", lambda d, p: p - d)
-    add("gather", batch, batch_shardings(batch, mesh, global_batch),
-        "batch/", lambda d, p: d)
     return rows
 
 
-def moved_bytes(state, batch, mesh, global_batch: int, *, fsdp: bool = True,
-                small_out: int = 0) -> Dict[str, int]:
+def moved_bytes(state, mesh, *, fsdp: bool = True, small_out: int = 0
+                ) -> Dict[str, int]:
     """The bytes one ``launch.run_distributed.sharded_train_step`` copies
     on ``mesh`` (a ``Mesh``, whose repeated devices share their blocks, or
     an ``AbstractMesh``, a device a position), from the plan alone:
 
-    * ``gather``: every distinct block of the parameters and the batch,
-      once, onto the compute device;
-    * ``cut``: every gradient block onto each device that holds it (one
-      copy a distinct (device, block) pair, as ``mesh.device_put`` makes);
+    * ``gather``: every distinct block of the parameters onto each
+      distinct device that is a data-parallel row's first, once (the
+      batch moves nothing: each row reads the block it holds);
+    * ``cut``: the running gradient sum onto the next row's device
+      wherever consecutive rows change device, and every gradient block
+      onto each device that holds it (one copy a distinct (device, block)
+      pair, as ``mesh.device_put`` makes);
     * ``replicate``: each updated block of the parameters and the
       optimizer state onto the devices that hold it besides the one it
       was updated on.
 
     ``state`` is a ``TrainState`` (tensors on any device, ``meta`` too)
     planned as ``shard_state`` plans it (the optimizer's scalar state
-    replicated), ``batch`` a batch planned by ``batch_shardings``."""
+    replicated)."""
     out = {k: 0 for k in MOVED_KINDS}
-    for n, kind, _, _ in moved_rows(state, batch, mesh, global_batch,
-                                    fsdp=fsdp, small_out=small_out):
+    for n, kind, _, _ in moved_rows(state, mesh, fsdp=fsdp,
+                                    small_out=small_out):
         out[kind] += n
     return out

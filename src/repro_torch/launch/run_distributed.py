@@ -4,29 +4,44 @@ of ``repro.launch.run_distributed``).
     PYTHONPATH=src python -m repro_torch.launch.run_distributed \\
         --arch qwen2-moe-a2.7b --reduced --steps 3 --mesh 2x4 --device cpu
 
-Without ``--device`` the mesh takes one CUDA card a position and raises
-when there are fewer; ``--device cuda:0`` (or ``cpu``) lists that one
-device at every position.
+Without ``--device`` the mesh takes one CUDA card a position (of every
+process) and raises when there are fewer; ``--device cuda:0`` (or
+``cpu``) lists that one device at every position.  Over several
+processes (``--coordinator host:port --num-processes N --process-id i``,
+one command a process; gloo with ``--device cpu``, NCCL otherwise) the
+mesh's positions go to the ranks in mesh index order, so each rank owns
+whole data-parallel rows; a device list that gives one card to two ranks
+raises before the process group is made.
 
 The trainer is the reference's, ``make_trainer(cfg, n_workers=dp_size(mesh),
 lr=1e-3)``, with the chunked attention (the flash-attention kernel has no
 backward).  Parameters and the optimizer's moments are cut by
 ``param_shardings`` into one block a mesh position (``mesh.device_put``),
 the policy's scalar state is replicated, and each batch is cut by
-``batch_shardings``.  One step (:func:`sharded_train_step`):
+``batch_shardings``.  One step (:func:`sharded_train_step`), as the
+reference's SPMD program computes it:
 
-1. gather the parameters and the batch onto one device (the all-gather);
-2. ``loss_and_grad`` over the global batch: the loss is a function of the
-   whole batch (an MoE router's aux term couples every token), so a split
-   of the compute over "data" would compute another function;
+1. gather the parameters onto each data-parallel row's first device, once
+   a device (the all-gather, across ranks where the blocks live in
+   several);
+2. ``steps.rows_loss_and_grad``: each row computes the loss and the
+   gradient of its own slice of the batch where it lives, in row order;
+   the statistics that couple the batch (the label count, each MoE
+   layer's expert counts and probability sums, a capacity layer's
+   offsets) are summed in row order, so the step computes the whole
+   batch's loss; the rows' gradients are summed in row order;
 3. cut each gradient leaf by its parameter's sharding (the
    reduce-scatter);
 4. ``DelayAdaptiveOptimizer.update`` over the distinct blocks: AdamW is
    elementwise, and the clip's global norm sums the blocks' squares leaf
-   by leaf, each leaf's blocks in mesh index order.
+   by leaf, each leaf's blocks in mesh index order (gathered from the
+   ranks that hold them).
 
-So the step equals the unsharded one but for the order of that one sum:
-bitwise where the clip does not act.
+Against the unsharded step the row sums are another float order (a
+rounding apart, the envelopes of ``tests/test_torch_dp_step.py``); on a
+mesh whose data axis is 1 the step is the unsharded one but for the
+clip's sum, and one mesh run in one process and in several gives
+bitwise the same state.
 """
 from __future__ import annotations
 
@@ -39,13 +54,16 @@ import torch
 
 from ..configs import ARCH_IDS, get_config
 from ..core.pytree import tree_leaves, tree_map
-from ..mesh import (Mesh, batch_shardings, device_put, dp_size, gather,
-                    make_mesh, param_shardings, replicated)
+from ..mesh import (Mesh, _dp_entry, batch_shardings, block_values,
+                    check_one_rank_a_card, device_put, dp_rows, dp_size,
+                    gather, init_distributed, make_mesh, param_shardings,
+                    process_index, replicated, shutdown_distributed,
+                    split_samples)
 from ..models.config import ModelConfig
-from .steps import Trainer, TrainState, loss_and_grad, make_trainer
+from .steps import Trainer, TrainState, make_trainer, rows_loss_and_grad
 from .train import PRESETS, make_stream
 
-__all__ = ["shard_state", "gather_inputs", "cut_gradients",
+__all__ = ["shard_state", "gather_params", "row_batches", "cut_gradients",
            "update_blocks", "sharded_train_step", "run", "main"]
 
 
@@ -63,8 +81,9 @@ def shard_state(state: TrainState, mesh: Mesh) -> TrainState:
 
 
 def _blocks(tree):
-    """Each ``ShardedTensor`` leaf as its distinct blocks: the tensor when
-    there is one, else the list of them in mesh index order."""
+    """Each ``ShardedTensor`` leaf as the distinct blocks this rank holds:
+    the tensor when the leaf has one block, else the list of them in mesh
+    index order."""
     return tree_map(lambda s: s.blocks()[0] if s.n_blocks == 1
                     else s.blocks(), tree)
 
@@ -74,7 +93,7 @@ def _unblocks(like, tree):
     blocks of ``tree``, taken in its leaf order."""
     flat = iter(tree_leaves(tree))
     return tree_map(lambda s: s.with_blocks(
-        [next(flat) for _ in range(s.n_blocks)]), like)
+        [next(flat) for _ in range(len(s.blocks()))]), like)
 
 
 def _sync(device: torch.device) -> None:
@@ -82,10 +101,46 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def gather_inputs(state: TrainState, batch, device):
-    """Step 1: the parameters and the batch gathered onto ``device``."""
-    return (tree_map(lambda s: gather(s, device), state.params),
-            tree_map(lambda s: gather(s, device), batch))
+def _mesh_of(state: TrainState) -> Mesh:
+    return tree_leaves(state.params)[0].sharding.mesh
+
+
+def _my_rows(mesh: Mesh) -> List[int]:
+    me = process_index()
+    return [i for i, (_, _, r) in enumerate(dp_rows(mesh)) if r == me]
+
+
+def gather_params(state: TrainState) -> Dict[str, Any]:
+    """Step 1: the parameters gathered onto each device that is the first
+    of one of this rank's data-parallel rows, once a device."""
+    mesh = _mesh_of(state)
+    rows = dp_rows(mesh)
+    out: Dict[str, Any] = {}
+    for i in _my_rows(mesh):
+        dev = rows[i][1]
+        if str(dev) not in out:
+            out[str(dev)] = tree_map(lambda s: gather(s, dev), state.params)
+    return out
+
+
+def row_batches(batch, mesh: Mesh) -> Dict[int, Dict[str, torch.Tensor]]:
+    """Each of this rank's data-parallel rows' slices of a batch cut by
+    ``batch_shardings``: the block of the row's first position, cut over
+    the rows where the plan left the batch whole (``split_samples`` then
+    raises where it does not divide)."""
+    rows = dp_rows(mesh)
+    dp = _dp_entry(mesh)
+    out = {}
+    for i in _my_rows(mesh):
+        first = rows[i][0]
+        out[i] = {}
+        for name, leaf in batch.items():
+            block = leaf.shards[first]
+            if dp is None or dp in tuple(leaf.sharding.spec):
+                out[i][name] = block
+            else:
+                out[i][name] = split_samples([block], len(rows))[i][0]
+    return out
 
 
 def cut_gradients(grads, state: TrainState):
@@ -96,40 +151,53 @@ def cut_gradients(grads, state: TrainState):
 
 def update_blocks(trainer: Trainer, state: TrainState, cut, worker
                   ) -> Tuple[TrainState, torch.Tensor, torch.Tensor]:
-    """Step 4: the optimizer over the distinct blocks; the new sharded
-    state, gamma and tau."""
+    """Step 4: the optimizer over the distinct blocks this rank holds; the
+    new sharded state, gamma and tau.  The clip's global norm is that of
+    every block (``mesh.block_values``: the squares of the blocks other
+    ranks hold are gathered), summed leaf by leaf, each leaf's blocks in
+    mesh index order."""
+    norm = None
+    if trainer.optimizer.grad_clip:
+        norm = torch.sqrt(sum(block_values(
+            cut, lambda b: torch.sum(torch.square(b.float())))))
     params, opt, gamma, tau = trainer.optimizer.update(
-        _blocks(state.params), _blocks(cut), _blocks(state.opt), worker)
+        _blocks(state.params), _blocks(cut), _blocks(state.opt), worker,
+        grad_norm=norm)
     return (TrainState(params=_unblocks(state.params, params),
                        opt=_unblocks(state.opt, opt)), gamma, tau)
 
 
-def sharded_train_step(trainer: Trainer, state: TrainState, batch, worker,
-                       device=None) -> Tuple[TrainState, Dict[str, Any]]:
+def sharded_train_step(trainer: Trainer, state: TrainState, batch, worker
+                       ) -> Tuple[TrainState, Dict[str, Any]]:
     """One step of ``trainer`` on a state made by :func:`shard_state` and a
-    batch cut by ``batch_shardings``; the compute runs on ``device``
-    (default the mesh's first).  Returns the new sharded state and the
-    metrics of ``Trainer.train_step`` with the seconds of the gather
-    (``gather_s``), the loss and gradients (``compute_s``) and the cut and
-    update (``update_s``)."""
-    first = tree_leaves(state.params)[0].sharding.mesh.devices.flat[0]
-    dev = torch.device(device if device is not None else first)
+    batch cut by ``batch_shardings``, each data-parallel row computing
+    where it lives (every rank of the mesh calls it).  Returns the new
+    sharded state and the metrics of ``Trainer.train_step`` with
+    ``dropped`` (each MoE layer's dropped (token, slot) pairs) and the
+    seconds of the gather (``gather_s``), of each of this rank's rows'
+    loss and gradients (``compute_rows_s``) and their sum
+    (``compute_s``), and of the gradients' reduction, cut and update
+    (``update_s``)."""
+    mesh = _mesh_of(state)
+    first = dp_rows(mesh)[_my_rows(mesh)[0]][1]
     t0 = time.perf_counter()
-    params, full = gather_inputs(state, batch, dev)
-    _sync(dev)
+    params_on = gather_params(state)
+    for d in params_on:
+        _sync(torch.device(d))
     t1 = time.perf_counter()
-    loss, metrics, grads = loss_and_grad(params, trainer.cfg, full)
-    del params, full
-    _sync(dev)
+    loss, metrics, grads, rows_s = rows_loss_and_grad(
+        params_on, trainer.cfg, row_batches(batch, mesh), mesh)
+    del params_on
     t2 = time.perf_counter()
     cut = cut_gradients(grads, state)
     del grads
     new, gamma, tau = update_blocks(trainer, state, cut, worker)
-    _sync(dev)
+    _sync(first)
     t3 = time.perf_counter()
     metrics = dict(metrics)
     metrics.update(loss=loss, gamma=gamma, tau=tau, gather_s=t1 - t0,
-                   compute_s=t2 - t1, update_s=t3 - t2)
+                   compute_s=sum(rows_s), compute_rows_s=rows_s,
+                   update_s=t3 - t2)
     return new, metrics
 
 
@@ -138,11 +206,14 @@ def run(cfg: ModelConfig, mesh: Mesh, steps: int = 3, batch: int = 8,
     """``steps`` sharded steps of the reference's trainer for ``cfg`` on
     ``mesh`` from the port's initializer (seed 0) and the synthetic
     stream (seed 0), worker ``k % dp_size(mesh)`` at step k; the state
-    is made and computed on ``device`` (default the mesh's first).
-    Returns the final state and one record a step (loss, gamma, tau,
-    seconds)."""
+    is made on ``device`` (default the first device of this rank's first
+    row) and cut onto the positions this rank owns.  Each rank checks
+    its losses for NaN.  Returns the final state and one record a step
+    (loss, gamma, tau, seconds)."""
     dev = torch.device(device if device is not None
-                       else mesh.devices.flat[0])
+                       else dp_rows(mesh)[_my_rows(mesh)[0]][1])
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)  # the card this rank's collectives use
     n_workers = dp_size(mesh)
     trainer = make_trainer(cfg.replace(attention_impl="chunked"),
                            n_workers=n_workers, lr=1e-3)
@@ -154,17 +225,27 @@ def run(cfg: ModelConfig, mesh: Mesh, steps: int = 3, batch: int = 8,
             b = stream.batch_at(k)
             b = device_put(b, batch_shardings(b, mesh, batch))
             t0 = time.perf_counter()
-            state, m = sharded_train_step(trainer, state, b, k % n_workers,
-                                          dev)
+            state, m = sharded_train_step(trainer, state, b, k % n_workers)
             loss = float(m["loss"])
             if loss != loss:
                 raise FloatingPointError("NaN loss in distributed execution")
             log.append(dict(step=k, loss=loss, gamma=float(m["gamma"]),
                             tau=int(m["tau"]),
                             wall_s=time.perf_counter() - t0,
+                            dropped=[int(v) for v in m["dropped"]],
                             **{n: m[n] for n in ("gather_s", "compute_s",
+                                                 "compute_rows_s",
                                                  "update_s")}))
     return state, log
+
+
+def _positions_ranks(n: int, num_processes: int) -> List[int]:
+    """The rank of each of ``n`` mesh positions in mesh index order: equal
+    runs, rank 0 first."""
+    if n % num_processes:
+        raise ValueError(f"{n} mesh positions do not divide over "
+                         f"{num_processes} processes")
+    return [k * num_processes // n for k in range(n)]
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -180,25 +261,50 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--device", default=None,
                     help="one device listed at every mesh position (default:"
                          " one CUDA card a position)")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of rank 0 for a multi-process run")
+    ap.add_argument("--num-processes", type=int, default=1)
+    ap.add_argument("--process-id", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.num_processes > 1 and not args.coordinator:
+        ap.error("--num-processes > 1 needs --coordinator host:port")
+    if not 0 <= args.process_id < args.num_processes:
+        ap.error("--process-id must be in [0, --num-processes)")
 
     cfg = PRESETS[args.preset] if args.preset else get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     shape = tuple(int(x) for x in args.mesh.split("x"))
-    devices = (None if args.device is None
-               else [args.device] * int(np.prod(shape)))
-    mesh = make_mesh(shape, devices=devices)
-    state, log = run(cfg, mesh, args.steps, args.batch, args.seq)
-    n_dev = len({str(d) for d in mesh.devices.flat})
-    for r in log:
-        print(f"step {r['step']} loss {r['loss']:.4f} gamma "
-              f"{r['gamma']:.2e} tau {r['tau']} ({r['wall_s']:.2f}s) "
-              f"devices={n_dev}")
-    # the plan of the first parameter: its blocks live on the mesh's
-    # positions
-    print(f"sharding of first param: {tree_leaves(state.params)[0].sharding}")
-    print("DISTRIBUTED_RUN_OK")
+    n = int(np.prod(shape))
+    devices = procs = None
+    if args.device is not None:
+        devices = [args.device] * n
+        procs = _positions_ranks(n, args.num_processes)
+        check_one_rank_a_card(devices, procs)
+    started = False
+    if args.coordinator:
+        kind = torch.device(args.device or "cuda").type
+        init_distributed(args.coordinator, args.num_processes,
+                         args.process_id,
+                         backend="gloo" if kind == "cpu" else "nccl")
+        started = True
+    try:
+        mesh = make_mesh(shape, devices=devices, processes=procs)
+        state, log = run(cfg, mesh, args.steps, args.batch, args.seq)
+        if process_index() == 0:
+            n_dev = len({str(d) for d in mesh.devices.flat})
+            for r in log:
+                print(f"step {r['step']} loss {r['loss']:.4f} gamma "
+                      f"{r['gamma']:.2e} tau {r['tau']} ({r['wall_s']:.2f}s) "
+                      f"devices={n_dev}")
+            # the plan of the first parameter: its blocks live on the
+            # mesh's positions
+            print("sharding of first param: "
+                  f"{tree_leaves(state.params)[0].sharding}")
+            print("DISTRIBUTED_RUN_OK")
+    finally:
+        if started:
+            shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -10,24 +10,48 @@ update.  Parameters are the reference-layout tree of tensors
 respect to its leaves.  ``Trainer.state_specs`` is the train state on the
 ``meta`` device (shapes only), which the sharding planner plans at full
 size.
+
+:func:`rows_loss_and_grad` is the data-parallel ``loss_and_grad`` of a
+model mesh's rows (``mesh.dp_rows``; :func:`data_parallel_loss_and_grad`
+cuts a global batch for it).  The loss couples the rows twice: its
+cross-entropy divides by the whole batch's label count, and each MoE
+layer's balance term multiplies the whole batch's expert counts with its
+probability sums; a capacity MoE also gives each row's (token, slot)
+pairs their slots after the earlier rows' (``models.moe.MoeSlice``).  So
+each row runs its forward on its device in row order, reading the
+earlier rows' counts at each MoE layer; the rows' ``loss_parts`` are
+summed in row order; each row then takes the gradient of its share,
+``compose_loss(parts_row, totals)``, whose sum over the rows is the loss
+(the counts carry no gradient), and the gradients are summed in row
+order.  The schedule keeps every row's graph (with remat, each layer's
+input) until the sums are known: the peak holds the whole batch's
+activations, as the unsharded step's does, plus nothing for a second
+forward pass.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..core.prox import ProxOp, Zero
-from ..core.pytree import tree_flatten, tree_unflatten
+from ..core.pytree import tree_flatten, tree_map, tree_unflatten
 from ..core.stepsize import Adaptive1, StepsizePolicy
+from ..mesh import (Mesh, dp_rows, rows_gather, split_samples,
+                    sum_in_order)
 from ..models import decode_step, forward, loss_fn, param_tree, prefill
 from ..models.config import ModelConfig
+from ..models.moe import MoeSlice, RouteStats
+from ..models.transformer import (LossParts, compose_loss, loss_parts,
+                                  moe_layer_count)
 from ..optim.optimizers import (AdamW, DelayAdaptiveOptimizer,
                                 DelayAdaptiveState, Momentum, Sgd)
 
 __all__ = ["TrainState", "Trainer", "make_trainer", "make_prefill_step",
-           "make_serve_step", "loss_and_grad"]
+           "make_serve_step", "loss_and_grad", "rows_loss_and_grad",
+           "data_parallel_loss_and_grad"]
 
 
 class TrainState(NamedTuple):
@@ -49,6 +73,161 @@ def loss_and_grad(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
                                     materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_unflatten(spec, list(grads)))
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _offsets_exchange(mesh: Mesh, row: int) -> Callable:
+    """A capacity layer's offsets for ``row`` when the rows live in
+    several ranks: the first call all-gathers every row's counts (every
+    rank calls it at the same layer) and sums the earlier rows'; a
+    recompute of the layer reads the kept answer."""
+    kept: list = []
+
+    def offsets(counts: torch.Tensor) -> Optional[torch.Tensor]:
+        if not kept:
+            every = rows_gather(mesh, {row: counts})
+            kept.append(None if row == 0 else sum_in_order(every[:row]))
+        return kept[0]
+    return offsets
+
+
+def _pack(parts: LossParts) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A row's statistics as one float32 and one int64 vector: nll, cnt
+    and each MoE layer's probability sums; each layer's counts and
+    dropped pairs."""
+    f = [parts.nll.detach().reshape(1), parts.cnt.detach().reshape(1)]
+    i = [parts.cnt.new_zeros((1,), dtype=torch.int64)]   # never empty
+    for st in parts.moe:
+        f.append(st.probsum.detach())
+        i += [st.counts, st.dropped.reshape(1)]
+    return torch.cat(f), torch.cat(i)
+
+
+def _unpack(f: torch.Tensor, i: torch.Tensor, n_moe: int, n_exp: int,
+            tokens: int) -> LossParts:
+    moe, fo, io = [], 2, 1
+    for _ in range(n_moe):
+        moe.append(RouteStats(None, i[io:io + n_exp],
+                              f[fo:fo + n_exp], i[io + n_exp]))
+        fo += n_exp
+        io += n_exp + 1
+    return LossParts(f[0], f[1], tokens, tuple(moe))
+
+
+def rows_loss_and_grad(params_on: Dict[str, Any], cfg: ModelConfig,
+                       row_batches: Dict[int, Dict[str, torch.Tensor]],
+                       mesh: Mesh):
+    """``(loss, metrics, grads, row_seconds)`` of the batch whose slices
+    are ``mesh``'s data-parallel rows (``mesh.dp_rows``), computed where
+    they live.  ``row_batches`` maps the index of each row this rank owns
+    to its slice, on the row's device; ``params_on`` maps each of those
+    devices (``str``) to the parameter tree there.  ``grads`` (the tree's
+    structure, on the device of this rank's last row) is the gradient of
+    the whole batch's loss summed over the rows in row order; ``metrics``
+    holds ``ce``, ``aux`` and ``dropped`` (each MoE layer's dropped
+    (token, slot) pairs over the rows); ``row_seconds`` each of this
+    rank's rows' forward and backward seconds.  Where the rows live in
+    several ranks, each rank owns one row and every rank calls this (the
+    exchanges are all-gathers summed in row order, so the numbers are the
+    one-process run's bitwise)."""
+    rows = dp_rows(mesh)
+    mine = sorted(row_batches)
+    multi = len({r for _, _, r in rows}) > 1
+    if multi and len(mine) != 1:
+        raise ValueError(
+            f"a data-parallel step over several ranks puts one row in each "
+            f"rank; this rank owns the rows {mine}")
+    tokens = int(row_batches[mine[0]]["targets"].numel()) * len(rows)
+    n_moe, n_exp = moe_layer_count(cfg), cfg.n_experts
+    live: Dict[str, list] = {}
+    spec = None
+    for i in mine:
+        key = str(rows[i][1])
+        if key not in live:
+            leaves, spec = tree_flatten(params_on[key])
+            live[key] = [t.detach().requires_grad_(True) for t in leaves]
+
+    # forward passes in row order; each row reads the earlier rows' counts
+    parts: Dict[int, LossParts] = {}
+    secs: Dict[int, float] = {}
+    prefix: list = [None] * n_moe
+    for i in mine:
+        dev = rows[i][1]
+        moe = [MoeSlice(tokens, _offsets_exchange(mesh, i) if multi
+                        else prefix[l]) for l in range(n_moe)]
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            parts[i] = loss_parts(tree_unflatten(spec, live[str(dev)]), cfg,
+                                  row_batches[i], moe=moe)
+        _sync(dev)
+        secs[i] = time.perf_counter() - t0
+        for l, st in enumerate(parts[i].moe):
+            prefix[l] = st.counts if prefix[l] is None \
+                else prefix[l].to(dev) + st.counts
+
+    # the coupling statistics, summed in row order
+    packed = {i: _pack(parts[i]) for i in mine}
+    packed_totals = [sum_in_order(rows_gather(mesh, {i: p[j] for i, p in
+                                                     packed.items()}))
+                     for j in (0, 1)]
+    totals = _unpack(*packed_totals, n_moe, n_exp, tokens)
+
+    # each row's share; the gradients accumulate in row order
+    holder = None
+    for i in mine:
+        dev = rows[i][1]
+        leaves = live[str(dev)]
+        if holder is not None and holder is not leaves:
+            for a, b in zip(holder, leaves):
+                b.grad, a.grad = (None if a.grad is None
+                                  else a.grad.to(dev)), None
+        tot = _unpack(*(t.to(dev) for t in packed_totals), n_moe, n_exp,
+                      tokens)
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            share, _ = compose_loss(cfg, parts[i], tot)
+            share.backward()
+        _sync(dev)
+        secs[i] += time.perf_counter() - t0
+        holder = leaves
+    del parts
+    grads = [torch.zeros_like(t) if t.grad is None else t.grad
+             for t in holder]
+    for t in holder:
+        t.grad = None
+    if multi:
+        grads = [sum_in_order(rows_gather(mesh, {mine[0]: g}))
+                 for g in grads]
+    loss, metrics = compose_loss(cfg, totals, totals)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics["dropped"] = torch.stack([st.dropped for st in totals.moe]) \
+        if n_moe else torch.zeros((0,), dtype=torch.int64)
+    return (loss.detach(), metrics, tree_unflatten(spec, grads),
+            [secs[i] for i in mine])
+
+
+def data_parallel_loss_and_grad(params, cfg: ModelConfig,
+                                batch: Dict[str, torch.Tensor], mesh: Mesh):
+    """:func:`rows_loss_and_grad` of a whole batch on a one-process
+    ``mesh``: the batch's sample axis cut over its data-parallel rows
+    (``mesh.split_samples``; raises where it does not divide), the
+    parameters copied once onto each row's device.  ``(loss, metrics,
+    grads)``, the gradient on the last row's device."""
+    rows = dp_rows(mesh)
+    names = sorted(batch)
+    cut = split_samples([batch[n] for n in names], len(rows))
+    params_on, row_batches = {}, {}
+    for i, (_, dev, _) in enumerate(rows):
+        if str(dev) not in params_on:
+            params_on[str(dev)] = tree_map(lambda t: t.to(dev), params)
+        row_batches[i] = {n: t.to(dev) for n, t in zip(names, cut[i])}
+    loss, metrics, grads, _ = rows_loss_and_grad(params_on, cfg,
+                                                 row_batches, mesh)
+    return loss, metrics, grads
 
 
 @dataclasses.dataclass(frozen=True)

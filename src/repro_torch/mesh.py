@@ -35,8 +35,15 @@ The model half (the reference's production meshes and sharding planner):
   512-device production meshes are planned without them);
 * :func:`make_production_mesh` / :func:`make_mesh` -- ``("data",
   "model")`` meshes (``"pod"`` in front for three axes) over every CUDA
-  card by default, raising when there are fewer; an explicit device list
-  may repeat a device.  A model mesh lives in one process;
+  card (of every process) by default, raising when there are fewer; an
+  explicit device list may repeat a device, and ``processes`` names the
+  rank that owns each.  A data-parallel row of a model mesh (the
+  positions that share their "pod" and "data" coordinates,
+  :func:`dp_rows`) lives in one rank, and a mesh over several ranks spans
+  every rank of the ``torch.distributed`` group; an explicit list that
+  gives one CUDA device to two ranks raises before any process group is
+  made (:func:`check_one_rank_a_card`: NCCL refuses two ranks on one
+  card);
 * the planner -- :func:`param_shardings`, :func:`batch_shardings`,
   :func:`cache_shardings`, :func:`replicated`, :func:`describe_shardings`
   -- with the reference's rules, over the port's pytrees; leaves may be
@@ -44,8 +51,13 @@ The model half (the reference's production meshes and sharding planner):
 * ``with mesh:`` -- the ambient model mesh that ``models.act_constraint``
   checks its spec against (:func:`current_mesh`);
 * :func:`device_put` / :func:`gather` -- a tensor cut by its sharding
-  into one block a mesh position (a :class:`ShardedTensor`) and put back
-  together bitwise.
+  into one block a mesh position (a :class:`ShardedTensor`; a position
+  another rank owns holds no tensor here) and put back together bitwise
+  (across ranks an all-gather);
+* :func:`rows_gather` / :func:`sum_in_order` / :func:`block_values` --
+  the cross-rank exchanges of a data-parallel step: every row's tensor
+  in row order on every rank, summed in that order, so one mesh run in
+  one process and in several gives bitwise the same numbers.
 """
 from __future__ import annotations
 
@@ -62,12 +74,15 @@ __all__ = ["CELL_AXIS", "DATA_AXIS", "Mesh", "cell_mesh", "grid_mesh",
            "cell_axis_size", "data_axis_size", "mesh_topology",
            "default_devices", "pmean_grad", "data_parallel_grad",
            "split_samples", "init_distributed", "maybe_init_distributed",
+           "shutdown_distributed",
            "process_count", "process_index", "PartitionSpec", "P",
            "NamedSharding", "AbstractMesh", "ShardedTensor", "current_mesh",
            "make_production_mesh", "make_mesh", "dp_axes", "dp_size",
            "model_size", "param_shardings", "batch_shardings",
            "cache_shardings", "replicated", "describe_shardings",
-           "device_put", "gather", "position_bytes"]
+           "device_put", "gather", "position_bytes", "dp_rows",
+           "check_one_rank_a_card", "rows_gather", "sum_in_order",
+           "block_values"]
 
 CELL_AXIS = "cells"
 DATA_AXIS = "data"
@@ -119,7 +134,7 @@ class Mesh:
     def __enter__(self) -> "Mesh":
         """``with mesh:`` makes this the ambient model mesh
         (:func:`current_mesh`), as the reference's ``with mesh:``."""
-        _one_process(self)
+        _check_ranks(self)
         _ambient_stack().append(self)
         return self
 
@@ -174,6 +189,15 @@ def init_distributed(coordinator: str, num_processes: int, process_id: int,
         backend=backend, init_method=f"tcp://{coordinator}",
         world_size=int(num_processes), rank=int(process_id))
     _DISTRIBUTED_INITIALIZED = True
+
+
+def shutdown_distributed() -> None:
+    """Destroy the process group :func:`init_distributed` made (no-op
+    without one), so a later ``init_distributed`` makes a new one."""
+    global _DISTRIBUTED_INITIALIZED
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    _DISTRIBUTED_INITIALIZED = False
 
 
 def maybe_init_distributed(execution, device=None) -> bool:
@@ -455,18 +479,70 @@ def current_mesh() -> Optional[Any]:
     return stack[-1] if stack else None
 
 
-def _one_process(mesh: Mesh) -> None:
-    """A model mesh lives in one process: raise when its entries belong to
-    several ``torch.distributed`` ranks, or to another one."""
+def _check_ranks(mesh: Mesh) -> None:
+    """A model mesh's ranks: one rank that is this process's, or every
+    rank of the ``torch.distributed`` group with each data-parallel row
+    (:func:`dp_rows`) in one of them; raise otherwise."""
     procs = sorted(set(int(p) for p in np.asarray(mesh.processes).flat))
-    if len(procs) > 1:
+    if len(procs) == 1:
+        if procs != [process_index()]:
+            raise ValueError(f"this mesh's devices belong to rank "
+                             f"{procs[0]}; this process is rank "
+                             f"{process_index()}")
+        return
+    dp_rows(mesh)  # raises where a row spans ranks
+    if procs != list(range(process_count())):
         raise ValueError(
-            f"a model mesh lives in one process; this one spans the "
-            f"torch.distributed ranks {procs} (multi-process model meshes "
-            "are not supported)")
-    if procs != [process_index()]:
-        raise ValueError(f"this mesh's devices belong to rank {procs[0]}; "
-                         f"this process is rank {process_index()}")
+            f"a model mesh over several ranks spans every rank of the "
+            f"torch.distributed group; this one spans the ranks {procs} of "
+            f"a group of {process_count()} (bring the group up first: "
+            "init_distributed)")
+
+
+def check_one_rank_a_card(devices: Sequence[Any],
+                          processes: Sequence[int]) -> None:
+    """Raise ``ValueError`` where two ranks of an explicit device list
+    name one CUDA device: NCCL refuses two ranks on one card (a device
+    list names the devices of one host).  Call it before
+    ``init_distributed``; it makes no process group."""
+    owner: Dict[str, int] = {}
+    for d, p in zip(devices, processes):
+        d = torch.device(d)
+        if d.type != "cuda":
+            continue
+        key = str(d if d.index is not None else torch.device("cuda", 0))
+        if owner.setdefault(key, int(p)) != int(p):
+            raise ValueError(
+                f"ranks {owner[key]} and {int(p)} both name {key}: NCCL "
+                "refuses two ranks on one card; give each rank its own "
+                "card (one card a process), or run the mesh in one process")
+
+
+def dp_rows(mesh) -> List[Tuple[Tuple[int, ...], torch.device, int]]:
+    """The data-parallel rows of a model mesh in mesh index order: for
+    each combination of "pod" and "data" coordinates, the position of
+    its first entry (the other coordinates 0), that position's device
+    and the rank that owns the row.  Raises where a row's positions
+    belong to several ranks."""
+    names = tuple(mesh.axis_names)
+    dps = [i for i, a in enumerate(names) if a in ("pod", "data")]
+    procs = np.moveaxis(np.asarray(mesh.processes), dps,
+                        list(range(len(dps))))
+    lead = procs.shape[:len(dps)]
+    procs = procs.reshape(int(np.prod(lead, dtype=np.int64)), -1)
+    rows = []
+    for r, coords in enumerate(np.ndindex(*lead)):
+        ranks = sorted(set(int(p) for p in procs[r]))
+        if len(ranks) != 1:
+            raise ValueError(
+                f"data-parallel row {coords} of the mesh spans the ranks "
+                f"{ranks}; a row of a model mesh lives in one process "
+                "(one rank)")
+        first = [0] * len(names)
+        for i, c in zip(dps, coords):
+            first[i] = c
+        rows.append((tuple(first), mesh.devices[tuple(first)], ranks[0]))
+    return rows
 
 
 def _check_spec(mesh, spec: PartitionSpec) -> None:
@@ -544,24 +620,29 @@ def make_production_mesh(*, multi_pod: bool = False,
 
 
 def make_mesh(shape: Tuple[int, ...], axes: Optional[Tuple[str, ...]] = None,
-              devices: Optional[Sequence[Any]] = None) -> Mesh:
+              devices: Optional[Sequence[Any]] = None,
+              processes: Optional[Sequence[int]] = None) -> Mesh:
     """A mesh of ``shape`` over the first ``prod(shape)`` of ``devices``
-    (default: every CUDA card, raising without enough of them; a list may
-    repeat a device, e.g. ``["cpu"] * 8`` for (2, 4)); ``axes`` default to
-    the last ``len(shape)`` of ("pod", "data", "model")."""
+    (default: every CUDA card of every process, raising without enough of
+    them; a list may repeat a device, e.g. ``["cpu"] * 8`` for (2, 4));
+    ``processes`` the rank owning each listed device (default this
+    process); ``axes`` default to the last ``len(shape)`` of ("pod",
+    "data", "model")."""
     shape = tuple(int(s) for s in shape)
     if axes is None:
         axes = ("pod", "data", "model")[-len(shape):]
     if not shape or len(axes) != len(shape) or any(s < 1 for s in shape):
         raise ValueError(f"mesh shape {shape} does not fit the axes {axes}")
     need = int(np.prod(shape))
-    devs, procs = _device_list(devices, None)
+    devs, procs = _device_list(devices, processes)
     if len(devs) < need:
         raise ValueError(f"mesh shape {shape} needs {need} devices, only "
                          f"{len(devs)} available")
+    if devices is not None:
+        check_one_rank_a_card(devs[:need], procs[:need])
     mesh = Mesh(_object_array(devs[:need]).reshape(shape), axes,
                 np.asarray(procs[:need]).reshape(shape))
-    _one_process(mesh)
+    _check_ranks(mesh)
     return mesh
 
 
@@ -779,8 +860,10 @@ def describe_shardings(tree, shardings, max_rows: int = 0):
 class ShardedTensor:
     """A global tensor of ``shape`` cut by ``sharding`` onto its mesh:
     ``shards[pos]`` is the block that mesh position ``pos`` holds, on that
-    position's device.  Positions that hold one block on one device share
-    one tensor (replicas along the axes the spec leaves out)."""
+    position's device, or None where another ``torch.distributed`` rank
+    owns the position (:meth:`is_local`).  Positions that hold one block
+    on one device share one tensor (replicas along the axes the spec
+    leaves out)."""
 
     def __init__(self, sharding: NamedSharding, shape: Tuple[int, ...],
                  shards: np.ndarray):
@@ -790,7 +873,7 @@ class ShardedTensor:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.shards.flat[0].dtype
+        return next(t for t in self.shards.flat if t is not None).dtype
 
     @property
     def n_blocks(self) -> int:
@@ -798,12 +881,19 @@ class ShardedTensor:
         return int(np.prod(self.sharding._factors(len(self.shape)),
                            dtype=np.int64))
 
+    def is_local(self, pos: Tuple[int, ...]) -> bool:
+        """Whether this rank holds position ``pos``'s block."""
+        return self.shards[pos] is not None
+
     def _positions(self):
-        return np.ndindex(*self.shards.shape)
+        """The positions this rank holds, in mesh index order."""
+        return (pos for pos in np.ndindex(*self.shards.shape)
+                if self.shards[pos] is not None)
 
     def blocks(self) -> List[torch.Tensor]:
-        """One tensor a distinct block, in mesh index order (the first
-        position that holds it)."""
+        """One tensor a distinct block this rank holds (every block in one
+        process), in mesh index order (the first position that holds
+        it)."""
         seen: Dict[tuple, torch.Tensor] = {}
         for pos in self._positions():
             b = self.sharding.block_index(pos, len(self.shape))
@@ -832,15 +922,19 @@ def _block_slices(sharding: NamedSharding, shape, block) -> tuple:
 
 def _place(sharding: NamedSharding, shape, make_block) -> ShardedTensor:
     """A ``ShardedTensor`` whose position ``pos`` holds ``make_block(block
-    index, device)``, made once per (device, block)."""
+    index, device)``, made once per (device, block), at the positions
+    this rank owns (None at the others)."""
     mesh = sharding.mesh
     if not isinstance(mesh, Mesh):
         raise TypeError(f"{mesh!r} holds no devices to put a tensor on")
-    _one_process(mesh)
+    _check_ranks(mesh)
     sharding.shard_shape(shape)  # raises where a dim does not divide
     made: Dict[tuple, torch.Tensor] = {}
     shards = np.empty(mesh.devices.shape, dtype=object)
+    me = process_index()
     for pos in np.ndindex(*mesh.devices.shape):
+        if int(mesh.processes[pos]) != me:
+            continue
         dev = mesh.devices[pos]
         b = sharding.block_index(pos, len(shape))
         if (str(dev), b) not in made:
@@ -867,29 +961,166 @@ def device_put(tree: Any, shardings: Any) -> Any:
     return tree_map(_put, tree, shardings)
 
 
+def _first_holders(x: ShardedTensor) -> Dict[tuple, Tuple[tuple, int]]:
+    """Each distinct block of ``x`` (in mesh index order): the first
+    position that holds it and that position's rank."""
+    mesh = x.sharding.mesh
+    out: Dict[tuple, Tuple[tuple, int]] = {}
+    for pos in np.ndindex(*mesh.devices.shape):
+        out.setdefault(x.sharding.block_index(pos, len(x.shape)),
+                       (pos, int(mesh.processes[pos])))
+    return out
+
+
+def _everywhere(x: ShardedTensor) -> bool:
+    """Whether every rank of ``x``'s mesh holds every block (the same
+    answer on every rank: it reads the mesh, not the tensors)."""
+    mesh = x.sharding.mesh
+    ranks = set(int(p) for p in mesh.processes.flat)
+    if len(ranks) == 1:
+        return True
+    held: Dict[tuple, set] = {}
+    for pos in np.ndindex(*mesh.devices.shape):
+        held.setdefault(x.sharding.block_index(pos, len(x.shape)),
+                        set()).add(int(mesh.processes[pos]))
+    return all(h == ranks for h in held.values())
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _all_gather_bytes(buf: torch.Tensor) -> List[torch.Tensor]:
+    """Every rank's uint8 ``buf`` (of one length), in rank order."""
+    out = [torch.empty_like(buf) for _ in range(process_count())]
+    torch.distributed.all_gather(out, buf)
+    return out
+
+
 def gather(x: ShardedTensor, device=None) -> torch.Tensor:
     """The all-gather: ``x``'s blocks put together in mesh index order on
     ``device`` (default the mesh's first); bitwise the tensor that was
-    cut."""
+    cut.  Where some rank lacks a block, every rank of the mesh must call
+    it (a ``torch.distributed`` all-gather of each block from the rank of
+    its first position)."""
     dev = torch.device(device if device is not None
                        else x.sharding.mesh.devices.flat[0])
     out = torch.empty(x.shape, dtype=x.dtype, device=dev)
-    seen = set()
-    for pos in x._positions():
-        b = x.sharding.block_index(pos, len(x.shape))
-        if b not in seen:
-            seen.add(b)
-            out[_block_slices(x.sharding, x.shape, b)].copy_(x.shards[pos])
+    if _everywhere(x):
+        seen = set()
+        for pos in x._positions():
+            b = x.sharding.block_index(pos, len(x.shape))
+            if b not in seen:
+                seen.add(b)
+                out[_block_slices(x.sharding, x.shape, b)].copy_(
+                    x.shards[pos])
+        return out
+    holders = _first_holders(x)
+    me = process_index()
+    mine = [x.shards[pos] for pos, r in holders.values() if r == me]
+    per_rank = [sum(1 for _, r in holders.values() if r == k)
+                for k in range(process_count())]
+    nbytes = (int(np.prod(x.sharding.shard_shape(x.shape), dtype=np.int64))
+              * out.element_size())
+    local = next(x._positions())
+    buf = torch.zeros(max(per_rank) * nbytes, dtype=torch.uint8,
+                      device=x.shards[local].device)
+    for j, t in enumerate(mine):
+        buf[j * nbytes:(j + 1) * nbytes].copy_(_as_bytes(t))
+    parts = _all_gather_bytes(buf)
+    taken = [0] * process_count()
+    sub = x.sharding.shard_shape(x.shape)
+    for b, (_, r) in holders.items():
+        j = taken[r]
+        taken[r] += 1
+        block = parts[r][j * nbytes:(j + 1) * nbytes].view(x.dtype)
+        out[_block_slices(x.sharding, x.shape, b)].copy_(block.reshape(sub))
     return out
 
 
 def position_bytes(tree: Any) -> np.ndarray:
     """The bytes each mesh position holds of the ``ShardedTensor`` leaves
     of ``tree`` (an array of the mesh's shape; a tensor that several
-    positions share counts once for each)."""
+    positions share counts once for each); -1 at the positions another
+    rank owns."""
     total = None
     for leaf in tree_leaves(tree):
-        sizes = np.vectorize(lambda t: t.numel() * t.element_size(),
-                             otypes=[np.int64])(leaf.shards)
-        total = sizes if total is None else total + sizes
+        sizes = np.vectorize(
+            lambda t: -1 if t is None else t.numel() * t.element_size(),
+            otypes=[np.int64])(leaf.shards)
+        total = sizes if total is None else np.where(sizes < 0, -1,
+                                                     total + sizes)
     return total
+
+
+# ---------------------------------------------------------------------------
+# cross-rank exchanges of a data-parallel step
+# ---------------------------------------------------------------------------
+
+def rows_gather(mesh: Mesh, mine: Dict[int, torch.Tensor]
+                ) -> List[torch.Tensor]:
+    """Every data-parallel row's tensor in row order, on every rank:
+    ``mine`` maps the index (in :func:`dp_rows`) of each row this rank
+    owns to its tensor; every row's tensor has one shape and dtype.  In
+    one process it is ``mine``'s values in row order; across ranks an
+    all-gather (of the bytes, so any dtype crosses bitwise) that every
+    rank of the mesh calls, with the same number of rows in each rank.
+    The tensors come back on the device of this rank's first row's."""
+    rows = dp_rows(mesh)
+    if len(set(r for _, _, r in rows)) == 1:
+        return [mine[i] for i in range(len(rows))]
+    me = process_index()
+    owned = {k: [i for i, (_, _, r) in enumerate(rows) if r == k]
+             for k in range(process_count())}
+    if len({len(v) for v in owned.values()}) != 1:
+        raise ValueError(f"the ranks own unequal numbers of rows: {owned}")
+    first = mine[owned[me][0]]
+    parts = _all_gather_bytes(torch.cat([_as_bytes(mine[i])
+                                         for i in owned[me]]))
+    n = first.numel() * first.element_size()
+    out: List[Optional[torch.Tensor]] = [None] * len(rows)
+    for k, idx in owned.items():
+        for j, i in enumerate(idx):
+            out[i] = mine[i] if k == me else parts[k][
+                j * n:(j + 1) * n].view(first.dtype).reshape(first.shape)
+    return out
+
+
+def sum_in_order(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``((p0 + p1) + p2) + ...`` on ``p0``'s device: the one order every
+    rank and a one-process run take."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p.to(total.device)
+    return total
+
+
+def block_values(tree: Any, fn: Callable[[torch.Tensor], torch.Tensor]
+                 ) -> List[torch.Tensor]:
+    """``fn`` (a 0-d float32 tensor) of every distinct block of the
+    ``ShardedTensor`` leaves of ``tree``: leaves in tree order, each
+    leaf's blocks in mesh index order, every block counted once however
+    many positions or ranks hold it.  Each block's value is computed by
+    the rank of its first position and all-gathered, so every rank gets
+    the one-process run's values bitwise (every rank of the mesh calls
+    it)."""
+    leaves = tree_leaves(tree)
+    if all(_everywhere(x) for x in leaves):
+        return [fn(b) for x in leaves for b in x.blocks()]
+    me = process_index()
+    order: List[Tuple[int, int]] = []           # (rank, index in its list)
+    counts = [0] * process_count()
+    mine: List[torch.Tensor] = []
+    for x in leaves:
+        for b, (pos, r) in _first_holders(x).items():
+            order.append((r, counts[r]))
+            counts[r] += 1
+            if r == me:
+                mine.append(fn(x.shards[pos]).reshape(1))
+    dev = mine[0].device if mine else next(
+        leaves[0].shards[p] for p in leaves[0]._positions()).device
+    buf = torch.zeros(max(counts), dtype=torch.float32, device=dev)
+    if mine:
+        buf[:len(mine)] = torch.cat(mine)
+    parts = [p.view(torch.float32) for p in _all_gather_bytes(_as_bytes(buf))]
+    return [parts[r][j] for r, j in order]

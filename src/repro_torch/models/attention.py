@@ -26,6 +26,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import _normal, act_constraint, apply_rope, rmsnorm
@@ -104,8 +105,10 @@ def attend(q, k, v, qpos, kpos, *, causal: bool, window: Optional[int],
     """q (B,Sq,H,dq), k (B,Sk,KV,dq), v (B,Sk,KV,dv) -> (B,Sq,H,dv).
 
     GQA grouping is einsum-native (no repeated-KV materialization).
-    ``remat_chunk`` is a training knob of the reference (recompute scores
-    in the backward pass); the port has no backward yet and ignores it."""
+    With ``remat_chunk`` each chunk's scores are recomputed in the
+    backward pass instead of kept (``torch.utils.checkpoint``, as the
+    reference's ``jax.checkpoint``) while autograd records: memory
+    changes, numbers do not."""
     B, Sq, H, dq = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -130,6 +133,12 @@ def attend(q, k, v, qpos, kpos, *, causal: bool, window: Optional[int],
         s = s + _mask(qpc, kpos, causal, window)[None, None, None]
         w = torch.softmax(s, dim=-1)
         return torch.einsum("bcgqs,bscd->bqcgd", w.to(v.dtype), v)
+
+    if remat_chunk and torch.is_grad_enabled():
+        plain = chunk_attend
+
+        def chunk_attend(qc, qpc):
+            return checkpoint(plain, qc, qpc, use_reentrant=False)
 
     if impl == "naive" or Sq <= q_chunk:
         return chunk_attend(qg, qpos).reshape(B, Sq, H, -1)

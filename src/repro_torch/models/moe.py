@@ -11,6 +11,18 @@ Two dispatches, as in the reference:
   most C = int(T * k / E * capacity_factor) tokens, slots given in
   token-major (T*k) order, and the tokens past C are dropped.
 
+Both take an optional :class:`MoeSlice`: the block then runs on one
+data slice of a larger batch and returns, beside y, the slice's
+:class:`RouteStats` (per-expert counts of the chosen experts, per-expert
+sums of the router probabilities, the dropped (token, slot) count).  A
+slice's capacity C is the whole batch's (``MoeSlice.tokens``), and its
+(token, slot) pairs take their slots after the ``offsets`` the earlier
+slices routed to each expert, so a slice keeps exactly the pairs the
+whole batch keeps: a kept token's expert output does not depend on the
+other tokens of its bucket.  The balance loss of the whole batch is then
+``E * sum_e (sum counts_e / T) * (sum probsum_e / T)`` over the slices
+(``models.transformer.compose_loss``).
+
 Ties in the top-k go to the lower expert index, as ``jax.lax.top_k``
 orders them (a stable descending sort; ``torch.topk`` promises no
 order).  The bucket scatter writes each kept (token, slot) row once and
@@ -19,7 +31,7 @@ rows do not depend on the order of a scatter with repeated indices.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +39,42 @@ import torch.nn.functional as F
 from .config import ModelConfig
 from .layers import _normal
 
-__all__ = ["moe_params", "router_topk", "moe_block", "moe_block_capacity"]
+__all__ = ["moe_params", "router_topk", "moe_block", "moe_block_capacity",
+           "MoeSlice", "RouteStats"]
+
+
+class MoeSlice(NamedTuple):
+    """The place of one data slice in the whole batch, at one MoE layer.
+
+    ``tokens``: the whole batch's token count T (it sets the capacity C
+    and divides the balance statistics).  ``offsets``: the (E,) int64
+    count of (token, slot) pairs the slices before this one, in batch
+    order, routed to each expert; None for the first slice, or a
+    function of this slice's own (E,) counts returning them (a slice
+    whose predecessors live in other processes exchanges counts there;
+    it is called once a forward pass and must give the same offsets when
+    a layer is recomputed)."""
+    tokens: int
+    offsets: Union[None, torch.Tensor,
+                   Callable[[torch.Tensor], Optional[torch.Tensor]]] = None
+
+    def offsets_for(self, counts: torch.Tensor) -> Optional[torch.Tensor]:
+        off = self.offsets(counts) if callable(self.offsets) \
+            else self.offsets
+        return None if off is None else off.to(counts.device)
+
+
+class RouteStats(NamedTuple):
+    """One slice's routing at one MoE layer: ``aux`` the slice's own
+    balance loss (as if it were the whole batch), ``counts`` (E,) int64
+    the tokens that chose each expert (no gradient), ``probsum`` (E,)
+    float32 the sum of each expert's router probability over the slice's
+    tokens (differentiable), ``dropped`` the (token, slot) pairs past
+    their expert's capacity (0-d int64; 0 for the dense oracle)."""
+    aux: torch.Tensor
+    counts: torch.Tensor
+    probsum: torch.Tensor
+    dropped: torch.Tensor
 
 
 def moe_params(gen: Optional[torch.Generator], cfg: ModelConfig,
@@ -57,16 +104,21 @@ def _topk(probs: torch.Tensor, k: int):
     return top_w[..., :k], top_i[..., :k]
 
 
-def _route(logits: torch.Tensor, k: int):
+def _route(logits: torch.Tensor, k: int, stats: bool = False):
     """(probs, renormalized top-k weights, top-k ids, aux loss) of float32
-    router logits (T, E).  Aux follows Switch/GShard: E * sum_e f_e * p_e."""
+    router logits (T, E).  Aux follows Switch/GShard: E * sum_e f_e * p_e.
+    With ``stats`` also the per-expert counts of the chosen experts (int64,
+    no gradient) and sums of the probabilities, the parts of f and p."""
     E = logits.shape[-1]
     probs = torch.softmax(logits.float(), dim=-1)
     top_w, top_i = _topk(probs, k)
     top_w = top_w / top_w.sum(dim=-1, keepdim=True)
     chosen = torch.zeros_like(probs).scatter_(-1, top_i, 1.0)  # max over k
     aux = E * torch.sum(chosen.mean(dim=0) * probs.mean(dim=0))
-    return probs, top_w, top_i, aux
+    if not stats:
+        return probs, top_w, top_i, aux
+    return (probs, top_w, top_i, aux, chosen.sum(dim=0).long(),
+            probs.sum(dim=0))
 
 
 def router_topk(logits: torch.Tensor, k: int
@@ -83,42 +135,63 @@ def _shared(p, t: torch.Tensor, dt) -> torch.Tensor:
     return hs @ p["shared_w2"].to(dt)
 
 
-def moe_block(p, x: torch.Tensor, cfg: ModelConfig
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dense oracle.  x (B, S, D) -> (y, aux loss)."""
+def moe_block(p, x: torch.Tensor, cfg: ModelConfig,
+              ctx: Optional[MoeSlice] = None):
+    """The dense oracle.  x (B, S, D) -> (y, aux loss); with ``ctx``, (y,
+    :class:`RouteStats`) of this slice (no token is dropped, so the
+    offsets do not enter)."""
     B, S, D = x.shape
     dt = cfg.cdtype
     t = x.reshape(B * S, D)
-    combine, aux, _ = router_topk(t.float() @ p["router"], cfg.top_k)
-    combine = combine.to(dt)
+    routed = _route(t.float() @ p["router"], cfg.top_k, stats=ctx is not None)
+    probs, top_w, top_i, aux = routed[:4]
+    combine = torch.zeros_like(probs).scatter_(-1, top_i, top_w).to(dt)
     h1 = torch.einsum("td,edf->tef", t, p["w1"].to(dt))
     h3 = torch.einsum("td,edf->tef", t, p["w3"].to(dt))
     h = F.silu(h3) * h1
     y = torch.einsum("tef,efd,te->td", h, p["w2"].to(dt), combine)
     if cfg.shared_ff:
         y = y + _shared(p, t, dt)
-    return y.reshape(B, S, D), aux
+    if ctx is None:
+        return y.reshape(B, S, D), aux
+    counts, probsum = routed[4:]
+    return y.reshape(B, S, D), RouteStats(
+        aux, counts, probsum, torch.zeros((), dtype=torch.int64,
+                                          device=x.device))
 
 
 def moe_block_capacity(p, x: torch.Tensor, cfg: ModelConfig,
-                       capacity_factor: float = 1.25
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       capacity_factor: float = 1.25,
+                       ctx: Optional[MoeSlice] = None):
     """Capacity-bucketed dispatch: each expert runs on at most C tokens,
     so the work follows the active experts, not all of them.  x (B, S, D)
-    -> (y, aux loss)."""
+    -> (y, aux loss).
+
+    With ``ctx`` x is one slice of a batch of ``ctx.tokens`` tokens: C is
+    that batch's, each (token, slot) takes the slot after the offset of
+    its expert, and the pair lands in the row of that slot of a bucket
+    as large as the whole batch's, so a kept pair meets the same
+    arithmetic as in the whole batch's block.  Returns (y,
+    :class:`RouteStats`)."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     dt = cfg.cdtype
     t = x.reshape(B * S, D)
     T = t.shape[0]
-    C = max(1, int(T * k / E * capacity_factor))
+    C = max(1, int((T if ctx is None else ctx.tokens) * k / E
+                   * capacity_factor))
 
-    _, top_w, top_i, aux = _route(t.float() @ p["router"], k)
+    routed = _route(t.float() @ p["router"], k, stats=ctx is not None)
+    _, top_w, top_i, aux = routed[:4]
 
     # each (token, slot)'s place in its expert's bucket, token-major
     flat_e = top_i.reshape(-1)                                  # (T*k,)
     onehot = F.one_hot(flat_e, E)                               # (T*k, E)
     slot = (torch.cumsum(onehot, dim=0) * onehot).amax(dim=-1) - 1
+    if ctx is not None:
+        off = ctx.offsets_for(routed[4])
+        if off is not None:
+            slot = slot + off[flat_e]
     dest = torch.where(slot < C, flat_e * C + slot,
                        torch.full_like(flat_e, E * C))          # spare row
 
@@ -134,4 +207,8 @@ def moe_block_capacity(p, x: torch.Tensor, cfg: ModelConfig,
 
     if cfg.shared_ff:
         y = y + _shared(p, t, dt)
-    return y.reshape(B, S, D), aux
+    if ctx is None:
+        return y.reshape(B, S, D), aux
+    counts, probsum = routed[4:]
+    return y.reshape(B, S, D), RouteStats(aux, counts, probsum,
+                                          (slot >= C).sum())

@@ -22,7 +22,11 @@ Entry points, as in the reference:
                     the MoE balance loss summed over the layers
   loss_fn()      -- the training loss (dense or chunked cross-entropy,
                     plus ``router_aux_coef`` times that sum),
-                    differentiable through ``torch.autograd``
+                    differentiable through ``torch.autograd``: the
+                    composition (``compose_loss``) of one batch's
+                    ``loss_parts`` -- the summed nll, the label count and
+                    each MoE layer's routing statistics -- which a
+                    data-parallel step takes per slice and sums
   prefill()      -- full-sequence forward that returns the cache and the
                     last position's logits
   decode_step()  -- one token (or a (B, 1, D) embedding) against the
@@ -56,7 +60,7 @@ The serving entry points run under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -69,12 +73,14 @@ from .config import ModelConfig
 from .layers import (act_constraint, apply_norm, embed, embed_params,
                      make_positions, mlp, mlp_params, norm_params,
                      rope_cos_sin, unembed)
-from .moe import moe_block, moe_block_capacity, moe_params
+from .moe import MoeSlice, RouteStats, moe_block, moe_block_capacity, \
+    moe_params
 from .ssm import init_ssm_state, mamba2_block, ssm_params
 
 __all__ = ["Transformer", "init_params", "forward", "loss_fn", "param_tree",
            "make_cache", "prefill", "decode_step", "layer_parts",
-           "param_specs", "SHARED_PARTS"]
+           "param_specs", "SHARED_PARTS", "LossParts", "loss_parts",
+           "compose_loss", "moe_layer_count"]
 
 # the hybrid's shared attention + MLP block (the reference's
 # ``_shared_block_params``)
@@ -103,11 +109,13 @@ def _params(tensors: dict) -> nn.ParameterDict:
 
 
 def layer_apply(p, x, cfg: ModelConfig, rope_cs, positions, mode: str,
-                cache=None, pos=None, window=None, ring=False):
+                cache=None, pos=None, window=None, ring=False,
+                moe: Optional[MoeSlice] = None):
     """One layer on parameters ``p`` (the mappings of ``layer_parts``);
     returns (x, cache, aux).  ``cache`` is the layer's attention cache or
     Mamba2 state, updated in place where one is given; ``aux`` is its MoE
-    balance loss, None without experts."""
+    balance loss (with ``moe``, the slice's ``RouteStats``), None without
+    experts."""
     x = act_constraint(x, cfg)
     if "mixer" in p:
         h, state = mamba2_block(p["mixer"], apply_norm(p["ln"], x, cfg),
@@ -126,9 +134,10 @@ def layer_apply(p, x, cfg: ModelConfig, rope_cs, positions, mode: str,
     if not cfg.n_experts:
         return x + mlp(p["mlp"], z, cfg), new_cache, None
     if cfg.moe_impl == "dense":
-        y, aux = moe_block(p["moe"], z, cfg)
+        y, aux = moe_block(p["moe"], z, cfg, ctx=moe)
     else:
-        y, aux = moe_block_capacity(p["moe"], z, cfg, cfg.capacity_factor)
+        y, aux = moe_block_capacity(p["moe"], z, cfg, cfg.capacity_factor,
+                                    ctx=moe)
     return x + y, new_cache, aux
 
 
@@ -224,15 +233,17 @@ def _index(cache: Optional[dict], i: int) -> Optional[dict]:
 def _run_layers(layers, shared, x: torch.Tensor, cfg: ModelConfig, *,
                 mode: str, positions, cache=None, pos=None,
                 window: Optional[int] = None, ring: bool = False,
-                remat: bool = False):
+                remat: bool = False,
+                moe: Optional[Sequence[MoeSlice]] = None):
     """Apply all layers (``layers``: each layer's parts; ``shared``: the
-    hybrid's shared block); returns (x, cache, aux).  ``cache`` is the
+    hybrid's shared block); returns (x, cache, auxes).  ``cache`` is the
     stacked cache (leading L axis; a hybrid's G and G x E) that a
     prefill fills or a decode reads and updates, each layer through its
     own views, in place; without one a prefill returns the stacked cache
-    of its layers.  ``aux`` is the MoE balance loss summed over the
-    layers in order.  With ``remat`` each layer (a hybrid's group) is
-    recomputed in the backward pass."""
+    of its layers.  ``auxes`` holds each MoE layer's balance loss in
+    order (with ``moe``, one ``MoeSlice`` a layer, its ``RouteStats``).
+    With ``remat`` each layer (a hybrid's group) is recomputed in the
+    backward pass."""
     rope_cs = rope_cos_sin(cfg, positions)
     kw = dict(pos=pos, window=window, ring=ring)
     if cfg.family == "hybrid":
@@ -262,9 +273,10 @@ def _run_layers(layers, shared, x: torch.Tensor, cfg: ModelConfig, *,
 
         def run(x, i, c):
             return layer_apply(layers[i], x, cfg, rope_cs, positions, mode,
-                               cache=c, **kw)
+                               cache=c, moe=moe[i] if moe else None,
+                               **kw)
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    auxes = []
     outs = []
     for i in range(len(groups)):
         if remat:
@@ -273,11 +285,19 @@ def _run_layers(layers, shared, x: torch.Tensor, cfg: ModelConfig, *,
         else:
             x, new, aux_l = run(x, i, _index(cache, i))
         if aux_l is not None:
-            aux = aux + aux_l
+            auxes.append(aux_l)
         outs.append(new)
     if mode == "prefill" and cache is None:
         cache = _stack(outs)
-    return x, cache, aux
+    return x, cache, auxes
+
+
+def _sum_aux(auxes, device) -> torch.Tensor:
+    """The layers' balance losses summed in order from zero."""
+    aux = torch.zeros((), dtype=torch.float32, device=device)
+    for a in auxes:
+        aux = aux + a
+    return aux
 
 
 def _inputs_to_x(embed_p, device: torch.device, cfg: ModelConfig,
@@ -351,16 +371,18 @@ def _parts(params, cfg: ModelConfig):
 
 
 def _hidden(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            window: Optional[int]):
+            window: Optional[int], moe=None):
     """The trunk in training mode up to the final norm: ``(x, embed,
-    aux)``, aux the MoE balance loss summed over the layers in order."""
+    auxes)``, each MoE layer's balance loss (with ``moe``, its
+    ``RouteStats``) in order."""
     embed_p, layers, shared, final = _parts(params, cfg)
     x, positions = _inputs_to_x(embed_p, final["scale"].device, cfg, batch)
     window = window if window is not None else cfg.sliding_window
-    x, _, aux = _run_layers(layers, shared, x, cfg, mode="train",
-                            positions=positions, window=window,
-                            remat=cfg.remat and torch.is_grad_enabled())
-    return apply_norm(final, x, cfg), embed_p, aux
+    x, _, auxes = _run_layers(layers, shared, x, cfg, mode="train",
+                              positions=positions, window=window,
+                              remat=cfg.remat and torch.is_grad_enabled(),
+                              moe=moe)
+    return apply_norm(final, x, cfg), embed_p, auxes
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -368,8 +390,8 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """Full-sequence forward over a ``Transformer`` or a parameter tree.
     Returns (logits, aux); aux is the MoE balance loss summed over the
     layers, zero without experts."""
-    x, embed_p, aux = _hidden(params, cfg, batch, window)
-    return unembed(embed_p, x, cfg), aux
+    x, embed_p, auxes = _hidden(params, cfg, batch, window)
+    return unembed(embed_p, x, cfg), _sum_aux(auxes, x.device)
 
 
 def _ce_terms(logits: torch.Tensor, labels: torch.Tensor):
@@ -381,14 +403,32 @@ def _ce_terms(logits: torch.Tensor, labels: torch.Tensor):
     return -torch.sum(ll * mask), torch.sum(mask)
 
 
-def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            window: Optional[int] = None
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token cross-entropy (plus the MoE aux term) and its parts
-    ``{"ce", "aux"}``.  With ``cfg.ce_chunk`` dividing the sequence, the
-    logits are made one chunk at a time and recomputed in the backward
-    pass, so the (B, S, V) logits never exist at once.  Raises on
-    ``attention_impl="pallas"`` while autograd records: the
+class LossParts(NamedTuple):
+    """What one batch (or one data slice of it) adds to the loss: ``nll``
+    the summed negative log-likelihood and ``cnt`` the count of labels
+    (float32, 0-d), ``tokens`` its token count, and ``moe`` each MoE
+    layer's ``RouteStats`` in order (empty without experts)."""
+    nll: torch.Tensor
+    cnt: torch.Tensor
+    tokens: int
+    moe: Tuple[RouteStats, ...]
+
+
+def moe_layer_count(cfg: ModelConfig) -> int:
+    """The number of MoE layers (each routes once a forward pass)."""
+    return cfg.n_layers if cfg.n_experts and cfg.family not in (
+        "ssm", "hybrid") else 0
+
+
+def loss_parts(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+               window: Optional[int] = None,
+               moe: Optional[Sequence[MoeSlice]] = None) -> LossParts:
+    """The :class:`LossParts` of ``batch``.  ``moe`` (one ``MoeSlice`` a
+    MoE layer) places the batch as a slice of a larger one; by default
+    it is the whole batch.  With ``cfg.ce_chunk`` dividing the sequence,
+    the logits are made one chunk at a time and recomputed in the
+    backward pass, so the (B, S, V) logits never exist at once.  Raises
+    on ``attention_impl="pallas"`` while autograd records: the
     flash-attention kernel has no backward."""
     if cfg.attention_impl == "pallas" and torch.is_grad_enabled():
         raise ValueError(
@@ -397,7 +437,10 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             "cfg.replace(attention_impl='chunked'), the reference trainer's "
             "attention")
     labels = batch["targets"]
-    x, embed_p, aux = _hidden(params, cfg, batch, window)
+    tokens = int(labels.numel())
+    if moe is None:
+        moe = [MoeSlice(tokens)] * moe_layer_count(cfg)
+    x, embed_p, stats = _hidden(params, cfg, batch, window, moe=moe)
     labels = labels.to(x.device)
     C = cfg.ce_chunk
     if C and labels.shape[1] % C == 0:
@@ -412,9 +455,35 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             nll, cnt = nll + n, cnt + c
     else:
         nll, cnt = _ce_terms(unembed(embed_p, x, cfg), labels)
-    ce = nll / torch.clamp(cnt, min=1.0)
+    return LossParts(nll, cnt, tokens, tuple(stats))
+
+
+def compose_loss(cfg: ModelConfig, parts: LossParts, totals: LossParts
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The loss and ``{"ce", "aux"}`` of ``parts`` within a batch whose
+    parts summed over its slices are ``totals``:
+    ``nll / max(cnt, 1) + router_aux_coef * aux``, aux summed over the MoE
+    layers of ``E * sum_e (counts_e / T) * (probsum_e / T)`` with the
+    counts, the label count and T of ``totals`` and the probability sums
+    of ``parts``.  ``compose_loss(cfg, p, p)`` is the loss of one batch;
+    over the slices of a batch the losses sum to the batch's (the counts
+    carry no gradient, so their gradients sum to its gradient)."""
+    ce = parts.nll / torch.clamp(totals.cnt, min=1.0)
+    T = totals.tokens
+    aux = _sum_aux([cfg.n_experts * torch.sum(
+        (tot.counts.float() / T) * (own.probsum / T))
+        for own, tot in zip(parts.moe, totals.moe)], ce.device)
     total = ce + f32(cfg.router_aux_coef, ce) * aux
     return total, {"ce": ce, "aux": aux}
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            window: Optional[int] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross-entropy (plus the MoE aux term) and its parts
+    ``{"ce", "aux"}``: ``compose_loss`` of the batch's ``loss_parts``."""
+    parts = loss_parts(params, cfg, batch, window)
+    return compose_loss(cfg, parts, parts)
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -55,8 +55,13 @@ def global_norm(tree: Pytree) -> torch.Tensor:
                           for leaf in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads: Pytree, max_norm: float) -> Pytree:
-    gn = global_norm(grads)
+def clip_by_global_norm(grads: Pytree, max_norm: float,
+                        gn: Optional[torch.Tensor] = None) -> Pytree:
+    """``grads`` scaled to a global norm of at most ``max_norm``; ``gn``
+    is that norm where the caller has it (a tree whose blocks live in
+    several processes), else ``global_norm(grads)``."""
+    if gn is None:
+        gn = global_norm(grads)
     scale = torch.clamp(f32(max_norm, gn) / torch.clamp(gn, min=1e-12),
                         max=1.0)
     return tree_map(lambda g: g * scale, grads)
@@ -194,9 +199,13 @@ class DelayAdaptiveOptimizer:
 
     @torch.no_grad()
     def step_fn(self, params: Pytree, grads: Pytree, state: DelayAdaptiveState,
-                tau) -> Tuple[Pytree, DelayAdaptiveState, torch.Tensor]:
+                tau, grad_norm: Optional[torch.Tensor] = None
+                ) -> Tuple[Pytree, DelayAdaptiveState, torch.Tensor]:
+        """One update; ``grad_norm``, where given, is the clip's global
+        norm of ``grads`` (a sharded step whose blocks live in several
+        processes passes the norm of every block)."""
         if self.grad_clip:
-            grads = clip_by_global_norm(grads, self.grad_clip)
+            grads = clip_by_global_norm(grads, self.grad_clip, grad_norm)
         upd, inner = self.base.update(grads, state.inner, params)
         gamma, ss = self.policy.step(state.ss, tau)
         lr = f32(self.lr_scale, gamma) * gamma
@@ -206,7 +215,8 @@ class DelayAdaptiveOptimizer:
                                           inner=inner,
                                           worker_stamp=state.worker_stamp), gamma
 
-    def update(self, params, grads, state, worker):
+    def update(self, params, grads, state, worker, grad_norm=None):
         tau, state = self.observe(state, worker)
-        params, state, gamma = self.step_fn(params, grads, state, tau)
+        params, state, gamma = self.step_fn(params, grads, state, tau,
+                                            grad_norm)
         return params, state, gamma, tau

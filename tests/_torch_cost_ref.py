@@ -42,14 +42,17 @@ from repro_torch.configs.shapes import InputShape
 from repro_torch.launch import dryrun, op_cost
 
 
-def configs(arch: str, reduced: bool):
+def configs(arch: str, reduced: bool, knobs=None):
+    """Both packages' configs of ``arch`` (reduced or not), with the
+    fields of ``knobs`` replaced in both."""
     j, t = jconfigs.get_config(arch), tconfigs.get_config(arch)
-    return (j.reduced(), t.reduced()) if reduced else (j, t)
+    j, t = (j.reduced(), t.reduced()) if reduced else (j, t)
+    return (j.replace(**knobs), t.replace(**knobs)) if knobs else (j, t)
 
 
 def reference_hlo(arch: str, kind: str, seq: int, batch: int,
-                  reduced: bool = True) -> str:
-    cfg = configs(arch, reduced)[0]
+                  reduced: bool = True, knobs=None) -> str:
+    cfg = configs(arch, reduced, knobs)[0]
     shape = JShape("parity", seq, batch, kind)
     specs = jconfigs.input_specs(cfg, shape)
     scalar = jax.ShapeDtypeStruct((), jnp.int32)
@@ -69,13 +72,14 @@ def reference_hlo(arch: str, kind: str, seq: int, batch: int,
 
 
 def reference_flops(arch: str, kind: str, seq: int, batch: int,
-                    reduced: bool = True) -> float:
-    return analyze_hlo(reference_hlo(arch, kind, seq, batch, reduced)).flops
+                    reduced: bool = True, knobs=None) -> float:
+    return analyze_hlo(reference_hlo(arch, kind, seq, batch, reduced,
+                                     knobs)).flops
 
 
 def port_trace(arch: str, kind: str, seq: int, batch: int,
-               reduced: bool = True) -> op_cost.OpTrace:
-    cfg = configs(arch, reduced)[1]
+               reduced: bool = True, knobs=None) -> op_cost.OpTrace:
+    cfg = configs(arch, reduced, knobs)[1]
     mesh = dryrun.abstract_mesh((1, 1))
     step = dryrun.make_step(cfg, InputShape("parity", seq, batch, kind),
                             mesh)

@@ -11,7 +11,9 @@ the reference's ``repro.launch.roofline``:
 * ``moved_bytes`` equals what ``mesh.gather`` and ``mesh.device_put``
   really copy in one reduced ``sharded_train_step`` on the CPU listed 8
   times at (2, 4), counted by wrapping them; on an ``AbstractMesh`` it
-  is the plan's per-position bytes summed over the positions.
+  is the plan's per-position bytes summed over the positions, the
+  parameters gathered onto each data-parallel row's device and the
+  gradient sum carried from one row's device to the next.
 """
 import numpy as np
 import pytest
@@ -120,9 +122,9 @@ def test_moved_bytes_are_what_one_sharded_step_copies(monkeypatch):
     monkeypatch.setattr(rd, "gather", gather)
     monkeypatch.setattr(rd, "device_put", put)
     with mesh:
-        rd.sharded_train_step(trainer, state, b, 0, "cpu")
+        rd.sharded_train_step(trainer, state, b, 0)
     specs = make_trainer(cfg, n_workers=2).state_specs()
-    want = troof.moved_bytes(specs, plain, mesh, batch_size)
+    want = troof.moved_bytes(specs, mesh)
     assert want == {**copied, "replicate": 0}
     assert copied["gather"] > 0 and copied["cut"] > 0
 
@@ -135,16 +137,17 @@ def test_moved_bytes_on_an_abstract_mesh_are_the_plans_positions():
     mesh = abstract_mesh((2, 4))
     step = make_step(cfg, InputShape("t", 32, 8, "train"), mesh)
     held = step.position_bytes()
-    state, batch = step.args[0], step.args[1]
-    moved = troof.moved_bytes(state, batch, mesh, 8)
+    state = step.args[0]
+    moved = troof.moved_bytes(state, mesh)
     whole = sum(_nbytes(t) for t in tree_leaves(state.params))
     opt = sum(_nbytes(t) for t in tree_leaves(state.opt))
-    assert moved["cut"] == 8 * held["params"]
+    # two data-parallel rows on two devices: the gradient sum crosses
+    # once from the first row's device to the second's
+    assert moved["cut"] == 8 * held["params"] + whole
     assert moved["replicate"] == 8 * (held["params"] + held["opt_state"]) \
         - whole - opt
-    assert moved["gather"] == whole + sum(_nbytes(t) for t in
-                                          batch.values())
-    rows = troof.moved_rows(state, batch, mesh, 8)
+    assert moved["gather"] == 2 * whole   # onto each row's device
+    rows = troof.moved_rows(state, mesh)
     assert sum(r[0] for r in rows) == sum(moved.values())
     assert {r[1] for r in rows} == set(troof.MOVED_KINDS)
     assert np.all([r[0] > 0 for r in rows])

@@ -1,7 +1,8 @@
 """The port's sharded trainer (``repro_torch.launch.run_distributed``) on
-the CPU listed 8 times at (2, 4), batch 8, seq 32, held
+the CPU listed 8 times, batch 8, seq 32, held
 
-* against the port's unsharded step (``Trainer.train_step``) for the
+* on a (1, 4) mesh, whose one data-parallel row is the whole batch,
+  against the port's unsharded step (``Trainer.train_step``) for the
   reference test's three configs (``tests/test_dryrun.py``) and a dense
   one, reduced.  Taus are exact and gammas bitwise in every case, and
   the step-0 loss bitwise.  With the clip not acting (``grad_clip`` far
@@ -15,8 +16,10 @@ the CPU listed 8 times at (2, 4), batch 8, seq 32, held
   (AdamW's ``m / (sqrt(v) + eps)`` turns the rounding difference of a
   gradient element near zero into an update difference of up to the
   learning rate, as between the packages: ROADMAP queue C), so the last
-  state is held to 1e-2 in norm, leaf by leaf;
-* against the reference's jitted unsharded ``train_step`` from the
+  state is held to 1e-2 in norm, leaf by leaf.  (At (2, 4) the two rows
+  sum the loss and the gradients in row order, another float order:
+  ``tests/test_torch_dp_step.py`` holds that mesh to its envelopes);
+* at (2, 4) against the reference's jitted unsharded ``train_step`` from the
   reference's initial state (``interop.train_state``): taus exact,
   gammas bitwise, losses within 1e-4 of the first (the trainers'
   envelope; the reference's own sharded step raises on this tree,
@@ -63,6 +66,12 @@ def mesh():
     return make_mesh((2, 4), devices=["cpu"] * 8)
 
 
+@pytest.fixture(scope="module")
+def row_mesh():
+    """A data axis of 1: one row computes the whole batch."""
+    return make_mesh((1, 4), devices=["cpu"] * 4)
+
+
 def _bits(t):
     return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
 
@@ -104,8 +113,9 @@ def _same_trace(out):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_sharded_step_is_bitwise_where_the_clip_does_not_act(arch, mesh):
-    out, gnorm = _pair(arch, mesh, grad_clip=1e9)
+def test_sharded_step_is_bitwise_where_the_clip_does_not_act(arch,
+                                                             row_mesh):
+    out, gnorm = _pair(arch, row_mesh, grad_clip=1e9)
     assert gnorm < 1e9
     _same_trace(out)
     for m, ms, want, got in out:
@@ -115,8 +125,8 @@ def test_sharded_step_is_bitwise_where_the_clip_does_not_act(arch, mesh):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_sharded_step_matches_unsharded_under_the_clip(arch, mesh):
-    out, gnorm = _pair(arch, mesh, grad_clip=1.0)
+def test_sharded_step_matches_unsharded_under_the_clip(arch, row_mesh):
+    out, gnorm = _pair(arch, row_mesh, grad_clip=1.0)
     assert gnorm > 1.0     # the clip acts
     _same_trace(out)
     first = abs(float(out[0][0]["loss"]))
@@ -170,6 +180,8 @@ def test_run_logs_each_step(mesh):
     assert [r["tau"] for r in log] == [0, 1]
     for r in log:
         assert np.isfinite(r["loss"]) and r["wall_s"] >= r["compute_s"] > 0
+        assert len(r["compute_rows_s"]) == 2
+        assert r["compute_s"] == sum(r["compute_rows_s"])
     leaf = tree_leaves(state.params)[0]
     assert leaf.sharding.mesh is mesh
 
