@@ -55,15 +55,21 @@ PyTorch version on the card, and drives the port's main paths:
 * the sharded trainer ``launch.run_distributed`` (D1): qwen2-moe-a2.7b at
   full width (depth cut to fit one card beside the unsharded step) on a
   2x4 ("data", "model") mesh that lists the card eight times, parameters
-  and moments cut by the sharding planner, against the unsharded step
-  from the same initial state, in float32 first (D1f, the basis of the
-  bf16 envelope of the later losses) and then in bf16; DR counts D1's
-  step op by op on ``meta`` tensors on the host (``launch.dryrun``,
-  ``launch.op_cost``, ``launch.roofline``) and reads it against D1's
+  and moments cut by the sharding planner, each data-parallel row's
+  four "model" positions computing tensor-parallel with their own
+  blocks (``models.tensor_parallel``), against the unsharded step from
+  the same initial state, in float32 first (D1f, the basis of the bf16
+  envelope of the later losses) and then in bf16; no hand-written kernel
+  runs there; D2, the sharded prefill (``run_distributed.sharded_prefill``)
+  of qwen2.5-32b at full width (depth cut to fit beside the unsharded
+  copy) on a (1, 4) mesh listing the card four times, one 8192-token
+  prompt, each position running B6 on its own 10 query heads, against
+  the unsharded prefill; DR counts D1's step op by op on ``meta`` tensors
+  on the host (``launch.dryrun``, ``launch.op_cost``,
+  ``launch.roofline``), position by position, and reads it against D1's
   seconds: model TFLOP/s, MFU, the update's bandwidth and the H100
-  roofline bound; no hand-written kernel runs there.
-  ``python3 chip_smoke.py --only-dist`` runs D1f, D1 and DR alone and
-  prints no result.
+  roofline bound.  ``python3 chip_smoke.py --only-dist`` runs D1f, D1,
+  D2 and DR alone and prints no result.
 
 * training: ``launch.train.run_training`` and ``launch.train_bcd`` on the
   100m preset at full width and depth (TR1, TR3), card against CPU at a
@@ -92,6 +98,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device available; nothing was run")
@@ -148,7 +155,8 @@ from repro_torch.models.transformer import loss_parts  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.data import EmbedStream  # noqa: E402
 from repro_torch.models import (decode_step, forward,  # noqa: E402
-                                init_params, param_specs, prefill)
+                                init_params, param_specs, param_tree,
+                                prefill)
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.models.transformer import (Layer,  # noqa: E402
                                             Transformer)
@@ -158,8 +166,11 @@ from repro_torch.sweep.cache import clear_program_cache  # noqa: E402
 from repro_torch.sweep.grid import make_grid  # noqa: E402
 from repro_torch.sweep.runners import fed_bucket_races  # noqa: E402
 from repro_torch.mesh import (batch_shardings, cell_mesh,  # noqa: E402
-                              device_put, dp_size, grid_mesh, make_mesh,
+                              cache_shardings, device_put, dp_size,
+                              grid_mesh, make_mesh, param_shardings,
                               position_bytes)
+from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models.tensor_parallel import route  # noqa: E402
 from repro_torch.core.pytree import tree_leaves  # noqa: E402
 from repro_torch.staticcheck import cachekey as sc_cachekey  # noqa: E402
 from repro_torch.staticcheck import contracts as sc_contracts  # noqa: E402
@@ -3125,6 +3136,25 @@ DIST_LOSS_BF16_ENV = 1e-4
 # step-0 gradients DIST_GRAD_F32_ENV of each leaf's largest |value|.
 DIST_LOSS_F32_LATER_ENV = 2e-5
 DIST_GRAD_F32_ENV = 1e-5
+# The tensor-parallel step in bf16 (D1) has one forward float order of
+# its own: the shared expert's row-parallel w2, float32 partial sums
+# added in position order and rounded once, where the whole product
+# rounds its one accumulation; a few elements round to the other
+# neighbouring bf16 value, and a later layer's router moves a token near
+# a top-k tie.  The witness (the unsharded step with the shared expert in
+# the positions' order, _SharedInPositionOrder) shows it on the card: the
+# tensor-parallel step against the witness holds PR 32's envelopes
+# (step-0 dropped counts equal at every MoE layer, measured step 0
+# 5.332e-07 and later 6.467e-05 of the first apart), and the witness
+# against the unsharded step moves as the tensor-parallel step does
+# (step-0 dropped [5073, 2874] / [5073, 2876], later losses 1.497e-04;
+# the tensor-parallel step's 1.362e-04) on an H100 80GB HBM3 at 700 W
+# (ROADMAP queue C).  Against the unsharded step: the first MoE layer's
+# count equal (its router reads a residual no row-parallel product has
+# touched), later layers within DIST_DROP_BF16_ENV pairs and later
+# losses within DIST_LOSS_BF16_LATER_ENV, twice the witness's readings.
+DIST_DROP_BF16_ENV = 4
+DIST_LOSS_BF16_LATER_ENV = 3e-4
 # DR: no measured rate may exceed its peak by more than timing noise
 DR_SHARE_MAX = 1.05
 
@@ -3147,19 +3177,13 @@ def _dist_depth(cfg, room: float, per_param: float, act: float,
     return depth
 
 
-def _d1_runs(cfg, mesh, trainer):
-    """The unsharded step ``DIST_STEPS`` times, its memory then freed, and
-    ``launch.run_distributed.run`` from the same initial state (the
-    port's initializer, seed 0) and stream: the stream, the unsharded
-    steps' (loss, gamma, tau, each MoE layer's dropped (token, slot)
-    pairs over the whole batch, from a no-grad forward before the step)
-    and walls, the sharded state and log, and the peaks reserved of each
-    run."""
-    n_workers = dp_size(mesh)
-    stream = ttrain.make_stream(cfg, DIST_BATCH, DIST_SEQ, device=CARD)
-    torch.cuda.reset_peak_memory_stats()
+def _plain_steps(trainer, stream, n_workers: int):
+    """The unsharded step ``DIST_STEPS`` times from the port's initial
+    state (seed 0), its memory then freed: each step's (loss, gamma, tau,
+    each MoE layer's dropped (token, slot) pairs over the whole batch,
+    from a no-grad forward before the step) and walls."""
     state = trainer.init(device=CARD)
-    plain, plain_walls = [], []
+    plain, walls = [], []
     for k in range(DIST_STEPS):
         b = stream.batch_at(k)
         with torch.no_grad():
@@ -3169,47 +3193,120 @@ def _d1_runs(cfg, mesh, trainer):
         state, m = trainer.train_step(state, b, k % n_workers)
         plain.append((float(m["loss"]), float(m["gamma"]), int(m["tau"]),
                       dropped))
-        plain_walls.append(time.perf_counter() - t0)
+        walls.append(time.perf_counter() - t0)
     del state, m
     torch.cuda.empty_cache()
+    return plain, walls
+
+
+class _SharedInPositionOrder(torch.autograd.Function):
+    """The witness's shared expert: forward, on one device block by block
+    as the "model" positions of ``DIST_MESH`` compute it -- each
+    position's column blocks of w1 / w3, w2's float32 partial sums (bf16
+    tensor-core GEMMs with a float32 output) added in position order and
+    rounded once -- written apart from ``models.tensor_parallel``;
+    backward, the unsharded shared expert's gradients (its ops, whole)."""
+
+    @staticmethod
+    def forward(ctx, t, w1, w3, w2):
+        ctx.save_for_backward(t, w1, w3, w2)
+        m = DIST_MESH[1]
+        out = None
+        for a, c, d in zip(w1.chunk(m, dim=1), w3.chunk(m, dim=1),
+                           w2.chunk(m, dim=0)):
+            h = F.silu(t @ c.contiguous()) * (t @ a.contiguous())
+            part = torch.mm(h, d.contiguous(), out_dtype=torch.float32)
+            out = part if out is None else out + part
+        return out.to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ins = [x.detach().requires_grad_(True) for x in ctx.saved_tensors]
+        t, w1, w3, w2 = ins
+        with torch.enable_grad():
+            y = (F.silu(t @ w3) * (t @ w1)) @ w2
+        return torch.autograd.grad(y, ins, grad)
+
+
+def _shared_in_position_order(p, t, dt):
+    """``models.moe._shared`` for the witness (``_SharedInPositionOrder``)."""
+    return _SharedInPositionOrder.apply(
+        t, p["shared_w1"].to(dt), p["shared_w3"].to(dt),
+        p["shared_w2"].to(dt))
+
+
+def _d1_runs(cfg, mesh, trainer, witness: bool = False):
+    """The unsharded steps, with ``witness`` the witness's (the unsharded
+    step with its shared expert in the positions' float order,
+    ``_shared_in_position_order``), and ``launch.run_distributed.run``
+    from the same initial state and stream: the stream, the unsharded
+    steps' records and walls, the witness's records (or None), the
+    sharded state and log, and the peaks reserved of the unsharded runs
+    and of the sharded one."""
+    n_workers = dp_size(mesh)
+    stream = ttrain.make_stream(cfg, DIST_BATCH, DIST_SEQ, device=CARD)
+    torch.cuda.reset_peak_memory_stats()
+    plain, plain_walls = _plain_steps(trainer, stream, n_workers)
+    wit = None
+    if witness:
+        real = tmoe._shared
+        tmoe._shared = _shared_in_position_order
+        try:
+            wit, _ = _plain_steps(trainer, stream, n_workers)
+        finally:
+            tmoe._shared = real
     peak_plain = torch.cuda.max_memory_reserved(CARD)
     torch.cuda.reset_peak_memory_stats()
     state, log = trdist.run(cfg, mesh, DIST_STEPS, DIST_BATCH, DIST_SEQ,
                             device=CARD)
     peak_sharded = torch.cuda.max_memory_reserved(CARD)
-    return stream, plain, plain_walls, state, log, peak_plain, peak_sharded
+    return (stream, plain, plain_walls, wit, state, log, peak_plain,
+            peak_sharded)
 
 
-def _d1_check(tag: str, log, plain, env0: float, env: float
+def _gaps(losses, dropped0, plain) -> Tuple[float, float, list]:
+    """Losses ``losses`` and step-0 dropped counts ``dropped0`` against
+    the unsharded records ``plain``: the step-0 and the later losses'
+    largest difference relative to the first unsharded loss, and each
+    MoE layer's step-0 dropped count less the unsharded one."""
+    first = abs(plain[0][0])
+    err0 = abs(losses[0] - plain[0][0]) / first
+    err = max(abs(a - p[0]) for a, p in zip(losses[1:], plain[1:])) / first
+    return err0, err, [a - b for a, b in zip(dropped0, plain[0][3])]
+
+
+def _d1_check(tag: str, log, plain, env0: float, env: float,
+              drop_env: int = 0, ref: str = "unsharded"
               ) -> Tuple[float, float]:
     """Taus exact, gammas bitwise, the step-0 loss within ``env0`` and the
-    later losses within ``env`` of the first, and every MoE layer's
-    dropped (token, slot) count at step 0 equal, sharded against
-    unsharded (``~(err <= env)``, so a NaN fails); returns the step-0 and
-    the later losses' largest difference relative to the first loss."""
+    later losses within ``env`` of the first, and at step 0 the first MoE
+    layer's dropped (token, slot) count equal and every later layer's
+    within ``drop_env``, ``log`` (a run's records) against ``plain`` (the
+    ``ref`` run's; ``~(err <= env)``, so a NaN fails); returns the step-0 and the later
+    losses' largest difference relative to the first loss."""
     losses = [r["loss"] for r in log]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{tag}: losses {losses}")
-    err0 = abs(losses[0] - plain[0][0]) / abs(plain[0][0])
+    err0, err, drops = _gaps(losses, log[0]["dropped"], plain)
     if not err0 <= env0:
-        raise AssertionError(f"{tag}: step-0 loss {losses[0]!r} sharded, "
-                             f"{plain[0][0]!r} unsharded: {err0:.3e} apart, "
+        raise AssertionError(f"{tag}: step-0 loss {losses[0]!r}, "
+                             f"{plain[0][0]!r} {ref}: {err0:.3e} apart, "
                              f"over the envelope {env0:g}")
-    if log[0]["dropped"] != plain[0][3]:
+    got, want = log[0]["dropped"], plain[0][3]
+    if len(got) != len(want) or drops[:1] != [0] * min(1, len(drops)) \
+            or any(not abs(d) <= drop_env for d in drops):
         raise AssertionError(f"{tag}: step-0 dropped (token, slot) pairs "
-                             f"{log[0]['dropped']} sharded, {plain[0][3]} "
-                             "unsharded")
+                             f"{got}, {want} {ref} (the first layer "
+                             f"equal, the others within {drop_env})")
     for r, (_, gamma, tau, _) in zip(log, plain):
         if r["tau"] != tau or np.float32(r["gamma"]).view(np.int32) != \
                 np.float32(gamma).view(np.int32):
-            raise AssertionError(f"{tag}: step {r['step']} sharded {r}, "
-                                 f"unsharded gamma {gamma} tau {tau}")
-    err = max(abs(r["loss"] - p[0]) for r, p in zip(log[1:], plain[1:])) \
-        / abs(plain[0][0])
+            raise AssertionError(f"{tag}: step {r['step']} {r}, {ref} "
+                                 f"gamma {gamma} tau {tau}")
     if not err <= env:
         raise AssertionError(
-            f"{tag}: later losses {losses[1:]} sharded, "
-            f"{[p[0] for p in plain[1:]]} unsharded: {err:.3e} of the first "
+            f"{tag}: later losses {losses[1:]}, "
+            f"{[p[0] for p in plain[1:]]} {ref}: {err:.3e} of the first "
             f"loss, over the envelope {env:g}; {_d1_rows(log, plain)}")
     return err0, err
 
@@ -3244,7 +3341,7 @@ def phase_d1f_float32(name: str) -> float:
     mesh = make_mesh(DIST_MESH, devices=[CARD] * int(np.prod(DIST_MESH)))
     trainer = make_trainer(cfg.replace(attention_impl="chunked"),
                            n_workers=dp_size(mesh), lr=1e-3)
-    stream, plain, _, state, log, peak_plain, peak_sharded = _d1_runs(
+    stream, plain, _, _, state, log, peak_plain, peak_sharded = _d1_runs(
         cfg, mesh, trainer)
     del state
     torch.cuda.empty_cache()
@@ -3291,11 +3388,18 @@ def phase_d1f_float32(name: str) -> float:
 def phase_d1_run_distributed(name: str, depth: Optional[int] = None
                              ) -> dict:
     """``launch.run_distributed.run`` at full width on the card listed at
-    every position of a 2x4 mesh (two data-parallel rows), after the
-    unsharded step from the same initial state: taus exact, gammas
-    bitwise, the step-0 and later losses within ``DIST_LOSS_BF16_ENV`` of
-    the first, the step-0 dropped (token, slot) counts equal, no
-    hand-written kernel launched; steps/s, each step's gather / compute /
+    every position of a 2x4 mesh (two data-parallel rows, each
+    tensor-parallel over four positions), after the unsharded step and
+    the witness (the unsharded step with its shared expert in the
+    positions' float order, ``_shared_in_position_order``) from the same
+    initial state.  Against the witness: taus exact, gammas bitwise, the
+    step-0 and later losses within ``DIST_LOSS_BF16_ENV`` of the first,
+    the step-0 dropped (token, slot) counts equal at every MoE layer.
+    Against the unsharded step: the same taus and gammas, the step-0
+    loss within ``DIST_LOSS_BF16_ENV`` and the later losses within
+    ``DIST_LOSS_BF16_LATER_ENV``, the step-0 dropped counts equal at the
+    first MoE layer and within ``DIST_DROP_BF16_ENV`` at the others.  No
+    hand-written kernel launched.  Prints steps/s, each step's gather / compute /
     cut-and-update seconds and each row's compute seconds, the dropped
     counts beside the unsharded step's, peaks, the bytes a mesh position
     holds, and one profiled step's launch calls and idle share.  Returns
@@ -3315,14 +3419,30 @@ def phase_d1_run_distributed(name: str, depth: Optional[int] = None
     trainer = make_trainer(cfg.replace(attention_impl="chunked"),
                            n_workers=n_workers, lr=1e-3)
     reset_counts()
-    stream, plain, plain_walls, state, log, peak_plain, peak_sharded = \
-        _d1_runs(cfg, mesh, trainer)
+    (stream, plain, plain_walls, wit, state, log, peak_plain,
+     peak_sharded) = _d1_runs(cfg, mesh, trainer, witness=True)
     launched = {fn.__name__: fn.launches for fn in COUNTERS if fn.launches}
     if launched:
         raise AssertionError(f"D1: hand-written kernels launched: {launched}")
-    err0, err = _d1_check("D1", log, plain, DIST_LOSS_BF16_ENV,
-                          DIST_LOSS_BF16_ENV)
+    # the readings first, so that a failed check below has them
     losses = [r["loss"] for r in log]
+    w_gaps = _gaps([w[0] for w in wit], wit[0][3], plain)
+    t_gaps = _gaps(losses, log[0]["dropped"], wit)
+    witness_text = (
+        f"witness (the unsharded step with the shared expert in the "
+        f"positions' float order) against the unsharded step: losses "
+        f"{', '.join(repr(w[0]) for w in wit)}, step 0 {w_gaps[0]:.3e} and "
+        f"later {w_gaps[1]:.3e} of the first apart, step-0 dropped "
+        f"{wit[0][3]} (difference {w_gaps[2]}); the tensor-parallel step "
+        f"against the witness: step 0 {t_gaps[0]:.3e} and later "
+        f"{t_gaps[1]:.3e} apart, step-0 dropped difference {t_gaps[2]}")
+    say("D1 witness", witness_text)
+    # the tensor-parallel step is the witness's but for the rows' and the
+    # backward's float order: PR 32's envelopes, drops equal at every layer
+    _d1_check("D1 against the witness", log, wit, DIST_LOSS_BF16_ENV,
+              DIST_LOSS_BF16_ENV, ref="witness")
+    err0, err = _d1_check("D1", log, plain, DIST_LOSS_BF16_ENV,
+                          DIST_LOSS_BF16_LATER_ENV, DIST_DROP_BF16_ENV)
     if not max(peak_plain, peak_sharded) <= total - DIST_FREE:
         raise AssertionError(
             f"D1: peaks {peak_plain / 1e9:.2f} / {peak_sharded / 1e9:.2f} GB "
@@ -3356,10 +3476,15 @@ def phase_d1_run_distributed(name: str, depth: Optional[int] = None
         + "; ".join(f"{r['gather_s']:.4f} / {r['compute_s']:.4f} / "
                     f"{r['update_s']:.4f}" for r in log)
         + f"; {_d1_rows(log, plain)}"
+        + f"; route {route(cfg)}, bytes exchanged between a row's "
+        f"positions a step (activations gathered or summed, forward and "
+        f"recompute, and small leaves gathered) "
+        f"{', '.join(str(r['exchanged_bytes']) for r in log)}"
         + f"; losses {', '.join(repr(v) for v in losses)} (unsharded "
         f"{', '.join(repr(p[0]) for p in plain)}; step 0 {err0:.3e} and "
-        f"later losses {err:.3e} of the first apart, envelope "
-        f"{DIST_LOSS_BF16_ENV:g}); taus "
+        f"later losses {err:.3e} of the first apart, envelopes "
+        f"{DIST_LOSS_BF16_ENV:g} and {DIST_LOSS_BF16_LATER_ENV:g}); "
+        f"{witness_text}; taus "
         f"{[r['tau'] for r in log]}, gammas bitwise; peak reserved "
         f"{peak_plain / 1e9:.2f} GB unsharded, {peak_sharded / 1e9:.2f} GB "
         f"sharded of {total / 1e9:.2f} GB (estimate "
@@ -3371,6 +3496,176 @@ def phase_d1_run_distributed(name: str, depth: Optional[int] = None
         f"kernel launched; card {name}; phase wall "
         f"{time.perf_counter() - t_phase:.1f} s")
     return {"cfg": cfg, "depth": depth, "records": log}
+
+
+# D2: the sharded prefill at a fixed depth of 17 layers, where its
+# envelopes below were measured.  Three copies of the parameters at once
+# (the unsharded tree, its cut by the plan, the positions' gathered
+# blocks), bf16, and the prefill's activations and four copies of the
+# cache: peak 70.80 GB reserved of 85.02 in the whole smoke (one H100
+# 80GB HBM3), checked against DIST_FREE.
+D2_MESH = (1, 4)
+D2_PROMPT = 8192
+D2_DEPTH = 17
+# serving's bf16 envelope of the logits.  The cached k / v: the first
+# layer's within D2_CACHE_ULPS bf16 spacings at its largest |value| (its
+# k / v are the row-parallel products of the unsharded embedding: a sum
+# rounds an element to the other neighbour, and RoPE mixes it into its
+# pair; measured 1), every layer's within D2_CACHE_REL of the cache's
+# largest |value| (a later layer reads a residual stream those roundings
+# moved, and the difference grows with depth as the logits' does:
+# measured 9.3750e-02 of 5.8125 at depth 17 (1.6%), beside logits
+# 8.0078e-02 apart, and 1.0938e-01 (1.9%) at depth 19, beside logits
+# 8.2031e-02, on an H100 80GB HBM3 at 700 W)
+D2_LOGIT_ENV = 0.1
+D2_CACHE_ULPS = 2
+D2_CACHE_REL = 5e-2
+
+
+def _b6_device_us(by_name: dict) -> float:
+    return sum(us for n, us in by_name.items()
+               if "fa_tc_kernel" in n or "flash_attention_kernel" in n)
+
+
+def phase_d2_sharded_prefill(name: str) -> int:
+    """D2: ``launch.run_distributed.sharded_prefill`` of qwen2.5-32b at
+    full width on a (1, 4) mesh listing the card four times, one
+    8192-token prompt, at depth ``D2_DEPTH`` with the unsharded copy
+    beside it (its peak must leave ``DIST_FREE`` of the card).  Each position runs B6 on its own 10 query heads and kv heads 2p,
+    2p + 1 (the GQA fold's): B6 launched exactly positions x layers times
+    (counts set to 0 just before, read just after).  Held to the
+    unsharded ``prefill`` of the same parameters: the last position's
+    logits within ``D2_LOGIT_ENV``, the greedy next token equal, every
+    cache block within
+    ``D2_CACHE_REL`` of the largest |value| of the unsharded cache cut by
+    the same plan and the first layer's within ``D2_CACHE_ULPS`` bf16
+    spacings.  Prints
+    both prefills' seconds, B6's device time in each, the bytes exchanged,
+    the peak and the sharded prefill's idle share; returns B6's
+    launches."""
+    t_phase = time.perf_counter()
+    clear_program_cache()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(CARD).total_memory
+    full = get_config(SERVE_ARCH)
+    depth = D2_DEPTH
+    cfg = full.replace(n_layers=depth)
+    n_params = _dist_params(full, depth)
+    M = D2_MESH[1]
+    mesh = make_mesh(D2_MESH, devices=[CARD] * M)
+    torch.cuda.reset_peak_memory_stats()
+    tree = param_tree(init_params(cfg, device=CARD))
+    prompt = torch.randint(0, cfg.vocab, (1, D2_PROMPT),
+                           generator=torch.Generator(device=CARD)
+                           .manual_seed(D2_PROMPT), device=CARD,
+                           dtype=torch.int32)
+    batch = {"tokens": prompt}
+    prefill(tree, cfg, batch)            # warm: allocator, B6's build
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_l, want_c = prefill(tree, cfg, batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    want_cut = device_put(want_c, cache_shardings(want_c, mesh, 1,
+                                                  D2_PROMPT))
+    del want_c
+    sharded = device_put(tree, param_shardings(tree, mesh))
+    trdist.sharded_prefill(sharded, cfg, batch, mesh)      # warm
+    torch.cuda.synchronize()
+    reset_counts()
+    stats: dict = {}
+    t0 = time.perf_counter()
+    got_l, got_c = trdist.sharded_prefill(sharded, cfg, batch, mesh,
+                                          stats=stats)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    launches = fa.flash_attention_bhsd.launches
+    stray = sum(fn.launches for fn in COUNTERS
+                if fn is not fa.flash_attention_bhsd)
+    if launches != M * depth or stray:
+        raise AssertionError(f"D2: {launches} B6 launches for {M} positions"
+                             f" x {depth} layers (+{stray} of other "
+                             "kernels)")
+    routes = _fa_routes("D2", launches, tc=_b6_route(cfg) == "tc")
+    peak = torch.cuda.max_memory_reserved(CARD)
+    if not peak <= total - DIST_FREE:
+        raise AssertionError(f"D2: peak {peak / 1e9:.2f} GB leaves less than"
+                             f" {DIST_FREE / 1e9:g} GB of {total / 1e9:.2f}")
+    if tuple(got_l.shape) != (1, 1, cfg.vocab) or \
+            not bool(torch.isfinite(got_l.float()).all()):
+        raise AssertionError(f"D2: logits of shape {tuple(got_l.shape)}, "
+                             "or not finite")
+    err = float((got_l.float() - want_l.float()).abs().max())
+    if not err <= D2_LOGIT_ENV:
+        raise AssertionError(f"D2: last-position logits {err:.4e} apart, "
+                             f"over the envelope {D2_LOGIT_ENV:g}")
+    top2 = torch.topk(want_l.float().reshape(-1), 2).values
+    margin = float(top2[0] - top2[1])
+    tok_got = int(got_l.reshape(-1).argmax())
+    tok_want = int(want_l.reshape(-1).argmax())
+    if tok_got != tok_want:
+        raise AssertionError(f"D2: greedy token {tok_got} sharded, "
+                             f"{tok_want} unsharded (top-2 margin "
+                             f"{margin:.4e}, logits {err:.4e} apart)")
+    cache_err, cache_top, bitwise, first_ulps = 0.0, 0.0, True, 0.0
+    for a, b in zip(tree_leaves(got_c), tree_leaves(want_cut)):
+        if a.sharding.spec != b.sharding.spec:
+            raise AssertionError(f"D2: cache cut {a.sharding.spec} sharded, "
+                                 f"{b.sharding.spec} by the plan")
+        for x, y in zip(a.blocks(), b.blocks()):
+            d = (x.float() - y.float()).abs()
+            bitwise = bitwise and torch.equal(x, y)
+            cache_err = max(cache_err, float(d.max()))
+            cache_top = max(cache_top, float(y.float().abs().max()))
+            # the first layer's difference in bf16 spacings at its block's
+            # largest |value|
+            first_ulps = max(first_ulps, float(d[0].max()) / float(
+                _bf16_ulp(y[0].float().abs().max())))
+    if not (cache_err <= D2_CACHE_REL * cache_top
+            and first_ulps <= D2_CACHE_ULPS):
+        raise AssertionError(
+            f"D2: cache blocks {cache_err:.4e} apart (envelope "
+            f"{D2_CACHE_REL:g} of their largest |value| {cache_top:.4e}), "
+            f"the first layer's {first_ulps:g} bf16 spacings (envelope "
+            f"{D2_CACHE_ULPS}; logits {err:.4e} apart, greedy {tok_got} / "
+            f"{tok_want})")
+    spec = tree_leaves(got_c)[0].sharding.spec
+    del got_c, want_cut
+    torch.cuda.empty_cache()
+    wall_p, by_p, _ = _profile(lambda: prefill(tree, cfg, batch),
+                               warm=False)
+    wall_s, by_s, calls_s = _profile(
+        lambda: trdist.sharded_prefill(sharded, cfg, batch, mesh),
+        warm=False)
+    b6_p, b6_s = _b6_device_us(by_p), _b6_device_us(by_s)
+    busy = sum(by_s.values()) / 1e6
+    idle = f"{1 - busy / wall_s:.3f}" if busy > 0 else "not measured"
+    ratio = f"{b6_s / b6_p:.3f}" if b6_p > 0 else "not measured"
+    del tree, sharded
+    torch.cuda.empty_cache()
+    say("D2 sharded prefill", f"run_distributed.sharded_prefill {SERVE_ARCH}"
+        f" at full width, depth cut to {depth} of {full.n_layers} layers "
+        f"({n_params / 1e9:.3f} B bf16 params), mesh {D2_MESH} ('data', "
+        f"'model') listing {CARD} {M} times, one {D2_PROMPT}-token prompt, "
+        f"route {route(cfg)}: prefill {sharded_s:.4f} s sharded, "
+        f"{plain_s:.4f} s unsharded; {routes} ({M} positions x {depth} "
+        f"layers, each position's {cfg.n_heads // M} query heads over "
+        f"{cfg.n_kv_heads // M} kv heads); last-position logits "
+        f"{err:.4e} apart (envelope {D2_LOGIT_ENV:g}), greedy token "
+        f"{tok_got} sharded, {tok_want} unsharded (top-2 margin "
+        f"{margin:.4e}); cache cut {spec}, its blocks {cache_err:.4e} apart "
+        f"of a largest |value| {cache_top:.4e} (envelope {D2_CACHE_REL:g} "
+        f"of it), the first layer's {first_ulps:g} bf16 spacings at its "
+        f"largest |value| (envelope {D2_CACHE_ULPS}; "
+        f"{'bitwise' if bitwise else 'not bitwise'}); bytes exchanged "
+        f"between the positions {stats['exchanged_bytes']}; peak reserved "
+        f"{peak / 1e9:.2f} GB of {total / 1e9:.2f}; "
+        f"profiled: sharded wall {wall_s:.4f} s, device busy {busy:.4f} s, "
+        f"idle share {idle}, {calls_s} kernel launch calls; B6 device time "
+        f"{b6_s / 1e6:.6f} s sharded, {b6_p / 1e6:.6f} s unsharded (wall "
+        f"{wall_p:.4f} s), sharded over unsharded {ratio}; card {name}; "
+        f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def phase_dr_cost(name: str, d1: dict) -> None:
@@ -3411,6 +3706,11 @@ def phase_dr_cost(name: str, d1: dict) -> None:
     bad = {k: v for k, v in shares.items() if not v <= DR_SHARE_MAX}
     if bad:
         raise AssertionError(f"DR: shares above {DR_SHARE_MAX}: {bad}")
+    pos = costs["positions"]
+    per_pos = "; ".join(
+        f"position {p}: {c['flops']:.6e} FLOPs, {c['bytes']:.6e} B, "
+        f"exchanged {c['exchanged_bytes'][0]:.6e} B (+ leaves "
+        f"{c['leaf_bytes'][0]:.6e} B) a row" for p, c in enumerate(pos))
     if not cost["update"].bytes >= once:
         raise AssertionError(
             f"DR: the update counted {cost['update'].bytes:.4e} B, below the "
@@ -3440,7 +3740,10 @@ def phase_dr_cost(name: str, d1: dict) -> None:
         f"{terms.t_collective:.6f} s, bound {terms.step_time:.6f} s "
         f"({terms.dominant}), the measured wall {med['wall_s'] / terms.step_time:.3f}x "
         f"it; counted step FLOPs over model_flops "
-        f"{flops / mf:.4f}; card {name}; phase wall "
+        f"{flops / mf:.4f}; route {costs['route']}, per mesh position of a "
+        f"row (its own ops and the row's, the rows' loss and gradients; "
+        f"the counterparts of flops_per_device and "
+        f"collective_bytes_per_device): {per_pos}; card {name}; phase wall "
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
@@ -3874,18 +4177,21 @@ def phases_training() -> None:
         f"{time.perf_counter() - t_train:.1f} s")
 
 
-def phases_dist(name: str) -> None:
-    """D1f, D1 and DR (no hand-written kernel runs there)."""
+def phases_dist(name: str) -> int:
+    """D1f, D1 (no hand-written kernel runs there), D2 (B6 on each
+    position's heads) and DR; returns D2's B6 launches."""
     phase_d1f_float32(name)
     d1 = phase_d1_run_distributed(name)
     torch.cuda.empty_cache()
+    d2 = phase_d2_sharded_prefill(name)
     phase_dr_cost(name, d1)
+    return d2
 
 
 def main() -> None:
     if sys.argv[1:] == ["--only-dist"]:
-        # the sharded trainer's phases alone (no kernel is built: none runs
-        # there); prints no result line
+        # the sharded trainer's and prefill's phases alone (B6 builds at
+        # D2's first launch); prints no result line
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         phases_dist(phase_device())
@@ -3953,10 +4259,11 @@ def main() -> None:
     phases_training()
     fed_cli_runs = phase_ft1_federated_convex()
     phase_ft2_federated_transformer()
-    # the model sharded over a 2x4 mesh of the card (no kernel: training
-    # takes the chunked attention): float32 first, the basis of the bf16
-    # envelope, then bf16, then its step counted on the host (DR)
-    phases_dist(name)
+    # the model sharded over a 2x4 mesh of the card, tensor-parallel (no
+    # kernel: training takes the chunked attention): float32 first, the
+    # basis of the bf16 envelope, then bf16; the sharded prefill (B6 on
+    # each position's heads); then D1's step counted on the host (DR)
+    d2_launches = phases_dist(name)
     # the serving path (B6): the kernel alone first, then the full model
     fa_err = phase_fa_vs_plain()
     t_fa = phase_fa_timing(name, 4, 64, fa_err)
@@ -4023,7 +4330,8 @@ def main() -> None:
                                 HYBRID_ARCH: hybrid_launches,
                                 MLA_ARCH: mla_launches,
                                 VLM_ARCH: vlm_launches,
-                                AUDIO_ARCH: audio_launches}
+                                AUDIO_ARCH: audio_launches,
+                                "sharded_prefill_d2": d2_launches}
     t_fa["instances"] = t_fa_new
     rows = [("fused_policy_prox_step", KERNEL_SOURCE, REPLACES,
              launches + bcd_launches, timing),

@@ -8,9 +8,12 @@
         --shape decode_32k --mesh 2x4
 
 The reference lowers and compiles each step for the mesh and reads the
-per-device SPMD program.  The port has no compiler and computes a sharded
-step on one device (``launch.run_distributed``: gather, compute, cut), so
-a record holds what the port does:
+per-device SPMD program.  The port has no compiler; its sharded step
+(``launch.run_distributed``: gather, compute, cut) computes
+tensor-parallel for the dense and MoE families, each position of a row
+with its own blocks, and :func:`sharded_step_costs` counts it position by
+position (``flops_per_device`` and ``collective_bytes_per_device``'s
+counterparts).  A record holds what the port does:
 
 * ``step_flops`` / ``step_bytes``: the whole step's FLOPs and bytes,
   counted op by op by ``launch.op_cost`` on ``meta`` tensors (the train
@@ -46,8 +49,9 @@ from ..configs import ARCH_IDS, SHAPES, applicable, get_config, input_specs
 from ..configs.shapes import InputShape, cache_len, decode_window, uses_ring
 from ..core.pytree import tree_leaves
 from ..mesh import (AbstractMesh, batch_shardings, cache_shardings,
-                    device_put, dp_axes, dp_size, make_mesh, param_shardings,
-                    replicated)
+                    device_put, dp_axes, dp_size, make_mesh, model_size,
+                    param_shardings, replicated)
+from ..models.tensor_parallel import ROW_GATHERED, TENSOR_PARALLEL, TpLeaf
 from . import op_cost
 from . import run_distributed as rd
 from .roofline import H100, RooflineTerms, model_flops, moved_bytes
@@ -187,14 +191,22 @@ def sharded_step_costs(cfg, mesh_shape, batch: int, seq: int,
                        devices=None) -> dict:
     """``launch.run_distributed.sharded_train_step`` for ``cfg`` (any
     size) at ``batch`` x ``seq`` on a ("data", "model") mesh of
-    ``mesh_shape``, counted part by part on ``meta`` tensors: the
+    ``mesh_shape`` on its route (``models.tensor_parallel.route``),
+    counted part by part on ``meta`` tensors: the
     :class:`op_cost.Cost` of the gather, of the rows' loss and gradients
     (``steps.rows_loss_and_grad``, chunked attention), of the cut and of
-    the optimizer over the blocks; the
-    model FLOPs; the moved bytes on a mesh of ``devices`` (default a
-    device a position); and ``update_once``, the bytes the update's
-    tensors must cross once (the parameter and gradient blocks and the
-    optimizer state read, the new parameters and state written)."""
+    the optimizer over the blocks; the model FLOPs; the moved bytes on a
+    mesh of ``devices`` (default a device a position); ``update_once``,
+    the bytes the update's tensors must cross once (the parameter and
+    gradient blocks and the optimizer state read, the new parameters and
+    state written); and ``positions``, the counterparts of the
+    reference's ``flops_per_device`` and ``collective_bytes_per_device``:
+    for each "model" position of a row, the FLOPs and bytes of its own
+    ops of the rows' loss and gradients plus the row's own (the work
+    every position of an SPMD program would do), per row, and the bytes
+    its row exchanged (activations gathered or summed between positions,
+    each at its whole size, forward and recompute; ``leaf_bytes`` the
+    small leaves gathered whole)."""
     cfg = cfg.replace(attention_impl="chunked")
     shape = InputShape("sharded_step", seq, batch, "train")
     meta = torch.device("meta")
@@ -206,20 +218,40 @@ def sharded_step_costs(cfg, mesh_shape, batch: int, seq: int,
     plain_batch = input_specs(cfg, shape)["batch"]
     cut_batch = device_put(plain_batch,
                            batch_shardings(plain_batch, mesh, batch))
-    g_tr = op_cost.trace(rd.gather_params, state)
+    g_tr = op_cost.trace(rd.gather_params, state, cfg)
+    groups = [next((leaf.group for leaf in tree_leaves(tree)
+                    if isinstance(leaf, TpLeaf)), None)
+              for _, tree in sorted(g_tr.result.items())]
+    tensor_parallel = groups[0] is not None
     c_tr = op_cost.trace(rows_loss_and_grad, g_tr.result, cfg,
-                         rd.row_batches(cut_batch, mesh), mesh)
+                         rd.row_batches(cut_batch, mesh), mesh,
+                         groups=[g for g in groups if g is not None])
     g_tr.result = None
     k_tr = op_cost.trace(rd.cut_gradients, c_tr.result[2], state)
     u_tr = op_cost.trace(rd.update_blocks, trainer, state, k_tr.result, 0)
     moved_mesh = (abstract_mesh(mesh_shape) if devices is None
                   else make_mesh(tuple(mesh_shape), devices=devices))
+    rows = len(groups)
+    by = c_tr.by_position()
+    m = model_size(mesh) if tensor_parallel else 1
+    positions = [{"flops": (by[None].flops + by.get(p, op_cost.Cost()).flops)
+                  / rows,
+                  "bytes": (by[None].bytes + by.get(p, op_cost.Cost()).bytes)
+                  / rows,
+                  "exchanged_bytes": [0 if g is None else g.exchanged
+                                      for g in groups],
+                  "leaf_bytes": [0 if g is None else g.leaf_bytes
+                                 for g in groups]}
+                 for p in range(m)]
     return {"gather": g_tr.cost(), "compute": c_tr.cost(),
             "cut": k_tr.cost(), "update": u_tr.cost(),
             "model_flops": model_flops(cfg, shape),
-            "moved": moved_bytes(specs, moved_mesh),
+            "moved": moved_bytes(specs, moved_mesh,
+                                 tensor_parallel=tensor_parallel),
             "update_once": (3 * _tree_bytes(specs.params)
-                            + 2 * _tree_bytes(specs.opt))}
+                            + 2 * _tree_bytes(specs.opt)),
+            "route": TENSOR_PARALLEL if tensor_parallel else ROW_GATHERED,
+            "by_position": by, "positions": positions}
 
 
 def analyze(step: Step, arch: str, shape_name: str, mesh) -> dict:

@@ -23,6 +23,11 @@ trip counts.
   name, with its calls) and the hand-written kernels launched during the
   call (their launch counters: ``ctypes`` launches do not pass the
   dispatcher), never silently counted as 0.
+* ``position``: in a trace given the tensor-parallel groups of the call
+  (``models.tensor_parallel.ModelGroup``), the position whose work an op
+  is (its forward ops, a checkpoint's recompute of them and the backward
+  of the autograd nodes they made), None for the row's own;
+  :meth:`OpTrace.by_position` splits a trace by it.
 
 Moved bytes (the reference's collective bytes) are not ops of the step:
 ``launch.roofline.moved_bytes`` counts them from the plan, and
@@ -32,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -116,6 +121,7 @@ class OpRecord:
     flops: int
     bytes: int
     shapes: str  # the operands' dtypes and shapes
+    position: Optional[int] = None  # the tensor-parallel position's op
 
 
 @dataclasses.dataclass
@@ -156,6 +162,17 @@ class OpTrace:
                     bytes=float(sum(r.bytes for r in self.records)),
                     uncounted=dict(self.uncounted))
 
+    def by_position(self) -> Dict[Optional[int], Cost]:
+        """The cost of each tensor-parallel position's ops, and under
+        None the rest (the rows' own work, every op of an untagged
+        call)."""
+        out: Dict[Optional[int], Cost] = {None: Cost()}
+        for r in self.records:
+            c = out.setdefault(r.position, Cost())
+            c.flops += r.flops
+            c.bytes += r.bytes
+        return out
+
 
 def _launch_counts() -> Dict[str, int]:
     """The hand-written kernels' launch counters, by wrapper name (the
@@ -164,11 +181,44 @@ def _launch_counts() -> Dict[str, int]:
     return {name: int(getattr(fn, attr)) for name, fn, attr in _counters()}
 
 
+# the autograd-node metadata key that holds a tensor-parallel position
+NODE_KEY = "tp_position"
+
+
+def _tag(p: int, args, out) -> None:
+    """A ``ModelGroup`` hook: tag the autograd graph of position ``p``'s
+    work ``out`` with ``p``, back to the nodes of its inputs ``args`` or to
+    nodes tagged already."""
+    if not torch.is_grad_enabled():
+        return
+    outs = out if isinstance(out, (tuple, list)) else [out]
+    stop = {id(t.grad_fn) for t in args
+            if isinstance(t, torch.Tensor) and t.grad_fn is not None}
+    todo = [t.grad_fn for t in outs
+            if isinstance(t, torch.Tensor) and t.grad_fn is not None]
+    while todo:
+        node = todo.pop()
+        if node is None or id(node) in stop or NODE_KEY in node.metadata:
+            continue
+        node.metadata[NODE_KEY] = p
+        todo.extend(n for n, _ in node.next_functions)
+
+
 class _Recorder(TorchDispatchMode):
-    def __init__(self):
+    def __init__(self, groups=()):
         super().__init__()
         self.records: List[OpRecord] = []
         self.uncounted: Dict[str, int] = {}
+        self.groups = list(groups)
+
+    def _position(self, node) -> Optional[int]:
+        for g in self.groups:
+            if g.position is not None:
+                return g.position
+        if node is not None and not torch.is_grad_enabled():
+            # a backward op: the position that made its node
+            return node.metadata.get(NODE_KEY)
+        return None
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -191,17 +241,26 @@ class _Recorder(TorchDispatchMode):
             node = torch._C._current_autograd_node()
             self.records.append(OpRecord(
                 str(func), "forward" if node is None else node.name(),
-                int(flops), int(nbytes), _shape_text(args)))
+                int(flops), int(nbytes), _shape_text(args),
+                self._position(node)))
         return out
 
 
-def trace(fn: Callable, *args, **kwargs) -> OpTrace:
+def trace(fn: Callable, *args, groups=(), **kwargs) -> OpTrace:
     """Run ``fn(*args, **kwargs)`` and record every aten op it dispatches,
-    backward passes included; the trace holds the call's result."""
+    backward passes included; the trace holds the call's result.  Each op
+    of the work of a position of one of ``groups`` (tensor-parallel
+    ``ModelGroup``s the call computes with) records that position."""
     before = _launch_counts()
-    rec = _Recorder()
-    with rec:
-        result = fn(*args, **kwargs)
+    rec = _Recorder(groups)
+    for g in rec.groups:
+        g.hook = _tag
+    try:
+        with rec:
+            result = fn(*args, **kwargs)
+    finally:
+        for g in rec.groups:
+            g.hook = None
     uncounted = dict(rec.uncounted)
     for name, n in _launch_counts().items():
         if n > before[name]:

@@ -26,7 +26,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from ..core.pytree import tree_flatten_with_path, tree_leaves, tree_map
-from ..mesh import Mesh, NamedSharding, P, dp_rows, dp_size, param_shardings
+from ..mesh import (Mesh, NamedSharding, P, dp_rows, dp_size, model_dim,
+                    model_size, param_shardings, row_positions)
 
 __all__ = ["Hardware", "H100", "RooflineTerms", "count_params",
            "model_flops", "moved_bytes", "moved_rows", "MOVED_KINDS"]
@@ -162,7 +163,33 @@ def _path_text(path) -> str:
                     for k in path)
 
 
-def moved_rows(state, mesh, *, fsdp: bool = True, small_out: int = 0
+def _tp_moves(leaf, sharding: NamedSharding, mesh) -> Tuple[int, int]:
+    """(gather, running-sum hop) bytes of one leaf on the tensor-parallel
+    route: its "model" block onto each distinct (device, block) of the
+    rows' positions, and each block's gradient sum onto the next row's
+    tensor wherever consecutive rows hold that block on another device."""
+    shape = tuple(leaf.shape)
+    mdim = model_dim(sharding, len(shape))
+    m = model_size(mesh) if mdim is not None else 1
+    block = int(np.prod(shape, dtype=np.int64)) // m * leaf.element_size()
+    mi = (list(mesh.axis_names).index("model")
+          if "model" in mesh.axis_names else None)
+
+    def key(pos):
+        return (str(mesh.devices[pos]) if isinstance(mesh, Mesh) else pos,
+                0 if mdim is None else pos[mi])
+
+    rows = [[key(pos) for pos in row] for row in row_positions(mesh)]
+    made = {k for row in rows for k in row}
+    # the running sum lives on each block's tensor (the first position's
+    # where every position holds the leaf whole)
+    hops = sum(a != b for r0, r1 in zip(rows, rows[1:])
+               for a, b in zip(r0[:m], r1[:m]))
+    return block * len(made), block * hops
+
+
+def moved_rows(state, mesh, *, fsdp: bool = True, small_out: int = 0,
+               tensor_parallel: bool = False
                ) -> List[Tuple[int, str, str, tuple]]:
     """:func:`moved_bytes` leaf by leaf: ``(bytes, kind, path, shape)``
     rows, one a leaf and kind that moves anything."""
@@ -172,7 +199,7 @@ def moved_rows(state, mesh, *, fsdp: bool = True, small_out: int = 0
     def add(kind, tree, shardings, prefix, pick):
         flat = tree_flatten_with_path(tree)[0]
         for (path, leaf), sh in zip(flat, tree_leaves(shardings)):
-            n = pick(*_leaf_moves(leaf, sh, positions))
+            n = pick(leaf, sh, *_leaf_moves(leaf, sh, positions))
             if n:
                 rows.append((n, kind, prefix + _path_text(path),
                              tuple(leaf.shape)))
@@ -182,20 +209,28 @@ def moved_rows(state, mesh, *, fsdp: bool = True, small_out: int = 0
     hops = sum(a != b for a, b in zip(row_devs, row_devs[1:]))
     p_sh = param_shardings(state.params, mesh, fsdp=fsdp,
                            small_out_threshold=small_out)
-    add("gather", state.params, p_sh, "params/",
-        lambda d, p: d * len(set(row_devs)))
-    add("cut", state.params, p_sh, "params/", lambda d, p: p + d * hops)
-    add("replicate", state.params, p_sh, "params/", lambda d, p: p - d)
+    if tensor_parallel:
+        add("gather", state.params, p_sh, "params/",
+            lambda leaf, sh, d, p: _tp_moves(leaf, sh, mesh)[0])
+        add("cut", state.params, p_sh, "params/",
+            lambda leaf, sh, d, p: p + _tp_moves(leaf, sh, mesh)[1])
+    else:
+        add("gather", state.params, p_sh, "params/",
+            lambda leaf, sh, d, p: d * len(set(row_devs)))
+        add("cut", state.params, p_sh, "params/",
+            lambda leaf, sh, d, p: p + d * hops)
+    add("replicate", state.params, p_sh, "params/",
+        lambda leaf, sh, d, p: p - d)
     opt = state.opt._replace(inner=param_shardings(
         state.opt.inner, mesh, fsdp=fsdp, small_out_threshold=small_out))
     o_sh = tree_map(lambda s: s if isinstance(s, NamedSharding)
                     else NamedSharding(mesh, P()), opt)
-    add("replicate", state.opt, o_sh, "opt/", lambda d, p: p - d)
+    add("replicate", state.opt, o_sh, "opt/", lambda leaf, sh, d, p: p - d)
     return rows
 
 
-def moved_bytes(state, mesh, *, fsdp: bool = True, small_out: int = 0
-                ) -> Dict[str, int]:
+def moved_bytes(state, mesh, *, fsdp: bool = True, small_out: int = 0,
+                tensor_parallel: bool = False) -> Dict[str, int]:
     """The bytes one ``launch.run_distributed.sharded_train_step`` copies
     on ``mesh`` (a ``Mesh``, whose repeated devices share their blocks, or
     an ``AbstractMesh``, a device a position), from the plan alone:
@@ -213,9 +248,13 @@ def moved_bytes(state, mesh, *, fsdp: bool = True, small_out: int = 0
 
     ``state`` is a ``TrainState`` (tensors on any device, ``meta`` too)
     planned as ``shard_state`` plans it (the optimizer's scalar state
-    replicated)."""
+    replicated).  With ``tensor_parallel`` the gather is the step's on
+    that route (``models.tensor_parallel.route``): each row position's
+    "model" block, whole over the data axes, once a distinct (device,
+    block), and the running sum moves block by block."""
     out = {k: 0 for k in MOVED_KINDS}
     for n, kind, _, _ in moved_rows(state, mesh, fsdp=fsdp,
-                                    small_out=small_out):
+                                    small_out=small_out,
+                                    tensor_parallel=tensor_parallel):
         out[kind] += n
     return out

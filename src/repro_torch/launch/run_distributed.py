@@ -19,29 +19,37 @@ backward).  Parameters and the optimizer's moments are cut by
 ``param_shardings`` into one block a mesh position (``mesh.device_put``),
 the policy's scalar state is replicated, and each batch is cut by
 ``batch_shardings``.  One step (:func:`sharded_train_step`), as the
-reference's SPMD program computes it:
+reference's SPMD program computes it, on the route of
+``models.tensor_parallel.route``:
 
-1. gather the parameters onto each data-parallel row's first device, once
-   a device (the all-gather, across ranks where the blocks live in
+1. gather: tensor-parallel (the dense and MoE families), the FSDP gather
+   only -- each position of each data-parallel row gets its "model" block
+   of every leaf, whole over the data axes, on its own device; row-gathered
+   (every other family), every leaf whole onto each row's first device,
+   once a device (across ranks an all-gather where the blocks live in
    several);
 2. ``steps.rows_loss_and_grad``: each row computes the loss and the
-   gradient of its own slice of the batch where it lives, in row order;
-   the statistics that couple the batch (the label count, each MoE
-   layer's expert counts and probability sums, a capacity layer's
-   offsets) are summed in row order, so the step computes the whole
-   batch's loss; the rows' gradients are summed in row order;
-3. cut each gradient leaf by its parameter's sharding (the
-   reduce-scatter);
+   gradient of its own slice of the batch where it lives, in row order,
+   tensor-parallel each position with its own blocks (column-, row- and
+   expert-parallel products, the vocab-parallel embedding and logits;
+   the positions exchange activations in position order); the statistics
+   that couple the batch (the label count, each MoE layer's expert
+   counts and probability sums, a capacity layer's offsets) are summed
+   in row order, so the step computes the whole batch's loss; the rows'
+   gradients are summed in row order, block by block;
+3. cut each gradient leaf (or "model" block) by its parameter's sharding
+   over the data axes (the reduce-scatter);
 4. ``DelayAdaptiveOptimizer.update`` over the distinct blocks: AdamW is
    elementwise, and the clip's global norm sums the blocks' squares leaf
    by leaf, each leaf's blocks in mesh index order (gathered from the
    ranks that hold them).
 
-Against the unsharded step the row sums are another float order (a
-rounding apart, the envelopes of ``tests/test_torch_dp_step.py``); on a
-mesh whose data axis is 1 the step is the unsharded one but for the
-clip's sum, and one mesh run in one process and in several gives
-bitwise the same state.
+Against the unsharded step the row sums and the row-parallel products
+are another float order (the envelopes of ``tests/test_torch_dp_step.py``
+and ``test_torch_tp_step.py``); on a mesh whose data and model axes are 1
+the step is the unsharded one but for the clip's sum, and one mesh run
+in one process and in several gives bitwise the same state.
+:func:`sharded_prefill` is the sharded prefill on the same routes.
 """
 from __future__ import annotations
 
@@ -55,16 +63,20 @@ import torch
 from ..configs import ARCH_IDS, get_config
 from ..core.pytree import tree_leaves, tree_map
 from ..mesh import (Mesh, _dp_entry, batch_shardings, block_values,
-                    check_one_rank_a_card, device_put, dp_rows, dp_size,
-                    gather, init_distributed, make_mesh, param_shardings,
-                    process_index, replicated, shutdown_distributed,
-                    split_samples)
+                    cache_shardings, check_one_rank_a_card, device_put,
+                    dp_rows, dp_size, init_distributed, make_mesh,
+                    param_shardings, process_index, put_model_blocks,
+                    replicated, shutdown_distributed, split_samples)
+from ..models import prefill
 from ..models.config import ModelConfig
-from .steps import Trainer, TrainState, make_trainer, rows_loss_and_grad
+from ..models.tensor_parallel import TpLeaf
+from .steps import (Trainer, TrainState, _my_rows, make_trainer, row_params,
+                    rows_loss_and_grad)
 from .train import PRESETS, make_stream
 
-__all__ = ["shard_state", "gather_params", "row_batches", "cut_gradients",
-           "update_blocks", "sharded_train_step", "run", "main"]
+__all__ = ["shard_state", "gather_params", "row_batches",
+           "cut_gradients", "update_blocks", "sharded_train_step",
+           "sharded_prefill", "exchanged_bytes", "run", "main"]
 
 
 def shard_state(state: TrainState, mesh: Mesh) -> TrainState:
@@ -105,22 +117,25 @@ def _mesh_of(state: TrainState) -> Mesh:
     return tree_leaves(state.params)[0].sharding.mesh
 
 
-def _my_rows(mesh: Mesh) -> List[int]:
-    me = process_index()
-    return [i for i, (_, _, r) in enumerate(dp_rows(mesh)) if r == me]
+def gather_params(state: TrainState, cfg: ModelConfig) -> Dict[int, Any]:
+    """Step 1: each of this rank's data-parallel rows' parameters, by row
+    index, on ``cfg``'s route (``steps.row_params``): tensor-parallel, the
+    FSDP gather only, each position of the row getting its "model" block
+    whole over the data axes on its own device; row-gathered, every leaf
+    gathered whole onto the row's first device, once a device."""
+    return row_params(state.params, _mesh_of(state), cfg)
 
 
-def gather_params(state: TrainState) -> Dict[str, Any]:
-    """Step 1: the parameters gathered onto each device that is the first
-    of one of this rank's data-parallel rows, once a device."""
-    mesh = _mesh_of(state)
-    rows = dp_rows(mesh)
-    out: Dict[str, Any] = {}
-    for i in _my_rows(mesh):
-        dev = rows[i][1]
-        if str(dev) not in out:
-            out[str(dev)] = tree_map(lambda s: gather(s, dev), state.params)
-    return out
+def exchanged_bytes(params_on: Dict[int, Any]) -> int:
+    """The bytes the rows' positions exchanged since their parameters
+    were gathered: every activation gathered or summed between positions
+    (a collective's whole result, as it counts on each position) and
+    every small leaf gathered whole, over this rank's rows; 0 on the
+    row-gathered route."""
+    groups = {id(g): g for tree in params_on.values()
+              for g in (leaf.group for leaf in tree_leaves(tree)
+                        if isinstance(leaf, TpLeaf))}
+    return sum(g.exchanged + g.leaf_bytes for g in groups.values())
 
 
 def row_batches(batch, mesh: Mesh) -> Dict[int, Dict[str, torch.Tensor]]:
@@ -144,9 +159,13 @@ def row_batches(batch, mesh: Mesh) -> Dict[int, Dict[str, torch.Tensor]]:
 
 
 def cut_gradients(grads, state: TrainState):
-    """Step 3: each gradient leaf cut by its parameter's sharding."""
-    return tree_map(lambda g, s: device_put(g, s.sharding), grads,
-                    state.params)
+    """Step 3: each gradient leaf cut by its parameter's sharding (a
+    tensor-parallel leaf's gradient, given as its "model" blocks, cut
+    over the data axes)."""
+    return tree_map(lambda g, s: put_model_blocks(g.blocks, s.sharding,
+                                                  s.shape)
+                    if isinstance(g, TpLeaf) else device_put(g, s.sharding),
+                    grads, state.params)
 
 
 def update_blocks(trainer: Trainer, state: TrainState, cut, worker
@@ -171,22 +190,26 @@ def sharded_train_step(trainer: Trainer, state: TrainState, batch, worker
                        ) -> Tuple[TrainState, Dict[str, Any]]:
     """One step of ``trainer`` on a state made by :func:`shard_state` and a
     batch cut by ``batch_shardings``, each data-parallel row computing
-    where it lives (every rank of the mesh calls it).  Returns the new
-    sharded state and the metrics of ``Trainer.train_step`` with
-    ``dropped`` (each MoE layer's dropped (token, slot) pairs) and the
-    seconds of the gather (``gather_s``), of each of this rank's rows'
-    loss and gradients (``compute_rows_s``) and their sum
-    (``compute_s``), and of the gradients' reduction, cut and update
-    (``update_s``)."""
+    where it lives (every rank of the mesh calls it), on the route of
+    ``models.tensor_parallel.route(trainer.cfg)``.  Returns the new sharded state
+    and the metrics of ``Trainer.train_step`` with ``dropped`` (each MoE
+    layer's dropped (token, slot) pairs), ``exchanged_bytes``
+    (:func:`exchanged_bytes`) and the seconds of the gather
+    (``gather_s``), of each of this rank's rows' loss and gradients
+    (``compute_rows_s``) and their sum (``compute_s``), and of the
+    gradients' reduction, cut and update (``update_s``)."""
     mesh = _mesh_of(state)
     first = dp_rows(mesh)[_my_rows(mesh)[0]][1]
     t0 = time.perf_counter()
-    params_on = gather_params(state)
-    for d in params_on:
+    params_on = gather_params(state, trainer.cfg)
+    me = process_index()
+    for d in {str(dev) for dev, r in zip(mesh.devices.flat,
+                                         mesh.processes.flat) if r == me}:
         _sync(torch.device(d))
     t1 = time.perf_counter()
     loss, metrics, grads, rows_s = rows_loss_and_grad(
         params_on, trainer.cfg, row_batches(batch, mesh), mesh)
+    moved = exchanged_bytes(params_on)
     del params_on
     t2 = time.perf_counter()
     cut = cut_gradients(grads, state)
@@ -197,8 +220,48 @@ def sharded_train_step(trainer: Trainer, state: TrainState, batch, worker
     metrics = dict(metrics)
     metrics.update(loss=loss, gamma=gamma, tau=tau, gather_s=t1 - t0,
                    compute_s=sum(rows_s), compute_rows_s=rows_s,
-                   update_s=t3 - t2)
+                   update_s=t3 - t2, exchanged_bytes=moved)
     return new, metrics
+
+
+def sharded_prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                    mesh: Mesh, window: Optional[int] = None,
+                    ring: bool = False, stats: Optional[dict] = None):
+    """The sharded prefill (the executed counterpart of the one the
+    reference's dry run lowers): ``params`` cut by ``param_shardings``
+    (``mesh.device_put``), a one-process ``mesh``, ``batch`` a prompt
+    batch.  Each data-parallel row prefills its slice of the batch on the
+    route of ``models.tensor_parallel.route(cfg)``: tensor-parallel, each
+    position computing its heads (its own share of every product, and
+    under ``attention_impl="pallas"`` the flash-attention kernel on its
+    own heads), else on its parameters gathered whole.  Returns the last
+    position's logits (B, 1, V) on the first row's device and the cache
+    cut by ``mesh.cache_shardings``; ``stats`` (a dict), where given,
+    gets ``exchanged_bytes``."""
+    if len({int(p) for p in mesh.processes.flat}) > 1:
+        raise ValueError("the sharded prefill runs in one process")
+    rows = dp_rows(mesh)
+    params_on = row_params(params, mesh, cfg)
+    names = sorted(batch)
+    cut = split_samples([batch[n] for n in names], len(rows))
+    logits, caches = [], []
+    for i, (_, dev, _) in enumerate(rows):
+        lg, c = prefill(params_on[i], cfg, {n: t.to(dev) for n, t in
+                                            zip(names, cut[i])},
+                        window=window, ring=ring)
+        logits.append(lg)
+        caches.append(c)
+    first = rows[0][1]
+    cache = caches[0] if len(caches) == 1 else tree_map(
+        lambda *cs: (cs[0] if cs[0].ndim < 3 else
+                     torch.cat([c.to(first) for c in cs], dim=1)), *caches)
+    if stats is not None:
+        stats["exchanged_bytes"] = exchanged_bytes(params_on)
+    del params_on
+    B = sum(int(lg.shape[0]) for lg in logits)
+    S = int(batch[names[0]].shape[-1])
+    return (torch.cat([lg.to(first) for lg in logits]),
+            device_put(cache, cache_shardings(cache, mesh, B, S)))
 
 
 def run(cfg: ModelConfig, mesh: Mesh, steps: int = 3, batch: int = 8,
@@ -209,7 +272,7 @@ def run(cfg: ModelConfig, mesh: Mesh, steps: int = 3, batch: int = 8,
     is made on ``device`` (default the first device of this rank's first
     row) and cut onto the positions this rank owns.  Each rank checks
     its losses for NaN.  Returns the final state and one record a step
-    (loss, gamma, tau, seconds)."""
+    (loss, gamma, tau, dropped pairs, seconds, exchanged bytes)."""
     dev = torch.device(device if device is not None
                        else dp_rows(mesh)[_my_rows(mesh)[0]][1])
     if dev.type == "cuda" and dev.index is not None:
@@ -235,7 +298,8 @@ def run(cfg: ModelConfig, mesh: Mesh, steps: int = 3, batch: int = 8,
                             dropped=[int(v) for v in m["dropped"]],
                             **{n: m[n] for n in ("gather_s", "compute_s",
                                                  "compute_rows_s",
-                                                 "update_s")}))
+                                                 "update_s",
+                                                 "exchanged_bytes")}))
     return state, log
 
 

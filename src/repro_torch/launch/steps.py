@@ -39,19 +39,22 @@ import torch
 from ..core.prox import ProxOp, Zero
 from ..core.pytree import tree_flatten, tree_map, tree_unflatten
 from ..core.stepsize import Adaptive1, StepsizePolicy
-from ..mesh import (Mesh, dp_rows, rows_gather, split_samples,
-                    sum_in_order)
+from ..mesh import (Mesh, device_put, dp_rows, gather, gather_model_blocks,
+                    model_dim, param_shardings, process_index, row_positions,
+                    rows_gather, split_samples, sum_in_order)
 from ..models import decode_step, forward, loss_fn, param_tree, prefill
 from ..models.config import ModelConfig
+from ..models import tensor_parallel
 from ..models.moe import MoeSlice, RouteStats
+from ..models.tensor_parallel import TENSOR_PARALLEL, ModelGroup, TpLeaf, whole
 from ..models.transformer import (LossParts, compose_loss, loss_parts,
                                   moe_layer_count)
 from ..optim.optimizers import (AdamW, DelayAdaptiveOptimizer,
                                 DelayAdaptiveState, Momentum, Sgd)
 
 __all__ = ["TrainState", "Trainer", "make_trainer", "make_prefill_step",
-           "make_serve_step", "loss_and_grad", "rows_loss_and_grad",
-           "data_parallel_loss_and_grad"]
+           "make_serve_step", "loss_and_grad", "row_params", "model_blocks",
+           "rows_loss_and_grad", "data_parallel_loss_and_grad"]
 
 
 class TrainState(NamedTuple):
@@ -118,22 +121,111 @@ def _unpack(f: torch.Tensor, i: torch.Tensor, n_moe: int, n_exp: int,
     return LossParts(f[0], f[1], tokens, tuple(moe))
 
 
-def rows_loss_and_grad(params_on: Dict[str, Any], cfg: ModelConfig,
+def _live_rows(params_on: Dict[int, Any], mine) -> Tuple[dict, dict, Any]:
+    """Each row's parameter tree with autograd leaves in place of the
+    gathered tensors (one leaf a distinct tensor, so rows and positions
+    that share a tensor share its leaf), and each row's leaves in one
+    order for every row: each leaf's tensor, or a tensor-parallel leaf's
+    "model" blocks in position order (its first position's where every
+    position holds it whole)."""
+    live: Dict[int, torch.Tensor] = {}
+
+    def grad_leaf(t):
+        if id(t) not in live:
+            live[id(t)] = t.detach().requires_grad_(True)
+        return live[id(t)]
+
+    trees, flats, spec = {}, {}, None
+    for i in mine:
+        leaves, spec = tree_flatten(params_on[i])
+        new, flat = [], []
+        for leaf in leaves:
+            if isinstance(leaf, TpLeaf):
+                blocks = [grad_leaf(b) for b in leaf.blocks]
+                new.append(TpLeaf(leaf.group, blocks, leaf.dim, leaf.shape))
+                flat += blocks if leaf.dim is not None else blocks[:1]
+            else:
+                new.append(grad_leaf(leaf))
+                flat.append(new[-1])
+        trees[i] = tree_unflatten(spec, new)
+        flats[i] = flat
+    return trees, flats, spec
+
+
+def _my_rows(mesh: Mesh):
+    me = process_index()
+    return [i for i, (_, _, r) in enumerate(dp_rows(mesh)) if r == me]
+
+
+def row_params(params, mesh: Mesh, cfg: ModelConfig) -> Dict[int, Any]:
+    """Each of this rank's data-parallel rows' parameters, by row index,
+    from ``params`` cut by ``mesh.param_shardings`` (``ShardedTensor``
+    leaves), on the route of ``models.tensor_parallel.route(cfg)`` (the
+    one place the route is chosen): tensor-parallel, the FSDP gather only
+    (:func:`model_blocks`); row-gathered, every leaf whole on the row's
+    first device, gathered once a device (rows on one device share the
+    tree)."""
+    if tensor_parallel.route(cfg) == TENSOR_PARALLEL:
+        return model_blocks(params, mesh)
+    rows = dp_rows(mesh)
+    on: Dict[str, Any] = {}
+    out: Dict[int, Any] = {}
+    for i in _my_rows(mesh):
+        dev = rows[i][1]
+        if str(dev) not in on:
+            on[str(dev)] = tree_map(lambda s: gather(s, dev), params)
+        out[i] = on[str(dev)]
+    return out
+
+
+def model_blocks(params, mesh: Mesh) -> Dict[int, Any]:
+    """Each of this rank's data-parallel rows' parameters (``params`` cut
+    by ``mesh.param_shardings``, ``ShardedTensor`` leaves) as
+    tensor-parallel leaves (``models.tensor_parallel.TpLeaf``), by row
+    index: each position's "model" block, whole over the data axes, on
+    its own device (made once a distinct (device, block), so rows and
+    positions that share a device share their blocks)."""
+    mine = _my_rows(mesh)
+    positions = row_positions(mesh)
+    groups = {i: ModelGroup([mesh.devices[pos] for pos in positions[i]])
+              for i in mine}
+
+    leaves, spec = tree_flatten(params)
+    out: Dict[int, list] = {i: [] for i in mine}
+    for s in leaves:
+        dim = model_dim(s.sharding, len(s.shape))
+        keys: Dict[tuple, tuple] = {}
+        for i in mine:
+            for m, dev in enumerate(groups[i].devices):
+                keys.setdefault((str(dev), 0 if dim is None else m), (m, dev))
+        made = dict(zip(keys, gather_model_blocks(s, list(keys.values()))))
+        for i in mine:
+            out[i].append(TpLeaf(
+                groups[i], [made[(str(dev), 0 if dim is None else m)]
+                            for m, dev in enumerate(groups[i].devices)],
+                dim, s.shape))
+    return {i: tree_unflatten(spec, out[i]) for i in mine}
+
+
+def rows_loss_and_grad(params_on: Dict[int, Any], cfg: ModelConfig,
                        row_batches: Dict[int, Dict[str, torch.Tensor]],
                        mesh: Mesh):
     """``(loss, metrics, grads, row_seconds)`` of the batch whose slices
     are ``mesh``'s data-parallel rows (``mesh.dp_rows``), computed where
     they live.  ``row_batches`` maps the index of each row this rank owns
-    to its slice, on the row's device; ``params_on`` maps each of those
-    devices (``str``) to the parameter tree there.  ``grads`` (the tree's
-    structure, on the device of this rank's last row) is the gradient of
-    the whole batch's loss summed over the rows in row order; ``metrics``
-    holds ``ce``, ``aux`` and ``dropped`` (each MoE layer's dropped
-    (token, slot) pairs over the rows); ``row_seconds`` each of this
-    rank's rows' forward and backward seconds.  Where the rows live in
-    several ranks, each rank owns one row and every rank calls this (the
-    exchanges are all-gathers summed in row order, so the numbers are the
-    one-process run's bitwise)."""
+    to its slice, on the row's device; ``params_on`` maps it to the row's
+    parameter tree: whole tensors on the row's first device, or the row's
+    tensor-parallel blocks (``models.tensor_parallel.TpLeaf``, each
+    position's on its device; ``launch.run_distributed.gather_params``).
+    ``grads`` (the tree's structure) is the gradient of the whole batch's
+    loss summed over the rows in row order, on the devices of this
+    rank's last row (a tensor-parallel leaf's as a ``TpLeaf`` of its
+    "model" blocks' gradients); ``metrics`` holds ``ce``, ``aux`` and
+    ``dropped`` (each MoE layer's dropped (token, slot) pairs over the
+    rows); ``row_seconds`` each of this rank's rows' forward and backward
+    seconds.  Where the rows live in several ranks, each rank owns one
+    row and every rank calls this (the exchanges are all-gathers summed
+    in row order, so the numbers are the one-process run's bitwise)."""
     rows = dp_rows(mesh)
     mine = sorted(row_batches)
     multi = len({r for _, _, r in rows}) > 1
@@ -143,13 +235,7 @@ def rows_loss_and_grad(params_on: Dict[str, Any], cfg: ModelConfig,
             f"rank; this rank owns the rows {mine}")
     tokens = int(row_batches[mine[0]]["targets"].numel()) * len(rows)
     n_moe, n_exp = moe_layer_count(cfg), cfg.n_experts
-    live: Dict[str, list] = {}
-    spec = None
-    for i in mine:
-        key = str(rows[i][1])
-        if key not in live:
-            leaves, spec = tree_flatten(params_on[key])
-            live[key] = [t.detach().requires_grad_(True) for t in leaves]
+    trees, flats, spec = _live_rows(params_on, mine)
 
     # forward passes in row order; each row reads the earlier rows' counts
     parts: Dict[int, LossParts] = {}
@@ -161,8 +247,7 @@ def rows_loss_and_grad(params_on: Dict[str, Any], cfg: ModelConfig,
                         else prefix[l]) for l in range(n_moe)]
         t0 = time.perf_counter()
         with torch.enable_grad():
-            parts[i] = loss_parts(tree_unflatten(spec, live[str(dev)]), cfg,
-                                  row_batches[i], moe=moe)
+            parts[i] = loss_parts(trees[i], cfg, row_batches[i], moe=moe)
         _sync(dev)
         secs[i] = time.perf_counter() - t0
         for l, st in enumerate(parts[i].moe):
@@ -176,15 +261,18 @@ def rows_loss_and_grad(params_on: Dict[str, Any], cfg: ModelConfig,
                      for j in (0, 1)]
     totals = _unpack(*packed_totals, n_moe, n_exp, tokens)
 
-    # each row's share; the gradients accumulate in row order
+    # each row's share; the gradients accumulate in row order (where a
+    # row's leaf is another tensor than the last row's, the running sum
+    # moves onto it)
     holder = None
     for i in mine:
         dev = rows[i][1]
-        leaves = live[str(dev)]
-        if holder is not None and holder is not leaves:
+        leaves = flats[i]
+        if holder is not None:
             for a, b in zip(holder, leaves):
-                b.grad, a.grad = (None if a.grad is None
-                                  else a.grad.to(dev)), None
+                if a is not b:
+                    b.grad, a.grad = (None if a.grad is None
+                                      else a.grad.to(b.device)), None
         tot = _unpack(*(t.to(dev) for t in packed_totals), n_moe, n_exp,
                       tokens)
         t0 = time.perf_counter()
@@ -206,7 +294,17 @@ def rows_loss_and_grad(params_on: Dict[str, Any], cfg: ModelConfig,
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["dropped"] = torch.stack([st.dropped for st in totals.moe]) \
         if n_moe else torch.zeros((0,), dtype=torch.int64)
-    return (loss.detach(), metrics, tree_unflatten(spec, grads),
+    flat_grads = iter(grads)
+    out = []
+    for leaf in tree_flatten(trees[mine[-1]])[0]:
+        if isinstance(leaf, TpLeaf):
+            n = len(leaf.blocks) if leaf.dim is not None else 1
+            out.append(TpLeaf(leaf.group, [next(flat_grads)
+                                           for _ in range(n)],
+                              leaf.dim, leaf.shape))
+        else:
+            out.append(next(flat_grads))
+    return (loss.detach(), metrics, tree_unflatten(spec, out),
             [secs[i] for i in mine])
 
 
@@ -214,20 +312,21 @@ def data_parallel_loss_and_grad(params, cfg: ModelConfig,
                                 batch: Dict[str, torch.Tensor], mesh: Mesh):
     """:func:`rows_loss_and_grad` of a whole batch on a one-process
     ``mesh``: the batch's sample axis cut over its data-parallel rows
-    (``mesh.split_samples``; raises where it does not divide), the
-    parameters copied once onto each row's device.  ``(loss, metrics,
-    grads)``, the gradient on the last row's device."""
+    (``mesh.split_samples``; raises where it does not divide), and the
+    parameters cut by ``param_shardings`` and taken by
+    :func:`row_params` onto the rows.  ``(loss,
+    metrics, grads)``, every gradient leaf whole on the last row's first
+    device."""
     rows = dp_rows(mesh)
     names = sorted(batch)
     cut = split_samples([batch[n] for n in names], len(rows))
-    params_on, row_batches = {}, {}
-    for i, (_, dev, _) in enumerate(rows):
-        if str(dev) not in params_on:
-            params_on[str(dev)] = tree_map(lambda t: t.to(dev), params)
-        row_batches[i] = {n: t.to(dev) for n, t in zip(names, cut[i])}
+    params_on = row_params(device_put(params, param_shardings(params, mesh)),
+                           mesh, cfg)
+    row_batches = {i: {n: t.to(dev) for n, t in zip(names, cut[i])}
+                   for i, (_, dev, _) in enumerate(rows)}
     loss, metrics, grads, _ = rows_loss_and_grad(params_on, cfg,
                                                  row_batches, mesh)
-    return loss, metrics, grads
+    return loss, metrics, tree_map(whole, grads)
 
 
 @dataclasses.dataclass(frozen=True)

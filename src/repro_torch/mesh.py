@@ -53,7 +53,9 @@ The model half (the reference's production meshes and sharding planner):
 * :func:`device_put` / :func:`gather` -- a tensor cut by its sharding
   into one block a mesh position (a :class:`ShardedTensor`; a position
   another rank owns holds no tensor here) and put back together bitwise
-  (across ranks an all-gather);
+  (across ranks an all-gather); :func:`gather_model_blocks` /
+  :func:`put_model_blocks` -- the same over the data axes alone, each
+  "model" block whole (tensor parallelism's FSDP gather and cut);
 * :func:`rows_gather` / :func:`sum_in_order` / :func:`block_values` --
   the cross-rank exchanges of a data-parallel step: every row's tensor
   in row order on every rank, summed in that order, so one mesh run in
@@ -81,6 +83,8 @@ __all__ = ["CELL_AXIS", "DATA_AXIS", "Mesh", "cell_mesh", "grid_mesh",
            "model_size", "param_shardings", "batch_shardings",
            "cache_shardings", "replicated", "describe_shardings",
            "device_put", "gather", "position_bytes", "dp_rows",
+           "model_dim", "gather_model_blocks", "put_model_blocks",
+           "row_positions",
            "check_one_rank_a_card", "rows_gather", "sum_in_order",
            "block_values"]
 
@@ -545,6 +549,26 @@ def dp_rows(mesh) -> List[Tuple[Tuple[int, ...], torch.device, int]]:
     return rows
 
 
+def row_positions(mesh) -> List[List[Tuple[int, ...]]]:
+    """Each data-parallel row's mesh positions in "model" order, the rows
+    in :func:`dp_rows`'s order (a ``Mesh`` or an ``AbstractMesh``)."""
+    names = tuple(mesh.axis_names)
+    sizes = [mesh.shape[a] for a in names]
+    dps = [i for i, a in enumerate(names) if a in ("pod", "data")]
+    mi = names.index("model") if "model" in names else None
+    out = []
+    for coords in np.ndindex(*[sizes[i] for i in dps]):
+        first = [0] * len(names)
+        for i, c in zip(dps, coords):
+            first[i] = c
+        if mi is None:
+            out.append([tuple(first)])
+        else:
+            out.append([tuple(first[:mi] + [m] + first[mi + 1:])
+                        for m in range(sizes[mi])])
+    return out
+
+
 def _check_spec(mesh, spec: PartitionSpec) -> None:
     seen = []
     for e in spec:
@@ -997,6 +1021,40 @@ def _all_gather_bytes(buf: torch.Tensor) -> List[torch.Tensor]:
     return out
 
 
+def _all_blocks(x: ShardedTensor) -> Dict[tuple, torch.Tensor]:
+    """Every distinct block of ``x`` by its block index, in mesh index
+    order: this rank's own tensors, and where some rank lacks a block
+    (every rank of the mesh calls it then) the blocks all-gathered from
+    the rank of each block's first position, as bytes."""
+    if _everywhere(x):
+        seen: Dict[tuple, torch.Tensor] = {}
+        for pos in x._positions():
+            seen.setdefault(x.sharding.block_index(pos, len(x.shape)),
+                            x.shards[pos])
+        return seen
+    holders = _first_holders(x)
+    me = process_index()
+    mine = [x.shards[pos] for pos, r in holders.values() if r == me]
+    per_rank = [sum(1 for _, r in holders.values() if r == k)
+                for k in range(process_count())]
+    sub = x.sharding.shard_shape(x.shape)
+    local = x.shards[next(x._positions())]
+    nbytes = int(np.prod(sub, dtype=np.int64)) * local.element_size()
+    buf = torch.zeros(max(per_rank) * nbytes, dtype=torch.uint8,
+                      device=local.device)
+    for j, t in enumerate(mine):
+        buf[j * nbytes:(j + 1) * nbytes].copy_(_as_bytes(t))
+    parts = _all_gather_bytes(buf)
+    taken = [0] * process_count()
+    out: Dict[tuple, torch.Tensor] = {}
+    for b, (_, r) in holders.items():
+        j = taken[r]
+        taken[r] += 1
+        out[b] = parts[r][j * nbytes:(j + 1) * nbytes].view(
+            x.dtype).reshape(sub)
+    return out
+
+
 def gather(x: ShardedTensor, device=None) -> torch.Tensor:
     """The all-gather: ``x``'s blocks put together in mesh index order on
     ``device`` (default the mesh's first); bitwise the tensor that was
@@ -1006,36 +1064,71 @@ def gather(x: ShardedTensor, device=None) -> torch.Tensor:
     dev = torch.device(device if device is not None
                        else x.sharding.mesh.devices.flat[0])
     out = torch.empty(x.shape, dtype=x.dtype, device=dev)
-    if _everywhere(x):
-        seen = set()
-        for pos in x._positions():
-            b = x.sharding.block_index(pos, len(x.shape))
-            if b not in seen:
-                seen.add(b)
-                out[_block_slices(x.sharding, x.shape, b)].copy_(
-                    x.shards[pos])
-        return out
-    holders = _first_holders(x)
-    me = process_index()
-    mine = [x.shards[pos] for pos, r in holders.values() if r == me]
-    per_rank = [sum(1 for _, r in holders.values() if r == k)
-                for k in range(process_count())]
-    nbytes = (int(np.prod(x.sharding.shard_shape(x.shape), dtype=np.int64))
-              * out.element_size())
-    local = next(x._positions())
-    buf = torch.zeros(max(per_rank) * nbytes, dtype=torch.uint8,
-                      device=x.shards[local].device)
-    for j, t in enumerate(mine):
-        buf[j * nbytes:(j + 1) * nbytes].copy_(_as_bytes(t))
-    parts = _all_gather_bytes(buf)
-    taken = [0] * process_count()
-    sub = x.sharding.shard_shape(x.shape)
-    for b, (_, r) in holders.items():
-        j = taken[r]
-        taken[r] += 1
-        block = parts[r][j * nbytes:(j + 1) * nbytes].view(x.dtype)
-        out[_block_slices(x.sharding, x.shape, b)].copy_(block.reshape(sub))
+    for b, t in _all_blocks(x).items():
+        out[_block_slices(x.sharding, x.shape, b)].copy_(t)
     return out
+
+
+def model_dim(sharding: NamedSharding, ndim: int) -> Optional[int]:
+    """The dim ``sharding`` cuts over "model" (None where it leaves the
+    leaf whole over it); raises where "model" shares a dim with another
+    axis, which the planner never does."""
+    spec = tuple(sharding.spec) + (None,) * (ndim - len(sharding.spec))
+    dims = [i for i, e in enumerate(spec) if "model" in _axes_of(e)]
+    if not dims:
+        return None
+    if _axes_of(spec[dims[0]]) != ("model",):
+        raise ValueError(f"{sharding.spec!r} cuts one dim over 'model' and "
+                         "another axis")
+    return dims[0]
+
+
+def _in_model_block(sharding: NamedSharding, shape, block, mdim) -> tuple:
+    """Where ``block`` lies inside its "model" block (the leaf cut over
+    "model" alone)."""
+    sub = sharding.shard_shape(shape)
+    return tuple(slice(0, n) if d == mdim else slice(b * n, (b + 1) * n)
+                 for d, (b, n) in enumerate(zip(block, sub)))
+
+
+def gather_model_blocks(x: ShardedTensor, wanted: Sequence[Tuple[int, Any]]
+                        ) -> List[torch.Tensor]:
+    """The FSDP gather of tensor parallelism: for each ``(m, device)`` of
+    ``wanted``, ``x``'s block ``m`` over "model" (the whole leaf where
+    ``x`` is not cut over it), whole over the other axes, on ``device``;
+    bitwise the slices of the tensor that was cut.  Where some rank lacks
+    a block every rank of the mesh must call it (as :func:`gather`)."""
+    mdim = model_dim(x.sharding, len(x.shape))
+    shape = list(x.shape)
+    if mdim is not None:
+        shape[mdim] //= model_size(x.sharding.mesh)
+    blocks = _all_blocks(x)
+    out = []
+    for m, dev in wanted:
+        t = torch.empty(shape, dtype=x.dtype, device=torch.device(dev))
+        for b, block in blocks.items():
+            if mdim is None or b[mdim] == m:
+                t[_in_model_block(x.sharding, x.shape, b, mdim)].copy_(block)
+        out.append(t)
+    return out
+
+
+def put_model_blocks(blocks: Sequence[torch.Tensor],
+                     sharding: NamedSharding, shape) -> ShardedTensor:
+    """The inverse of :func:`gather_model_blocks`: a tensor of ``shape``
+    given as its blocks over "model" (one, the whole tensor, where
+    ``sharding`` does not cut it over "model"), cut by ``sharding`` onto
+    the positions this rank owns, one copy a distinct (device, block)
+    pair as :func:`device_put` makes them."""
+    shape = tuple(shape)
+    mdim = model_dim(sharding, len(shape))
+
+    def cut(block, dev):
+        piece = blocks[0 if mdim is None else block[mdim]][
+            _in_model_block(sharding, shape, block, mdim)]
+        return torch.empty(piece.shape, dtype=piece.dtype,
+                           device=dev).copy_(piece)
+    return _place(sharding, shape, cut)
 
 
 def position_bytes(tree: Any) -> np.ndarray:

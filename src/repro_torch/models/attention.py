@@ -20,6 +20,10 @@ width); its decode step runs in the absorbed latent form in torch ops
 
 Caches are updated in place (the reference returns new arrays); the
 functions still return the cache, as the reference does.
+
+On a data-parallel row's tensor-parallel leaves (``models.tensor_parallel``)
+``gqa_attention`` trains and prefills each "model" position on its own
+query heads and the kv heads they read; its decode step raises.
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import _normal, act_constraint, apply_rope, rmsnorm
+from .tensor_parallel import (add_bias, attention_heads, each, group_of,
+                              kv_whole, matmul, whole)
 
 __all__ = ["NEG_INF", "attn_params", "attend", "init_cache",
            "gqa_attention", "mla_attention", "attention_block"]
@@ -219,20 +225,24 @@ def gqa_attention(p, x: torch.Tensor, cfg: ModelConfig, rope_cs, positions,
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cfg.cdtype
-    q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
+    tp = group_of(p)
+    if tp is not None and mode == "decode":
+        raise ValueError("a tensor-parallel decode step is not supported; "
+                         "decode on the gathered parameters")
+    q = matmul(x, p["wq"], dt)
+    k = matmul(x, p["wk"], dt)
+    v = matmul(x, p["wv"], dt)
     if cfg.qkv_bias:
-        q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+        q = add_bias(q, p["bq"], dt)
+        k = add_bias(k, p["bk"], dt)
+        v = add_bias(v, p["bv"], dt)
+    # tensor-parallel: each position's whole query heads and the kv heads
+    # they read
+    q, k, v, kv_ranges = attention_heads(tp, q, k, v, H, KV, hd)
     if rope_cs is not None:
         cos, sin = rope_cs
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        q = each(tp, apply_rope, q, cos, sin, dim=2)
+        k = each(tp, apply_rope, k, cos, sin, dim=2)
     scale = hd ** -0.5
 
     if mode == "decode":
@@ -248,13 +258,18 @@ def gqa_attention(p, x: torch.Tensor, cfg: ModelConfig, rope_cs, positions,
         # masking uses sequence order, independent of the (possibly
         # multimodal) RoPE position streams
         qpos = torch.arange(S, dtype=torch.int32, device=x.device)
-        out = attend(q, k, v, qpos, qpos, causal=cfg.causal, window=window,
-                     scale=scale, q_chunk=cfg.q_chunk,
-                     impl=cfg.attention_impl, remat_chunk=cfg.remat_chunk)
+        out = each(tp, lambda q, k, v, qpos: attend(
+            q, k, v, qpos, qpos, causal=cfg.causal, window=window,
+            scale=scale, q_chunk=cfg.q_chunk, impl=cfg.attention_impl,
+            remat_chunk=cfg.remat_chunk), q, k, v, qpos, dim=2)
         if mode == "prefill":
-            cache = _prefill_cache(cache, {"k": k, "v": v}, S, window, ring)
-    y = out.reshape(B, S, H * hd) @ p["wo"].to(dt)
-    return y, cache
+            cache = _prefill_cache(cache, {"k": kv_whole(k, kv_ranges),
+                                           "v": kv_whole(v, kv_ranges)},
+                                   S, window, ring)
+    out = each(tp, lambda o: o.reshape(B, S, -1), out)
+    # wo's cut follows the plan: column-parallel on its output D (the
+    # heads' outputs gathered first) or row-parallel on its heads
+    return whole(matmul(out, p["wo"], dt)), cache
 
 
 def _live(cache: dict, pos: int, ring: bool) -> dict:

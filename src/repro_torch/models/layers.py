@@ -17,6 +17,8 @@ import torch.nn.functional as F
 
 from ..mesh import NamedSharding, PartitionSpec, current_mesh
 from .config import ModelConfig
+from .tensor_parallel import (add_bias, each, group_of, lookup, matmul,
+                              transpose, whole)
 
 __all__ = ["act_constraint", "act_spec", "rmsnorm", "layernorm", "apply_norm",
            "norm_params", "activation", "mlp_params", "mlp", "embed_params",
@@ -96,9 +98,11 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def apply_norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The config's norm; a tensor-parallel scale (and bias) is gathered
+    whole, since the norm reads x whole."""
     if cfg.norm == "layernorm":
-        return layernorm(x, p["scale"], p["bias"])
-    return rmsnorm(x, p["scale"])
+        return layernorm(x, whole(p["scale"]), whole(p["bias"]))
+    return rmsnorm(x, whole(p["scale"]))
 
 
 def norm_params(cfg: ModelConfig, d: Optional[int] = None,
@@ -152,19 +156,23 @@ def mlp_params(gen: torch.Generator, cfg: ModelConfig,
 
 
 def mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The MLP; on tensor-parallel leaves (``models.tensor_parallel``) w1
+    and w3 are column-parallel and w2 row-parallel as the plan cuts
+    them."""
     dt = cfg.cdtype
-    h = x @ p["w1"].to(dt)
+    tp = group_of(p)
+    h = matmul(x, p["w1"], dt)
     if cfg.mlp_bias and "b1" in p:
-        h = h + p["b1"].to(dt)
+        h = add_bias(h, p["b1"], dt)
     if cfg.act == "silu_glu":
-        g = x @ p["w3"].to(dt)
-        h = F.silu(g) * h
+        g = matmul(x, p["w3"], dt)
+        h = each(tp, lambda g, h: F.silu(g) * h, g, h)
     else:
-        h = activation(cfg.act)(h)
-    y = h @ p["w2"].to(dt)
+        h = each(tp, activation(cfg.act), h)
+    y = matmul(h, p["w2"], dt)
     if cfg.mlp_bias and "b2" in p:
-        y = y + p["b2"].to(dt)
-    return y
+        y = add_bias(y, p["b2"], dt)
+    return whole(y)
 
 
 # ------------------------------------------------------------- embeddings
@@ -182,15 +190,18 @@ def embed_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
 
 def embed(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     # gather, then cast: the rows the reference casts, not the whole table
-    return p["tok"][tokens.long()].to(cfg.cdtype)
+    # (a vocab-parallel table: each position's rows of its vocab range)
+    return lookup(p["tok"], tokens.long()).to(cfg.cdtype)
 
 
 def unembed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The logits; a tensor-parallel table is column-parallel over the
+    vocab and its logits are gathered whole."""
     if cfg.tie_embeddings and "unembed" not in p:
-        w = p["tok"].to(cfg.cdtype).T
+        w = transpose(p["tok"])
     else:
-        w = p["unembed"].to(cfg.cdtype)
-    return x @ w
+        w = p["unembed"]
+    return whole(matmul(x, w, cfg.cdtype))
 
 
 # ------------------------------------------------------------------ RoPE

@@ -28,6 +28,10 @@ orders them (a stable descending sort; ``torch.topk`` promises no
 order).  The bucket scatter writes each kept (token, slot) row once and
 every dropped one into a spare row that is then cut off, so the kept
 rows do not depend on the order of a scatter with repeated indices.
+On tensor-parallel leaves (``models.tensor_parallel``) the capacity
+dispatch is expert-parallel: the routing is computed whole from the
+gathered router, each position runs its experts' buckets, and each
+bucket row comes back from the position that owns its expert.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 from .layers import _normal
+from .tensor_parallel import each, group_of, matmul, whole
 
 __all__ = ["moe_params", "router_topk", "moe_block", "moe_block_capacity",
            "MoeSlice", "RouteStats"]
@@ -131,8 +136,11 @@ def router_topk(logits: torch.Tensor, k: int
 
 
 def _shared(p, t: torch.Tensor, dt) -> torch.Tensor:
-    hs = F.silu(t @ p["shared_w3"].to(dt)) * (t @ p["shared_w1"].to(dt))
-    return hs @ p["shared_w2"].to(dt)
+    """The shared expert (tensor-parallel: w1 / w3 column-, w2
+    row-parallel)."""
+    hs = each(group_of(p), lambda a, b: F.silu(a) * b,
+              matmul(t, p["shared_w3"], dt), matmul(t, p["shared_w1"], dt))
+    return whole(matmul(hs, p["shared_w2"], dt))
 
 
 def moe_block(p, x: torch.Tensor, cfg: ModelConfig,
@@ -140,6 +148,9 @@ def moe_block(p, x: torch.Tensor, cfg: ModelConfig,
     """The dense oracle.  x (B, S, D) -> (y, aux loss); with ``ctx``, (y,
     :class:`RouteStats`) of this slice (no token is dropped, so the
     offsets do not enter)."""
+    if group_of(p) is not None:
+        raise ValueError("the dense MoE oracle is not tensor-parallel: "
+                         "train with moe_impl='capacity'")
     B, S, D = x.shape
     dt = cfg.cdtype
     t = x.reshape(B * S, D)
@@ -181,7 +192,9 @@ def moe_block_capacity(p, x: torch.Tensor, cfg: ModelConfig,
     C = max(1, int((T if ctx is None else ctx.tokens) * k / E
                    * capacity_factor))
 
-    routed = _route(t.float() @ p["router"], k, stats=ctx is not None)
+    # the router whole: routing is a comparison, so its logits are
+    # computed whole (a tensor-parallel router leaf is gathered)
+    routed = _route(t.float() @ whole(p["router"]), k, stats=ctx is not None)
     _, top_w, top_i, aux = routed[:4]
 
     # each (token, slot)'s place in its expert's bucket, token-major
@@ -199,8 +212,11 @@ def moe_block_capacity(p, x: torch.Tensor, cfg: ModelConfig,
     buckets = torch.zeros((E * C + 1, D), dtype=dt, device=x.device)
     buckets.index_copy_(0, dest, t[src])
     xb = buckets[:E * C].reshape(E, C, D)
-    h = F.silu(torch.bmm(xb, p["w3"].to(dt))) * torch.bmm(xb, p["w1"].to(dt))
-    yb = torch.bmm(h, p["w2"].to(dt)).reshape(E * C, D)
+    # expert-parallel leaves: each position runs its experts' buckets, and
+    # each bucket row comes back from the one position that owns it
+    h = each(group_of(p), lambda a, b: F.silu(a) * b, matmul(xb, p["w3"], dt),
+             matmul(xb, p["w1"], dt), dim=0)
+    yb = whole(matmul(h, p["w2"], dt)).reshape(E * C, D)
     yb = torch.cat([yb, yb.new_zeros((1, D))], dim=0)
     y_slots = yb[dest] * top_w.reshape(-1, 1).to(dt)
     y = y_slots.reshape(T, k, D).sum(dim=1)

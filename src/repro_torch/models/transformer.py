@@ -514,7 +514,7 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 @torch.inference_mode()
-def prefill(params: Transformer, cfg: ModelConfig,
+def prefill(params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], window: Optional[int] = None,
             ring: bool = False, max_len: Optional[int] = None):
     """Full-sequence forward over ``tokens`` or ``embeds`` (with optional
@@ -527,8 +527,11 @@ def prefill(params: Transformer, cfg: ModelConfig,
     grafting its prefill cache into ``make_cache(..., max_len)``, without
     the intermediate copy.  A Mamba2 state (an ssm model's, a hybrid's
     ``ssm``) is the state after the prompt, with or without ``max_len``
-    (the reference's graft keeps such a state whole)."""
-    x, positions = _inputs_to_x(params.embed, params.device, cfg, batch)
+    (the reference's graft keeps such a state whole).  ``params`` is a
+    ``Transformer`` or a parameter tree, whose leaves may be a row's
+    tensor-parallel blocks (``models.tensor_parallel``)."""
+    embed_p, layers, shared, final = _parts(params, cfg)
+    x, positions = _inputs_to_x(embed_p, final["scale"].device, cfg, batch)
     window = window if window is not None else cfg.sliding_window
     cache = None
     if max_len is not None:
@@ -536,7 +539,6 @@ def prefill(params: Transformer, cfg: ModelConfig,
             raise ValueError("max_len is for plain caches; a ring prefill "
                              "returns its own window-long cache")
         cache = make_cache(cfg, x.shape[0], max_len, device=x.device)
-    embed_p, layers, shared, final = _parts(params, cfg)
     x, cache, _ = _run_layers(layers, shared, x, cfg, mode="prefill",
                               positions=positions, cache=cache,
                               window=window, ring=ring)

@@ -49,6 +49,7 @@ from repro_torch.launch import run_distributed as rd
 from repro_torch.launch.steps import make_trainer
 from repro_torch.launch.train import make_stream
 from repro_torch.mesh import dp_size, make_mesh
+from repro_torch.models import tensor_parallel
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MESHES = {"16x16": ((16, 16), ("data", "model")),
@@ -210,13 +211,15 @@ def test_perf_probe_lists_the_top_products():
         [float(f"{v:.3e}") for v, *_ in want]
 
 
-def test_d1_comparison_in_bf16_holds_its_envelope():
+def test_d1_comparison_in_bf16_holds_its_envelope(monkeypatch):
     """D1 at a reduced size on the CPU listed 8 times: bf16 parameters and
     compute, the sharded step against the unsharded one from the same
     state and stream: step-0 loss bitwise, taus exact, gammas bitwise,
     later losses within ``D1_BF16_LOSS_ENV`` of the first.  The mesh is
-    (1, 8): its one data-parallel row computes the whole batch, so only
-    the clip's sum over the blocks differs.  (Two rows sum the gradients
+    (1, 8): its one data-parallel row computes the whole batch on the
+    row-gathered route (the tensor-parallel route's row-parallel sums,
+    another float order, are held by ``tests/test_torch_tp_step.py``), so
+    only the clip's sum over the blocks differs.  (Two rows sum the gradients
     in row order, two bf16 roundings where the unsharded step has one:
     ``tests/test_torch_dp_step.py`` holds (2, 4) in bf16 to its measured
     envelope, ROADMAP queue C.)"""
@@ -224,6 +227,8 @@ def test_d1_comparison_in_bf16_holds_its_envelope():
         param_dtype="bfloat16", compute_dtype="bfloat16")
     steps, batch, seq = 3, 8, 32
     mesh = make_mesh((1, 8), devices=["cpu"] * 8)
+    monkeypatch.setattr(tensor_parallel, "route",
+                        lambda cfg: tensor_parallel.ROW_GATHERED)
     n = dp_size(mesh)
     trainer = make_trainer(cfg.replace(attention_impl="chunked"),
                            n_workers=n, lr=1e-3)

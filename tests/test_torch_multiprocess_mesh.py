@@ -4,12 +4,16 @@ owning one data-parallel row (positions [0, 0, 1, 1]).
 
 * ``launch.run_distributed``'s step for reduced qwen2-moe-a2.7b (capacity
   MoE: each row's offsets come from an all-gather of the counts at each
-  MoE layer), 3 steps from the reference's initial state
+  MoE layer; each row's two "model" positions compute tensor-parallel,
+  and each model block's gradient crosses the ranks), 3 steps from the
+  reference's initial state
   (``interop.train_state``): every rank's final state, gathered across
   the ranks, its losses, taus and gammas are bitwise the one-process run
   of the same mesh; against the reference's jitted unsharded
   ``train_step`` taus are exact, gammas bitwise and losses within
   ``REF_LOSS_REL`` of the first;
+* the same for reduced qwen2.5-32b with two kv heads, the dense family
+  on the tensor-parallel route, from the port's initial state;
 * the CLI with ``--coordinator``, ``--num-processes`` and
   ``--process-id``: rank 0 prints the reference's lines and
   ``DISTRIBUTED_RUN_OK``;
@@ -43,6 +47,7 @@ from repro_torch.launch.steps import make_trainer
 from repro_torch.launch.train import make_stream
 from repro_torch.mesh import (batch_shardings, device_put, gather, make_mesh,
                               process_count)
+from repro_torch.models.tensor_parallel import TENSOR_PARALLEL, route
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCH, STEPS, BATCH, SEQ = "qwen2-moe-a2.7b", 3, 8, 32
@@ -50,7 +55,8 @@ SHAPE, RANKS = (2, 2), [0, 0, 1, 1]
 TIMEOUT_S = 120
 REF_LOSS_REL = 1e-4    # against the reference's unsharded step
 
-# one rank: the steps of ``_steps`` from the state saved at argv[3]
+# one rank: the steps of ``_steps`` of the config argv[4] from the state
+# saved at argv[3]
 _RANK = """
 import sys
 import numpy as np
@@ -63,9 +69,13 @@ from repro_torch.mesh import init_distributed, make_mesh, shutdown_distributed
 rank = int(sys.argv[1])
 init_distributed("127.0.0.1:{port}", 2, rank, backend="gloo")
 mesh = make_mesh({shape}, devices=["cpu"] * 4, processes={ranks})
-_save(sys.argv[2], *_steps(mesh, _load_state(sys.argv[3])))
+_save(sys.argv[2], *_steps(mesh, _load_state(sys.argv[3], sys.argv[4]),
+                           sys.argv[4]))
 shutdown_distributed()
 """
+# reduced qwen2.5-32b with two kv heads (its k / v row-parallel, as at
+# full width), beside ARCH's reduced config
+DENSE = "qwen2.5-32b-kv2"
 
 _CLI = """
 import sys
@@ -87,18 +97,21 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _cfg():
-    return get_config(ARCH).reduced().replace(attention_impl="chunked")
+def _cfg(name=ARCH):
+    if name == DENSE:
+        return get_config("qwen2.5-32b").reduced().replace(
+            attention_impl="chunked", n_kv_heads=2)
+    return get_config(name).reduced().replace(attention_impl="chunked")
 
 
-def _trainer():
-    return make_trainer(_cfg(), n_workers=2, lr=1e-3)
+def _trainer(name=ARCH):
+    return make_trainer(_cfg(name), n_workers=2, lr=1e-3)
 
 
-def _load_state(path):
+def _load_state(path, name=ARCH):
     """The train state saved by :func:`_reference_state` (its leaves in
     tree order) in the port trainer's structure."""
-    like = _trainer().init(device="cpu")
+    like = _trainer(name).init(device="cpu")
     data = np.load(path)
     leaves = [torch.from_numpy(data[f"l{i}"].copy())
               for i in range(len(data.files))]
@@ -106,12 +119,12 @@ def _load_state(path):
     return tree_unflatten(spec, leaves)
 
 
-def _steps(mesh, state):
+def _steps(mesh, state, name=ARCH):
     """``STEPS`` sharded steps on ``mesh`` from ``state``; the gathered
     final state's leaves and (loss, gamma bits, tau) a step."""
-    trainer = _trainer()
+    trainer = _trainer(name)
     sharded = rd.shard_state(state, mesh)
-    stream = make_stream(_cfg(), BATCH, SEQ, device="cpu")
+    stream = make_stream(_cfg(name), BATCH, SEQ, device="cpu")
     trace = []
     with mesh:
         for k in range(STEPS):
@@ -185,7 +198,7 @@ def test_two_gloo_ranks_give_the_one_process_run(tmp_path):
     code = _RANK.format(tests=str(ROOT / "tests"), port=_free_port(),
                         shape=SHAPE, ranks=RANKS)
     outs = [str(tmp_path / f"rank{r}.npz") for r in range(2)]
-    for rc, _, err in _spawn(code, lambda r: [str(r), outs[r], init]):
+    for rc, _, err in _spawn(code, lambda r: [str(r), outs[r], init, ARCH]):
         assert rc == 0, err[-3000:]
 
     assert process_count() == 1
@@ -212,6 +225,31 @@ def test_two_gloo_ranks_give_the_one_process_run(tmp_path):
         jl.append(float(jm["loss"]))
     assert np.abs(np.array(jl) - np.array([t[0] for t in want_trace])
                   ).max() <= REF_LOSS_REL * abs(jl[0])
+
+
+def test_two_gloo_ranks_give_the_one_process_tensor_parallel_run(tmp_path):
+    """The dense family on the tensor-parallel route (row-parallel k / v
+    and w2, column-parallel q, wo and w1 / w3, the vocab-parallel
+    embedding and logits) from the port's initial state: both ranks'
+    final state, losses, taus and gammas bitwise the one-process run."""
+    assert route(_cfg(DENSE)) == TENSOR_PARALLEL
+    init = str(tmp_path / "init.npz")
+    state = _trainer(DENSE).init(device="cpu")
+    np.savez(init, **{f"l{i}": t.numpy()
+                      for i, t in enumerate(tree_leaves(state))})
+    code = _RANK.format(tests=str(ROOT / "tests"), port=_free_port(),
+                        shape=SHAPE, ranks=RANKS)
+    outs = [str(tmp_path / f"rank{r}.npz") for r in range(2)]
+    for rc, _, err in _spawn(code, lambda r: [str(r), outs[r], init, DENSE]):
+        assert rc == 0, err[-3000:]
+    want_leaves, want_trace = _steps(make_mesh(SHAPE, devices=["cpu"] * 4),
+                                     _load_state(init, DENSE), DENSE)
+    for o in outs:
+        got = np.load(o)
+        np.testing.assert_array_equal(got["trace"], np.asarray(
+            want_trace, dtype=np.float64))
+        for i, w in enumerate(want_leaves):
+            assert got[f"l{i}"].tobytes() == w.numpy().tobytes(), i
 
 
 def test_cli_over_two_gloo_ranks():

@@ -26,10 +26,13 @@ from repro_torch.configs.shapes import InputShape
 from repro_torch.core.pytree import tree_leaves
 from repro_torch.launch import roofline as troof
 from repro_torch.launch import run_distributed as rd
+from repro_torch.launch import steps as tsteps
 from repro_torch.launch.dryrun import abstract_mesh, make_step
 from repro_torch.launch.steps import make_trainer
 from repro_torch.launch.train import make_stream
 from repro_torch.mesh import batch_shardings, device_put, make_mesh
+from repro_torch.models import tensor_parallel
+from repro_torch.models.tensor_parallel import ROW_GATHERED, TENSOR_PARALLEL
 
 V5E = troof.Hardware("TPU v5e", jroof.PEAK_FLOPS, jroof.HBM_BW, jroof.ICI_BW)
 
@@ -93,10 +96,14 @@ def _nbytes(t):
     return t.numel() * t.element_size()
 
 
-def test_moved_bytes_are_what_one_sharded_step_copies(monkeypatch):
-    """Wrap the copies ``sharded_train_step`` makes: ``gather`` writes the
-    whole tensor once; ``device_put`` makes one tensor a distinct (device,
-    block) pair (replicas on one device share it)."""
+def _copied_by_one_step(monkeypatch, route_name):
+    """The bytes one ``sharded_train_step`` of reduced qwen2-moe-a2.7b on
+    the CPU listed 8 times at (2, 4) copies on ``route_name``, wrapping
+    its copies: ``gather`` writes the whole tensor once and
+    ``gather_model_blocks`` each block it returns; ``device_put`` and
+    ``put_model_blocks`` make one tensor a distinct (device, block) pair
+    (replicas on one device share it).  Returns them and the plan's
+    ``moved_bytes`` for that route."""
     cfg = tconfigs.get_config("qwen2-moe-a2.7b").reduced()
     batch_size, seq = 8, 32
     mesh = make_mesh((2, 4), devices=["cpu"] * 8)
@@ -106,25 +113,54 @@ def test_moved_bytes_are_what_one_sharded_step_copies(monkeypatch):
     plain = make_stream(cfg, batch_size, seq, device="cpu").batch_at(0)
     b = device_put(plain, batch_shardings(plain, mesh, batch_size))
     copied = {"gather": 0, "cut": 0}
-    real_gather, real_put = rd.gather, rd.device_put
+    real_gather, real_put = tsteps.gather, rd.device_put
+    real_blocks = tsteps.gather_model_blocks
+    real_put_blocks = rd.put_model_blocks
 
     def gather(x, device=None):
         out = real_gather(x, device)
         copied["gather"] += _nbytes(out)
         return out
 
-    def put(tree, shardings):
-        out = real_put(tree, shardings)
+    def blocks(x, wanted):
+        out = real_blocks(x, wanted)
+        copied["gather"] += sum(_nbytes(t) for t in out)
+        return out
+
+    def count_cut(out):
         copied["cut"] += sum({id(t): _nbytes(t)
                               for t in out.shards.flat}.values())
         return out
 
-    monkeypatch.setattr(rd, "gather", gather)
-    monkeypatch.setattr(rd, "device_put", put)
+    monkeypatch.setattr(tsteps, "gather", gather)
+    monkeypatch.setattr(tsteps, "gather_model_blocks", blocks)
+    monkeypatch.setattr(rd, "device_put",
+                        lambda tree, sh: count_cut(real_put(tree, sh)))
+    monkeypatch.setattr(rd, "put_model_blocks",
+                        lambda bl, sh, shape: count_cut(
+                            real_put_blocks(bl, sh, shape)))
+    monkeypatch.setattr(tensor_parallel, "route", lambda cfg: route_name)
     with mesh:
         rd.sharded_train_step(trainer, state, b, 0)
     specs = make_trainer(cfg, n_workers=2).state_specs()
-    want = troof.moved_bytes(specs, mesh)
+    want = troof.moved_bytes(specs, mesh, tensor_parallel=(
+        route_name == TENSOR_PARALLEL))
+    return copied, want
+
+
+def test_moved_bytes_are_what_one_sharded_step_copies(monkeypatch):
+    """The step's own route (tensor-parallel for this MoE config): each
+    row position's "model" block gathered, the gradients cut from the
+    blocks."""
+    copied, want = _copied_by_one_step(monkeypatch, TENSOR_PARALLEL)
+    assert want == {**copied, "replicate": 0}
+    assert copied["gather"] > 0 and copied["cut"] > 0
+
+
+def test_moved_bytes_on_the_row_gathered_route(monkeypatch):
+    """The row-gathered route (every other family's): each leaf gathered
+    whole once a row device, the gradients cut from the whole leaves."""
+    copied, want = _copied_by_one_step(monkeypatch, ROW_GATHERED)
     assert want == {**copied, "replicate": 0}
     assert copied["gather"] > 0 and copied["cut"] > 0
 

@@ -1,10 +1,14 @@
 """The port's sharded trainer (``repro_torch.launch.run_distributed``) on
 the CPU listed 8 times, batch 8, seq 32, held
 
-* on a (1, 4) mesh, whose one data-parallel row is the whole batch,
-  against the port's unsharded step (``Trainer.train_step``) for the
-  reference test's three configs (``tests/test_dryrun.py``) and a dense
-  one, reduced.  Taus are exact and gammas bitwise in every case, and
+* on a (1, 4) mesh, whose one data-parallel row is the whole batch, on
+  the row-gathered route (each row's parameters gathered whole; the
+  tensor-parallel route of the dense and MoE configs, whose row-parallel
+  products sum in another float order, is held to its envelopes by
+  ``tests/test_torch_tp_step.py``), against the port's unsharded step
+  (``Trainer.train_step``) for the reference test's three configs
+  (``tests/test_dryrun.py``) and a dense one, reduced.  Taus are exact
+  and gammas bitwise in every case, and
   the step-0 loss bitwise.  With the clip not acting (``grad_clip`` far
   above the gradient norm) the whole run is bitwise: every loss, every
   parameter and moment leaf.  With the reference trainer's clip of 1.0,
@@ -43,6 +47,7 @@ from repro_torch.launch.steps import loss_and_grad, make_trainer
 from repro_torch.launch.train import make_stream
 from repro_torch.mesh import (batch_shardings, device_put, gather,
                               make_mesh)
+from repro_torch.models import tensor_parallel
 from repro_torch.optim.optimizers import global_norm
 
 ARCHS = ["qwen2-moe-a2.7b", "mamba2-780m", "deepseek-v2-236b", "qwen2.5-32b"]
@@ -70,6 +75,13 @@ def mesh():
 def row_mesh():
     """A data axis of 1: one row computes the whole batch."""
     return make_mesh((1, 4), devices=["cpu"] * 4)
+
+
+@pytest.fixture
+def row_gathered(monkeypatch):
+    """Every family on the row-gathered route."""
+    monkeypatch.setattr(tensor_parallel, "route",
+                        lambda cfg: tensor_parallel.ROW_GATHERED)
 
 
 def _bits(t):
@@ -114,7 +126,8 @@ def _same_trace(out):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_step_is_bitwise_where_the_clip_does_not_act(arch,
-                                                             row_mesh):
+                                                             row_mesh,
+                                                             row_gathered):
     out, gnorm = _pair(arch, row_mesh, grad_clip=1e9)
     assert gnorm < 1e9
     _same_trace(out)
@@ -125,7 +138,8 @@ def test_sharded_step_is_bitwise_where_the_clip_does_not_act(arch,
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_sharded_step_matches_unsharded_under_the_clip(arch, row_mesh):
+def test_sharded_step_matches_unsharded_under_the_clip(arch, row_mesh,
+                                                       row_gathered):
     out, gnorm = _pair(arch, row_mesh, grad_clip=1.0)
     assert gnorm > 1.0     # the clip acts
     _same_trace(out)
