@@ -49,6 +49,8 @@ PyTorch version on the card, and drives the port's main paths:
   phase 17b holds B6 at d 80 and 192 over 128 against its plain version
   at those models' prefill shapes, bf16 on the tensor-core instances and
   float32 on the SIMT ones, and times the bf16 instances beside SDPA;
+  phase 17c does the same at the shard shapes of D2-D5 (one position's
+  heads);
 * the federated trainer ``launch.train_federated``: CI's convex run, 400
   uploads through B2 and with ``buffer_size=4`` through B3, card against
   CPU (FT1), and the 25m transformer preset's host loop (FT2, no kernel).
@@ -64,12 +66,20 @@ PyTorch version on the card, and drives the port's main paths:
   of qwen2.5-32b at full width (depth cut to fit beside the unsharded
   copy) on a (1, 4) mesh listing the card four times, one 8192-token
   prompt, each position running B6 on its own 10 query heads, against
-  the unsharded prefill; DR counts D1's step op by op on ``meta`` tensors
-  on the host (``launch.dryrun``, ``launch.op_cost``,
+  the unsharded prefill; D3 and D4 the same for deepseek-v2-236b (MLA
+  with DeepSeek's MoE, depth 3, one 8192-token prompt on (1, 4): B6 on
+  each position's 32 heads at (192, 128)) and qwen2-vl-72b (depth 8, an
+  image batch of 2 x 1024 embeddings with M-RoPE grids on (2, 4): B6 on
+  16 query heads over 2 kv heads a position); D5 hubert-xlarge at full
+  depth on (2, 4), 8 x 1500 frames: the sharded forward
+  (``run_distributed.sharded_forward``, B6 on 4 heads a position at d 80,
+  bidirectional) against the unsharded forward, then three sharded train
+  steps against the unsharded ones; DR counts D1's step op by op on
+  ``meta`` tensors on the host (``launch.dryrun``, ``launch.op_cost``,
   ``launch.roofline``), position by position, and reads it against D1's
   seconds: model TFLOP/s, MFU, the update's bandwidth and the H100
   roofline bound.  ``python3 chip_smoke.py --only-dist`` runs D1f, D1,
-  D2 and DR alone and prints no result.
+  D2-D5 and DR alone and prints no result.
 
 * training: ``launch.train.run_training`` and ``launch.train_bcd`` on the
   100m preset at full width and depth (TR1, TR3), card against CPU at a
@@ -165,13 +175,16 @@ from repro_torch.sweep.policies import POLICY_IDS, PolicyParams  # noqa: E402
 from repro_torch.sweep.cache import clear_program_cache  # noqa: E402
 from repro_torch.sweep.grid import make_grid  # noqa: E402
 from repro_torch.sweep.runners import fed_bucket_races  # noqa: E402
-from repro_torch.mesh import (batch_shardings, cell_mesh,  # noqa: E402
-                              cache_shardings, device_put, dp_size,
-                              grid_mesh, make_mesh, param_shardings,
-                              position_bytes)
+from repro_torch.mesh import (AbstractMesh, batch_shardings,  # noqa: E402
+                              cache_shardings, cell_mesh, device_put,
+                              dp_size, grid_mesh, make_mesh, model_dim,
+                              param_shardings, position_bytes)
+from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models.tensor_parallel import route  # noqa: E402
-from repro_torch.core.pytree import tree_leaves  # noqa: E402
+from repro_torch.core.pytree import (tree_flatten_with_path,  # noqa: E402
+                                     tree_leaves)
 from repro_torch.staticcheck import cachekey as sc_cachekey  # noqa: E402
 from repro_torch.staticcheck import contracts as sc_contracts  # noqa: E402
 from repro_torch.staticcheck import lint as sc_lint  # noqa: E402
@@ -3012,6 +3025,91 @@ def phase_fa_new_pairs(name: str) -> Tuple[float, list]:
 
 
 
+# 17c: B6 at the shard shapes of the sharded prefills and forward (D2-D5),
+# folded as ``kernels.ops`` folds them: the phase, the batch a row, the
+# kv heads and the query heads of each (G) a position, the prompt, the
+# (q/k, v) dims and the mask.  A cut by heads leaves each position a
+# quarter of the unsharded instance's work.
+FA_SHARD_CASES = (("D2", SERVE_ARCH, 1, 2, 5, 8192, (128, 128), True),
+                  ("D3", MLA_ARCH, 1, 32, 1, 8192, (192, 128), True),
+                  ("D4", VLM_ARCH, 1, 2, 8, 1024, (128, 128), True),
+                  ("D5", AUDIO_ARCH, 4, 4, 1, 1500, (80, 80), False))
+
+
+def phase_fa_shards(name: str) -> Tuple[float, list]:
+    """17c: B6 bf16 at each shard shape of ``FA_SHARD_CASES``, one launch
+    held to its plain version on the tensor-core route, then timed (CUDA
+    graph replay and eager) beside its plain version, SDPA on the unfolded
+    (B, H, S, d) layout (where SDPA takes the shape) and its bound (989
+    TFLOP/s bf16, 2 (d + dv) flops a visible pair; the bytes once).
+    Returns the worst error and one timing record a shape."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timings = []
+    for phase, arch, B, KV, G, S, (d, dv), causal in FA_SHARD_CASES:
+        tag = f"17c B6 {phase} shard"
+        gen = torch.Generator(device=DEV).manual_seed(S)
+        q = torch.randn(B * KV, G * S, d, device=DEV, dtype=torch.bfloat16,
+                        generator=gen)
+        k, v = (torch.randn(B * KV, S, n, device=DEV, dtype=torch.bfloat16,
+                            generator=gen) for n in (d, dv))
+        pos = torch.arange(S, dtype=torch.int32, device=DEV)
+        qpos = pos.repeat(G)
+        kw = dict(causal=causal, scale=d ** -0.5)
+
+        def kernel():
+            return fa.flash_attention_bhsd(q, k, v, qpos, pos, **kw)
+
+        def plain():
+            return _fa_plain_rows(q, k, v, qpos, pos, **kw)
+
+        reset_counts()
+        got = kernel()
+        err = _fa_check(got, plain())
+        _fa_routes(tag, 1)
+        graph_ms, eager_ms, _, plain_ms = _time_kernel(kernel, plain)
+        torch.cuda.empty_cache()
+        qs = q.reshape(B, KV * G, S, d)
+        ks, vs = k.reshape(B, KV, S, d), v.reshape(B, KV, S, dv)
+
+        def library():
+            return sdpa(qs, ks, vs, is_causal=causal, scale=d ** -0.5,
+                        enable_gqa=G > 1)
+        try:
+            lib_err = float((library().reshape(got.shape).float()
+                             - got.float()).abs().max())
+            library_ms = _time_launches(library, min(2000, _reps(library)))
+            lib = (f"SDPA {library_ms * 1e3:.3f} us (max abs diff to the "
+                   f"kernel {lib_err:.3g})")
+        except RuntimeError as e:   # no SDPA backend takes the shape
+            library_ms = None
+            lib = f"SDPA refuses the shape ({str(e).splitlines()[0][:80]})"
+        nbytes, flops = attention_work(B * KV, d, qpos, pos, causal=causal,
+                                       window=None, itemsize=2, dv=dv)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        say(tag, f"flash_attention_bhsd tensor-core at {phase}'s shard of "
+            f"{arch}: q ({B * KV}, {G * S}, {d}), k ({B * KV}, {S}, {d}), "
+            f"v ({B * KV}, {S}, {dv}) bf16 "
+            f"{'causal' if causal else 'bidirectional'} (batch {B} a row, "
+            f"{KV * G} query heads over {KV} kv heads a position; vs plain "
+            f"max abs err {err:.3g}): {graph_ms * 1e3:.3f} us/launch "
+            f"replayed from a CUDA graph, {eager_ms * 1e3:.3f} us eager; "
+            f"plain version {plain_ms * 1e3:.3f} us; {lib}; bound "
+            f"{bound_ms * 1e3:.4f} us ({nbytes} bytes, {flops} flops: "
+            f"{bound_by}), the kernel {graph_ms / bound_ms:.2f}x it; card "
+            f"{name}")
+        timings.append(dict(arch=arch, phase=phase, dims=[d, dv],
+                            shape=[B * KV, G * S, S], causal=causal,
+                            route="tc", ms=graph_ms, eager_ms=eager_ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=library_ms,
+                            max_abs_err=err))
+        del q, k, v, got, qs, ks, vs
+        torch.cuda.empty_cache()
+    return max(t["max_abs_err"] for t in timings), timings
+
+
 # N5: the reduced configs with the full models' head dims restored, so
 # that B6's new instances run inside a model on the card (d 80; MLA's
 # nope 128 + rope 64 over v 128)
@@ -3235,29 +3333,133 @@ def _shared_in_position_order(p, t, dt):
         p["shared_w2"].to(dt))
 
 
-def _d1_runs(cfg, mesh, trainer, witness: bool = False):
-    """The unsharded steps, with ``witness`` the witness's (the unsharded
-    step with its shared expert in the positions' float order,
-    ``_shared_in_position_order``), and ``launch.run_distributed.run``
-    from the same initial state and stream: the stream, the unsharded
-    steps' records and walls, the witness's records (or None), the
-    sharded state and log, and the peaks reserved of the unsharded runs
-    and of the sharded one."""
+@contextlib.contextmanager
+def _shared_witness():
+    """While open, the unsharded step's shared expert is D1's witness's
+    (``_shared_in_position_order``)."""
+    real = tmoe._shared
+    tmoe._shared = _shared_in_position_order
+    try:
+        yield
+    finally:
+        tmoe._shared = real
+
+
+def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of 2-D bf16 operands accumulated and returned in float32
+    (the tensor cores' float32 output); float32 operands as they are."""
+    if a.dtype == torch.float32:
+        return a @ b
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+def _in_order(parts) -> torch.Tensor:
+    out = None
+    for t in parts:
+        out = t if out is None else out + t
+    return out
+
+
+class _InPositionOrder(torch.autograd.Function):
+    """A witness's product ``x @ w`` on one device in the float order of
+    ``m`` "model" positions, written apart from ``models.tensor_parallel``.
+    Row-parallel (``row``: w's contraction dim cut): forward, the float32
+    partial sums of the blocks added in position order and rounded once;
+    backward, each block's input and weight gradients.  Column-parallel:
+    forward, each block's columns; backward, the input gradient's float32
+    partial sums added in position order and rounded once, and each
+    block's weight gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, m, row):
+        ctx.save_for_backward(x, w)
+        ctx.m, ctx.row = m, row
+        x2 = x.reshape(-1, x.shape[-1])
+        if row:
+            n = w.shape[0] // m
+            y = _in_order(_mm32(xp, wp) for xp, wp in zip(
+                torch.split(x2, n, dim=1), torch.split(w, n))).to(x.dtype)
+        else:
+            y = torch.cat([x2 @ wp for wp in torch.split(
+                w, w.shape[1] // m, dim=1)], dim=1)
+        return y.reshape(*x.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        x2, g2 = x.reshape(-1, x.shape[-1]), grad.reshape(-1, grad.shape[-1])
+        if ctx.row:
+            n = w.shape[0] // ctx.m
+            gx = torch.cat([g2 @ wp.T for wp in torch.split(w, n)], dim=1)
+            gw = torch.cat([xp.T @ g2 for xp in torch.split(x2, n, dim=1)])
+        else:
+            n = w.shape[1] // ctx.m
+            gs, ws = torch.split(g2, n, dim=1), torch.split(w, n, dim=1)
+            gx = _in_order(_mm32(gp, wp.T) for gp, wp in zip(gs, ws)
+                           ).to(x.dtype)
+            gw = torch.cat([x2.T @ gp for gp in gs], dim=1)
+        return gx.reshape(x.shape), gw, None, None
+
+
+@contextlib.contextmanager
+def _tp_witness(cfg, mesh_shape):
+    """While open, the unsharded model computes each 2-D product whose
+    weight the plan of ``mesh_shape`` cuts over "model" as
+    ``_InPositionOrder`` does (row- or column-parallel as the plan cuts
+    it), and every other product as it was: the witness of D3 and D5,
+    the tensor-parallel route's float order on one device.  Weights are
+    told apart by shape (no shape is cut both ways)."""
+    specs = param_specs(cfg)
+    plan = param_shardings(specs, AbstractMesh(mesh_shape,
+                                               ("data", "model")))
+    cut = {}
+    for (path, leaf), sh in zip(tree_flatten_with_path(specs)[0],
+                                tree_leaves(plan)):
+        names = [str(getattr(k, "key", k)) for k in path]
+        shape = tuple(leaf.shape[1:] if names[0] == "layers"
+                      else leaf.shape)
+        dim = model_dim(sh, leaf.ndim)
+        if len(shape) != 2 or names[-1] in ("tok", "router") or dim is None:
+            continue
+        row = dim == leaf.ndim - 2
+        if cut.setdefault(shape, row) != row:
+            raise AssertionError(f"{shape} is cut both ways")
+    m, real = mesh_shape[1], tlayers.matmul
+
+    def matmul(x, w, dt):
+        if isinstance(w, torch.Tensor) and tuple(w.shape) in cut:
+            return _InPositionOrder.apply(x, w.to(dt), m, cut[tuple(w.shape)])
+        return real(x, w, dt)
+    mods = (tlayers, tattn, tmoe)
+    for mod in mods:
+        mod.matmul = matmul
+    try:
+        yield
+    finally:
+        for mod in mods:
+            mod.matmul = real
+
+
+def _d1_runs(cfg, mesh, trainer, witness=None, batch: int = DIST_BATCH,
+             seq: int = DIST_SEQ):
+    """The unsharded steps, with ``witness`` (a context manager's factory:
+    ``_shared_witness``, ``_tp_witness``) the witness's steps, the
+    unsharded ones inside it, and ``launch.run_distributed.run`` from the
+    same initial state and stream: the stream, the unsharded steps'
+    records and walls, the witness's records (or None), the sharded state
+    and log, and the peaks reserved of the unsharded runs and of the
+    sharded one, at ``batch`` x ``seq``."""
     n_workers = dp_size(mesh)
-    stream = ttrain.make_stream(cfg, DIST_BATCH, DIST_SEQ, device=CARD)
+    stream = ttrain.make_stream(cfg, batch, seq, device=CARD)
     torch.cuda.reset_peak_memory_stats()
     plain, plain_walls = _plain_steps(trainer, stream, n_workers)
     wit = None
-    if witness:
-        real = tmoe._shared
-        tmoe._shared = _shared_in_position_order
-        try:
+    if witness is not None:
+        with witness():
             wit, _ = _plain_steps(trainer, stream, n_workers)
-        finally:
-            tmoe._shared = real
     peak_plain = torch.cuda.max_memory_reserved(CARD)
     torch.cuda.reset_peak_memory_stats()
-    state, log = trdist.run(cfg, mesh, DIST_STEPS, DIST_BATCH, DIST_SEQ,
+    state, log = trdist.run(cfg, mesh, DIST_STEPS, batch, seq,
                             device=CARD)
     peak_sharded = torch.cuda.max_memory_reserved(CARD)
     return (stream, plain, plain_walls, wit, state, log, peak_plain,
@@ -3420,7 +3622,7 @@ def phase_d1_run_distributed(name: str, depth: Optional[int] = None
                            n_workers=n_workers, lr=1e-3)
     reset_counts()
     (stream, plain, plain_walls, wit, state, log, peak_plain,
-     peak_sharded) = _d1_runs(cfg, mesh, trainer, witness=True)
+     peak_sharded) = _d1_runs(cfg, mesh, trainer, witness=_shared_witness)
     launched = {fn.__name__: fn.launches for fn in COUNTERS if fn.launches}
     if launched:
         raise AssertionError(f"D1: hand-written kernels launched: {launched}")
@@ -3527,6 +3729,71 @@ def _b6_device_us(by_name: dict) -> float:
                if "fa_tc_kernel" in n or "flash_attention_kernel" in n)
 
 
+def _prefill_gaps(tag: str, got_l, want_l, got_c, want_cut,
+                  held=None) -> dict:
+    """A sharded prefill's last-position logits ``got_l`` and cut cache
+    ``got_c`` held to the unsharded ``want_l`` and cache cut by the same
+    plan ``want_cut`` with D2's envelopes: logits finite, of the same
+    shape and within ``D2_LOGIT_ENV``, every greedy token equal, every
+    cache block within ``D2_CACHE_REL`` of the largest |value| of the
+    unsharded cache and the first layer's within ``D2_CACHE_ULPS`` bf16
+    spacings at its block's largest |value|; with ``held`` (an (L, S)
+    bool mask, a cache's layers by positions) the cache on the held
+    positions only, the others' largest difference read as
+    ``cache_moved``.  Returns the readings."""
+    if got_l.shape != want_l.shape or \
+            not bool(torch.isfinite(got_l.float()).all()):
+        raise AssertionError(f"{tag}: logits of shape {tuple(got_l.shape)}, "
+                             "or not finite")
+    err = float((got_l.float() - want_l.float()).abs().max())
+    if not err <= D2_LOGIT_ENV:
+        raise AssertionError(f"{tag}: last-position logits {err:.4e} apart, "
+                             f"over the envelope {D2_LOGIT_ENV:g}")
+    flat_w = want_l.float().reshape(want_l.shape[0], -1)
+    top2 = torch.topk(flat_w, 2, dim=-1).values
+    margin = float((top2[:, 0] - top2[:, 1]).min())
+    tok_got = got_l.float().reshape(flat_w.shape).argmax(-1).tolist()
+    tok_want = flat_w.argmax(-1).tolist()
+    if tok_got != tok_want:
+        raise AssertionError(f"{tag}: greedy tokens {tok_got} sharded, "
+                             f"{tok_want} unsharded (top-2 margin "
+                             f"{margin:.4e}, logits {err:.4e} apart)")
+    cache_err, cache_top, bitwise, first_ulps = 0.0, 0.0, True, 0.0
+    moved = 0.0
+    for a, b in zip(tree_leaves(got_c), tree_leaves(want_cut)):
+        if a.sharding.spec != b.sharding.spec:
+            raise AssertionError(f"{tag}: cache cut {a.sharding.spec} "
+                                 f"sharded, {b.sharding.spec} by the plan")
+        for x, y in zip(a.blocks(), b.blocks()):
+            d = (x.float() - y.float()).abs()
+            bitwise = bitwise and torch.equal(x, y)
+            if held is not None:
+                # (L, B, S, ...) blocks: the held positions of each layer
+                m = held.to(d.device).reshape(
+                    held.shape[0], 1, held.shape[1], *[1] * (d.ndim - 3))
+                moved = max(moved, float((d * ~m).max()))
+                d = d * m
+            cache_err = max(cache_err, float(d.max()))
+            cache_top = max(cache_top, float(y.float().abs().max()))
+            # the first layer's difference in bf16 spacings at its block's
+            # largest |value|
+            first_ulps = max(first_ulps, float(d[0].max()) / float(
+                _bf16_ulp(y[0].float().abs().max())))
+    if not (cache_err <= D2_CACHE_REL * cache_top
+            and first_ulps <= D2_CACHE_ULPS):
+        raise AssertionError(
+            f"{tag}: cache blocks {cache_err:.4e} apart (envelope "
+            f"{D2_CACHE_REL:g} of their largest |value| {cache_top:.4e}), "
+            f"the first layer's {first_ulps:g} bf16 spacings (envelope "
+            f"{D2_CACHE_ULPS}; logits {err:.4e} apart, greedy {tok_got} / "
+            f"{tok_want})")
+    tok = (lambda t: t[0] if len(t) == 1 else t)
+    return {"logits": err, "margin": margin,
+            "greedy": (tok(tok_got), tok(tok_want)), "cache": cache_err,
+            "cache_top": cache_top, "bitwise": bitwise,
+            "first_ulps": first_ulps, "cache_moved": moved}
+
+
 def phase_d2_sharded_prefill(name: str) -> int:
     """D2: ``launch.run_distributed.sharded_prefill`` of qwen2.5-32b at
     full width on a (1, 4) mesh listing the card four times, one
@@ -3591,44 +3858,11 @@ def phase_d2_sharded_prefill(name: str) -> int:
     if not peak <= total - DIST_FREE:
         raise AssertionError(f"D2: peak {peak / 1e9:.2f} GB leaves less than"
                              f" {DIST_FREE / 1e9:g} GB of {total / 1e9:.2f}")
-    if tuple(got_l.shape) != (1, 1, cfg.vocab) or \
-            not bool(torch.isfinite(got_l.float()).all()):
-        raise AssertionError(f"D2: logits of shape {tuple(got_l.shape)}, "
-                             "or not finite")
-    err = float((got_l.float() - want_l.float()).abs().max())
-    if not err <= D2_LOGIT_ENV:
-        raise AssertionError(f"D2: last-position logits {err:.4e} apart, "
-                             f"over the envelope {D2_LOGIT_ENV:g}")
-    top2 = torch.topk(want_l.float().reshape(-1), 2).values
-    margin = float(top2[0] - top2[1])
-    tok_got = int(got_l.reshape(-1).argmax())
-    tok_want = int(want_l.reshape(-1).argmax())
-    if tok_got != tok_want:
-        raise AssertionError(f"D2: greedy token {tok_got} sharded, "
-                             f"{tok_want} unsharded (top-2 margin "
-                             f"{margin:.4e}, logits {err:.4e} apart)")
-    cache_err, cache_top, bitwise, first_ulps = 0.0, 0.0, True, 0.0
-    for a, b in zip(tree_leaves(got_c), tree_leaves(want_cut)):
-        if a.sharding.spec != b.sharding.spec:
-            raise AssertionError(f"D2: cache cut {a.sharding.spec} sharded, "
-                                 f"{b.sharding.spec} by the plan")
-        for x, y in zip(a.blocks(), b.blocks()):
-            d = (x.float() - y.float()).abs()
-            bitwise = bitwise and torch.equal(x, y)
-            cache_err = max(cache_err, float(d.max()))
-            cache_top = max(cache_top, float(y.float().abs().max()))
-            # the first layer's difference in bf16 spacings at its block's
-            # largest |value|
-            first_ulps = max(first_ulps, float(d[0].max()) / float(
-                _bf16_ulp(y[0].float().abs().max())))
-    if not (cache_err <= D2_CACHE_REL * cache_top
-            and first_ulps <= D2_CACHE_ULPS):
-        raise AssertionError(
-            f"D2: cache blocks {cache_err:.4e} apart (envelope "
-            f"{D2_CACHE_REL:g} of their largest |value| {cache_top:.4e}), "
-            f"the first layer's {first_ulps:g} bf16 spacings (envelope "
-            f"{D2_CACHE_ULPS}; logits {err:.4e} apart, greedy {tok_got} / "
-            f"{tok_want})")
+    gaps = _prefill_gaps("D2", got_l, want_l, got_c, want_cut)
+    err, margin = gaps["logits"], gaps["margin"]
+    tok_got, tok_want = gaps["greedy"]
+    cache_err, cache_top = gaps["cache"], gaps["cache_top"]
+    bitwise, first_ulps = gaps["bitwise"], gaps["first_ulps"]
     spec = tree_leaves(got_c)[0].sharding.spec
     del got_c, want_cut
     torch.cuda.empty_cache()
@@ -3665,6 +3899,369 @@ def phase_d2_sharded_prefill(name: str) -> int:
         f"{b6_s / 1e6:.6f} s sharded, {b6_p / 1e6:.6f} s unsharded (wall "
         f"{wall_p:.4f} s), sharded over unsharded {ratio}; card {name}; "
         f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# D3-D5: the attention families on the tensor-parallel route since the
+# sharded step's item 18b: MLA with DeepSeek's MoE, the VLM and the
+# encoder, at full width, on meshes listing the card once a position.
+# Each holds the unsharded tree only until its cut is made, so two copies
+# of the parameters are live at once (the cut, and the positions'
+# gathered blocks).  D3 at depth 3: 3 x 3.97 B + 1.05 B = 12.96 B bf16
+# parameters, 25.9 GB a copy, 51.8 GB for two (depth 4: 71.7 GB, over
+# the card less DIST_FREE).  D4 at SERVE_DEPTH (8 layers, 9.5 B
+# parameters, 19.0 GB a copy) on the smoke's EmbedStream batch.  D5 at
+# full depth (48 layers, 0.96 B parameters): its forward (B6), then three
+# train steps (chunked attention: B6 has no backward).
+# D3's routing: with random weights the router's top-6 of 160 are near
+# ties, and the row-parallel wq_a / w_dkv / wo round the first router's
+# input apart: 607 of 8192 tokens route to another expert set at the first
+# MoE layer, and 659 / 2052 positions carry a moved routing into layers
+# 1 / 2; the witness moves exactly these, and the sharded prefill equals
+# it bitwise, on an H100 80GB HBM3 at 700 W (ROADMAP queue C).
+D3_MESH, D3_DEPTH, D3_PROMPT = (1, 4), 3, 8192
+D4_MESH, D4_BATCH, D4_SEQ, D4_GRID = (2, 4), 2, 1024, (24, 24)
+D5_MESH, D5_BATCH, D5_SEQ = (2, 4), 8, 1500
+# D5's later losses against the unsharded step: the tensor-parallel float
+# order alone (the witness, ``_tp_witness``) moves them 8.340e-05 of the
+# first, the step 1.072e-04, where the step-0 loss is the witness's
+# bitwise and its later losses 3.175e-05 from the witness's (the rows'
+# order, PR 32's envelope) on an H100 80GB HBM3 at 700 W (ROADMAP queue
+# C); held to about twice the witness's reading
+D5_LOSS_LATER_ENV = 2e-4
+
+
+def _sharded_serving(tag: str, cfg, mesh, plain, sharded_call,
+                     witness=None) -> dict:
+    """A sharded serving call beside its unsharded one, from one seeded
+    parameter tree on the card: ``plain(tree)`` warmed, timed and
+    profiled; the tree cut by ``param_shardings`` and freed;
+    ``sharded_call(cut, stats)`` warmed, then timed with the counts set
+    to 0 just before and read just after (B6 launched exactly rows x
+    positions x layers times, every launch on its route, no other kernel)
+    and profiled; with ``witness`` (a context manager's factory,
+    ``_tp_witness``), ``plain(tree)`` once more inside it.  Fails on a
+    peak that leaves less than ``DIST_FREE``.  Returns the results (the
+    witness's or None), seconds, B6 device times, the launches, the
+    exchanged bytes, the peak and the sharded call's idle share and
+    launch calls."""
+    total = torch.cuda.get_device_properties(CARD).total_memory
+    torch.cuda.reset_peak_memory_stats()
+    tree = param_tree(init_params(cfg, device=CARD))
+    plain(tree)                          # warm: allocator, B6's build
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain(tree)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    wall_p, by_p, _ = _profile(lambda: plain(tree), warm=False)
+    wit = None
+    if witness is not None:
+        with witness():
+            wit = plain(tree)
+    cut = device_put(tree, param_shardings(tree, mesh))
+    del tree
+    torch.cuda.empty_cache()
+    sharded_call(cut, {})                # warm
+    torch.cuda.synchronize()
+    reset_counts()
+    stats: dict = {}
+    t0 = time.perf_counter()
+    got = sharded_call(cut, stats)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    launches = fa.flash_attention_bhsd.launches
+    stray = sum(fn.launches for fn in COUNTERS
+                if fn is not fa.flash_attention_bhsd)
+    rows, M = mesh.shape["data"], mesh.shape["model"]
+    if launches != rows * M * _b6_per_prefill(cfg) or stray:
+        raise AssertionError(f"{tag}: {launches} B6 launches for {rows} rows"
+                             f" x {M} positions x {_b6_per_prefill(cfg)} "
+                             f"layers (+{stray} of other kernels)")
+    routes = _fa_routes(tag, launches, tc=_b6_route(cfg) == "tc")
+    wall_s, by_s, calls = _profile(lambda: sharded_call(cut, {}),
+                                   warm=False)
+    peak = torch.cuda.max_memory_reserved(CARD)
+    del cut
+    torch.cuda.empty_cache()
+    if not peak <= total - DIST_FREE:
+        raise AssertionError(f"{tag}: peak {peak / 1e9:.2f} GB leaves less "
+                             f"than {DIST_FREE / 1e9:g} GB of "
+                             f"{total / 1e9:.2f}")
+    busy = sum(by_s.values()) / 1e6
+    b6_p, b6_s = _b6_device_us(by_p), _b6_device_us(by_s)
+    return dict(want=want, got=got, wit=wit, plain_s=plain_s,
+                sharded_s=sharded_s,
+                launches=launches, routes=routes, stats=stats, peak=peak,
+                total=total, wall_p=wall_p, wall_s=wall_s, calls=calls,
+                b6_p=b6_p, b6_s=b6_s,
+                idle=(f"{1 - busy / wall_s:.3f}" if busy > 0
+                      else "not measured"),
+                ratio=f"{b6_s / b6_p:.3f}" if b6_p > 0 else "not measured")
+
+
+def _serving_text(r: dict, name: str, t_phase: float) -> str:
+    """A sharded serving phase's readings as text."""
+    return (f"{r['routes']}; {r['sharded_s']:.4f} s sharded, "
+            f"{r['plain_s']:.4f} s unsharded; bytes exchanged between the "
+            f"positions {r['stats']['exchanged_bytes']}; peak reserved "
+            f"{r['peak'] / 1e9:.2f} GB of {r['total'] / 1e9:.2f}; profiled: "
+            f"sharded wall {r['wall_s']:.4f} s, idle share {r['idle']}, "
+            f"{r['calls']} kernel launch calls; B6 device time "
+            f"{r['b6_s'] / 1e6:.6f} s sharded, {r['b6_p'] / 1e6:.6f} s "
+            f"unsharded (wall {r['wall_p']:.4f} s), sharded over unsharded "
+            f"{r['ratio']}; card {name}; phase wall "
+            f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def _routed(run):
+    """``run()`` and the top-k expert ids (T, k) each MoE layer routed,
+    in call order (``models.moe._route`` watched)."""
+    ids, real = [], tmoe._route
+
+    def watch(logits, k, stats=False):
+        out = real(logits, k, stats)
+        ids.append(out[2])
+        return out
+    tmoe._route = watch
+    try:
+        return run(), ids
+    finally:
+        tmoe._route = real
+
+
+def _moved_positions(cfg, want_ids, got_ids, S: int) -> torch.Tensor:
+    """(L, S) bool: the positions whose residual entering layer l went
+    through a routing that differs between two runs of one prompt --
+    another top-k expert, or a (token, slot) kept by its expert's
+    capacity in one run and dropped in the other, at a layer before l."""
+    moved = torch.zeros(S, dtype=torch.bool, device=want_ids[0].device)
+    out = []
+    for a, b in zip(want_ids, got_ids):
+        out.append(moved.clone())
+        kept = []
+        for ids in (a, b):
+            flat = ids.reshape(-1)
+            onehot = F.one_hot(flat, cfg.n_experts)
+            slot = (torch.cumsum(onehot, dim=0) * onehot).amax(-1) - 1
+            C = max(1, int(flat.numel() / cfg.n_experts
+                           * cfg.capacity_factor))
+            kept.append((slot < C).reshape(ids.shape))
+        moved = moved | (a != b).any(-1) | (kept[0] != kept[1]).any(-1)
+    return torch.stack(out)
+
+
+def _prefill_phase(tag: str, cfg, mesh, batch: dict, name: str,
+                   what: str) -> int:
+    """D3 / D4: ``sharded_prefill`` of ``batch`` (``_sharded_serving``),
+    held to the unsharded ``prefill`` by ``_prefill_gaps`` (D2's
+    envelopes).  With MoE layers (one prompt) the routing is a comparison
+    that a rounding moves: the sharded prefill is held to the witness
+    (``_tp_witness``: the unsharded prefill in the tensor-parallel float
+    order) with every layer's top-k ids equal and D2's envelopes, and to
+    the unsharded prefill with the cache on the positions whose routing
+    matched (``_moved_positions``); returns B6's launches."""
+    t_phase = time.perf_counter()
+    clear_program_cache()
+    torch.cuda.empty_cache()
+    B, S = next(iter(batch.values())).shape[:2]
+    shape = tuple(mesh.shape.values())
+    r = _sharded_serving(
+        tag, cfg, mesh, lambda t: _routed(lambda: prefill(t, cfg, batch)),
+        lambda cut, st: _routed(lambda: trdist.sharded_prefill(
+            cut, cfg, batch, mesh, stats=st)),
+        witness=((lambda: _tp_witness(cfg, shape)) if cfg.n_experts
+                 else None))
+    ((want_l, want_c), want_ids), ((got_l, got_c), got_ids) = \
+        r["want"], r["got"]
+    want_cut = device_put(want_c, cache_shardings(want_c, mesh, B, S))
+    held, routing = None, "no MoE layer"
+    if want_ids:
+        (wit_l, wit_c), wit_ids = r["wit"]
+        wit_cut = device_put(wit_c, cache_shardings(wit_c, mesh, B, S))
+
+        def moved(a, b):
+            m = _moved_positions(cfg, a, b, S)
+            ids = [int((x != y).any(-1).sum()) for x, y in zip(a, b)]
+            return m, (f"{m.sum(-1).tolist()} (top-k ids differing at "
+                       f"each MoE layer {ids})")
+        moved_u, text_u = moved(want_ids, got_ids)
+        moved_w, text_w = moved(wit_ids, got_ids)
+        _, text_wu = moved(want_ids, wit_ids)
+        routing = (
+            f"positions of {S} whose routing moved before each layer: "
+            f"sharded vs unsharded {text_u}, witness (the unsharded "
+            f"prefill with every cut product in the positions' float "
+            f"order) vs unsharded {text_wu}, sharded vs witness "
+            f"{text_w}")
+        say(f"{tag} witness", routing)
+        # the witness routes as the sharded prefill does: what moves the
+        # routing is the tensor-parallel float order
+        if bool(moved_w.any()) or any(not torch.equal(a, b) for a, b in
+                                      zip(wit_ids, got_ids)):
+            raise AssertionError(f"{tag}: the routing moved against the "
+                                 f"witness: {text_w}")
+        gw = _prefill_gaps(f"{tag} against the witness", got_l, wit_l,
+                           got_c, wit_cut)
+        held = ~moved_u
+        routing += (
+            f"; against the witness, logits {gw['logits']:.4e} apart, the "
+            f"cache {gw['cache']:.4e} apart "
+            f"({'bitwise' if gw['bitwise'] else 'not bitwise'})")
+    g = _prefill_gaps(tag, got_l, want_l, got_c, want_cut, held)
+    say(tag, f"run_distributed.sharded_prefill {cfg.name} at full width, "
+        f"depth {cfg.n_layers}, {what}, mesh {tuple(mesh.shape.values())} "
+        f"('data', 'model') listing {CARD} {mesh.size} times, route "
+        f"{route(cfg)}: last-position logits {g['logits']:.4e} apart "
+        f"(envelope {D2_LOGIT_ENV:g}), greedy {g['greedy'][0]} sharded, "
+        f"{g['greedy'][1]} unsharded (top-2 margin {g['margin']:.4e}); "
+        f"cache cut {tree_leaves(got_c)[0].sharding.spec}, its blocks "
+        f"{g['cache']:.4e} apart of a largest |value| "
+        f"{g['cache_top']:.4e} (envelope {D2_CACHE_REL:g} of it), the "
+        f"first layer's {g['first_ulps']:g} bf16 spacings (envelope "
+        f"{D2_CACHE_ULPS}; {'bitwise' if g['bitwise'] else 'not bitwise'}"
+        f"); routing: {routing}; against the unsharded prefill the cache "
+        f"of the positions whose routing moved {g['cache_moved']:.4e} "
+        f"apart; "
+        f"{_serving_text(r, name, t_phase)}")
+    return r["launches"]
+
+
+def phase_d3_mla_sharded_prefill(name: str) -> int:
+    """D3: deepseek-v2-236b (MLA with DeepSeek's MoE, 160 experts, top-6)
+    at full width and depth ``D3_DEPTH``, one ``D3_PROMPT``-token prompt
+    on a (1, 4) mesh: each position's 32 heads through B6 at (192, 128)
+    on the tensor-core route, 40 experts a position, ``wq_a`` / ``w_dkv``
+    / ``wo`` row-parallel; held as ``_prefill_phase`` says."""
+    cfg = get_config(MLA_ARCH).replace(n_layers=D3_DEPTH)
+    mesh = make_mesh(D3_MESH, devices=[CARD] * int(np.prod(D3_MESH)))
+    prompt = torch.randint(0, cfg.vocab, (1, D3_PROMPT),
+                           generator=torch.Generator(device=CARD)
+                           .manual_seed(D3_PROMPT), device=CARD,
+                           dtype=torch.int32)
+    return _prefill_phase(
+        "D3 sharded prefill MLA", cfg, mesh, {"tokens": prompt}, name,
+        f"one {D3_PROMPT}-token prompt, each position's "
+        f"{cfg.n_heads // D3_MESH[1]} heads of ({cfg.nope_head_dim} + "
+        f"{cfg.rope_head_dim}, {cfg.v_head_dim}) and "
+        f"{cfg.n_experts // D3_MESH[1]} of {cfg.n_experts} experts "
+        f"(top-{cfg.top_k})")
+
+
+def phase_d4_vlm_sharded_prefill(name: str) -> int:
+    """D4: qwen2-vl-72b at full width and ``SERVE_DEPTH``, the smoke's
+    ``EmbedStream`` batch (2 x 1024 positions, a 24 x 24 patch grid
+    first, (3, B, S) M-RoPE grids) on a (2, 4) mesh, a prompt a row: each
+    position's 16 query heads over 2 kv heads through B6 at d 128; held
+    as D2."""
+    cfg = get_config(VLM_ARCH).replace(n_layers=SERVE_DEPTH[VLM_ARCH])
+    mesh = make_mesh(D4_MESH, devices=[CARD] * int(np.prod(D4_MESH)))
+    stream = EmbedStream(d_model=cfg.d_model, vocab=cfg.vocab,
+                         batch=D4_BATCH, seq=D4_SEQ, mrope=True,
+                         image_grid=D4_GRID, device=CARD).batch_at(0)
+    batch = {n: stream[n] for n in ("embeds", "positions")}
+    M = D4_MESH[1]
+    return _prefill_phase(
+        "D4 sharded prefill VLM", cfg, mesh, batch, name,
+        f"image embeddings {D4_BATCH} x {D4_SEQ} (a {D4_GRID[0]} x "
+        f"{D4_GRID[1]} patch grid first, M-RoPE positions "
+        f"{tuple(batch['positions'].shape)}), each position's "
+        f"{cfg.n_heads // M} query heads over {cfg.n_kv_heads // M} kv "
+        f"heads")
+
+
+def phase_d5_encoder(name: str) -> int:
+    """D5: hubert-xlarge at full width and depth on a (2, 4) mesh, batch
+    8 x 1500 frames.  The sharded forward (``sharded_forward``: each
+    position's 4 heads through B6 at d 80, bidirectional) held to the
+    unsharded ``forward``: every frame's logits within ``D2_LOGIT_ENV``.
+    Then ``DIST_STEPS`` sharded train steps (``run_distributed.run``,
+    chunked attention) held to the unsharded ``Trainer.train_step`` from
+    the same state: taus exact, gammas bitwise, step-0 and later losses
+    within ``DIST_LOSS_BF16_ENV`` of the first; no kernel launched.
+    Returns B6's launches in the forward."""
+    t_phase = time.perf_counter()
+    clear_program_cache()
+    torch.cuda.empty_cache()
+    cfg = get_config(AUDIO_ARCH)
+    mesh = make_mesh(D5_MESH, devices=[CARD] * int(np.prod(D5_MESH)))
+    batch = {"embeds": EmbedStream(
+        d_model=cfg.d_model, vocab=cfg.vocab, batch=D5_BATCH, seq=D5_SEQ,
+        device=CARD).batch_at(0)["embeds"]}
+
+    def plain(tree):
+        with torch.inference_mode():
+            return forward(tree, cfg, batch)[0]
+
+    r = _sharded_serving(
+        "D5 sharded forward", cfg, mesh, plain,
+        lambda cut, st: trdist.sharded_forward(cut, cfg, batch, mesh,
+                                               stats=st))
+    want, got = r["want"], r["got"]
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"D5: logits {tuple(got.shape)}, or not finite")
+    err = float((got.float() - want.float()).abs().max())
+    same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    if not err <= D2_LOGIT_ENV:
+        raise AssertionError(f"D5: logits {err:.4e} apart, over the "
+                             f"envelope {D2_LOGIT_ENV:g}")
+    forward_text = _serving_text(r, name, t_phase)
+    launches = r["launches"]
+    del r, want, got
+    torch.cuda.empty_cache()
+    trainer = make_trainer(cfg.replace(attention_impl="chunked"),
+                           n_workers=dp_size(mesh), lr=1e-3)
+    reset_counts()
+    _, plain_log, plain_walls, wit, state, log, peak_plain, peak_sharded = \
+        _d1_runs(cfg, mesh, trainer, batch=D5_BATCH, seq=D5_SEQ,
+                 witness=lambda: _tp_witness(cfg, D5_MESH))
+    del state
+    torch.cuda.empty_cache()
+    launched = {fn.__name__: fn.launches for fn in COUNTERS if fn.launches}
+    if launched:
+        raise AssertionError(f"D5 train: kernels launched: {launched}")
+    losses = [x["loss"] for x in log]
+    w_gaps = _gaps([w[0] for w in wit], [], plain_log)
+    t_gaps = _gaps(losses, [], wit)
+    witness_text = (
+        f"witness (the unsharded step with every cut product in the "
+        f"positions' float order) against the unsharded step: losses "
+        f"{', '.join(repr(w[0]) for w in wit)}, step 0 {w_gaps[0]:.3e} and "
+        f"later {w_gaps[1]:.3e} of the first apart; the tensor-parallel "
+        f"step against the witness: step 0 {t_gaps[0]:.3e} and later "
+        f"{t_gaps[1]:.3e} apart")
+    say("D5 witness", witness_text)
+    # the tensor-parallel step is the witness's but for the rows' float
+    # order: PR 32's envelopes
+    _d1_check("D5 train against the witness", log, wit, DIST_LOSS_BF16_ENV,
+              DIST_LOSS_BF16_ENV, ref="witness")
+    err0, err_l = _d1_check("D5 train", log, plain_log, DIST_LOSS_BF16_ENV,
+                            D5_LOSS_LATER_ENV)
+    walls = [x["wall_s"] for x in log]
+    say("D5 encoder", f"{cfg.name} at full width and depth "
+        f"({cfg.n_layers} layers), mesh {D5_MESH} ('data', 'model') "
+        f"listing {CARD} {mesh.size} times, {D5_BATCH} x {D5_SEQ} frames, "
+        f"route {route(cfg)}: sharded_forward, each position's "
+        f"{cfg.n_heads // D5_MESH[1]} heads at d {cfg.head_dim} "
+        f"bidirectional: logits {err:.4e} apart (envelope "
+        f"{D2_LOGIT_ENV:g}), argmax equal on {same:.6f} of the frames; "
+        f"{forward_text}; then {DIST_STEPS} sharded train steps (chunked "
+        f"attention, no kernel): losses "
+        f"{', '.join(repr(x['loss']) for x in log)}, unsharded "
+        f"{', '.join(repr(p[0]) for p in plain_log)}; step 0 {err0:.3e} "
+        f"and later {err_l:.3e} of the first apart (envelopes "
+        f"{DIST_LOSS_BF16_ENV:g} and {D5_LOSS_LATER_ENV:g}); {witness_text}"
+        f"; taus and gammas bitwise; step walls s "
+        f"sharded {', '.join(f'{w:.4f}' for w in walls)}, unsharded "
+        f"{', '.join(f'{w:.4f}' for w in plain_walls)}; per step gather / "
+        f"compute / cut+update s: "
+        + "; ".join(f"{x['gather_s']:.4f} / {x['compute_s']:.4f} / "
+                    f"{x['update_s']:.4f}" for x in log)
+        + f"; bytes exchanged a step "
+        f"{', '.join(str(x['exchanged_bytes']) for x in log)}; peak "
+        f"reserved {peak_plain / 1e9:.2f} GB unsharded, "
+        f"{peak_sharded / 1e9:.2f} GB sharded; card {name}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -4177,15 +4774,22 @@ def phases_training() -> None:
         f"{time.perf_counter() - t_train:.1f} s")
 
 
-def phases_dist(name: str) -> int:
-    """D1f, D1 (no hand-written kernel runs there), D2 (B6 on each
-    position's heads) and DR; returns D2's B6 launches."""
+def phases_dist(name: str) -> dict:
+    """D1f, D1 (no hand-written kernel runs there), D2-D4 (the sharded
+    prefills: B6 on each position's heads), D5 (the encoder's sharded
+    forward through B6, and its train steps) and DR; returns B6's
+    launches on each of D2-D5."""
+    t0 = time.perf_counter()
     phase_d1f_float32(name)
     d1 = phase_d1_run_distributed(name)
     torch.cuda.empty_cache()
-    d2 = phase_d2_sharded_prefill(name)
+    launches = {"sharded_prefill_d2": phase_d2_sharded_prefill(name),
+                "sharded_prefill_d3": phase_d3_mla_sharded_prefill(name),
+                "sharded_prefill_d4": phase_d4_vlm_sharded_prefill(name),
+                "sharded_forward_d5": phase_d5_encoder(name)}
     phase_dr_cost(name, d1)
-    return d2
+    say("D", f"sharded phases took {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def main() -> None:
@@ -4263,7 +4867,7 @@ def main() -> None:
     # kernel: training takes the chunked attention): float32 first, the
     # basis of the bf16 envelope, then bf16; the sharded prefill (B6 on
     # each position's heads); then D1's step counted on the host (DR)
-    d2_launches = phases_dist(name)
+    dist_launches = phases_dist(name)
     # the serving path (B6): the kernel alone first, then the full model
     fa_err = phase_fa_vs_plain()
     t_fa = phase_fa_timing(name, 4, 64, fa_err)
@@ -4273,8 +4877,10 @@ def main() -> None:
     # the hybrid, MLA and encoder prefills' pairs, bf16 tensor-core and
     # float32 SIMT (17b)
     new_fa_err, t_fa_new = phase_fa_new_pairs(name)
+    # the shard shapes of the sharded prefills and forward (17c)
+    shard_fa_err, t_fa_shards = phase_fa_shards(name)
     t_fa["max_abs_err"] = max(t_fa["max_abs_err"], t_fa_long["max_abs_err"],
-                              moe_fa_err, new_fa_err)
+                              moe_fa_err, new_fa_err, shard_fa_err)
     phase_card_vs_cpu("18 card vs cpu", (SERVE_ARCH,))
     # kernels.ops (B4, B5, B7): the kernels alone, then the entry points at
     # kernel_bench's shapes and full model width, before the model is built
@@ -4331,8 +4937,8 @@ def main() -> None:
                                 MLA_ARCH: mla_launches,
                                 VLM_ARCH: vlm_launches,
                                 AUDIO_ARCH: audio_launches,
-                                "sharded_prefill_d2": d2_launches}
-    t_fa["instances"] = t_fa_new
+                                **dist_launches}
+    t_fa["instances"] = t_fa_new + t_fa_shards
     rows = [("fused_policy_prox_step", KERNEL_SOURCE, REPLACES,
              launches + bcd_launches, timing),
             ("fused_policy_mix_step", KERNEL_SOURCE, REPLACES_MIX,

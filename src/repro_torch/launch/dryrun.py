@@ -10,8 +10,8 @@
 The reference lowers and compiles each step for the mesh and reads the
 per-device SPMD program.  The port has no compiler; its sharded step
 (``launch.run_distributed``: gather, compute, cut) computes
-tensor-parallel for the dense and MoE families, each position of a row
-with its own blocks, and :func:`sharded_step_costs` counts it position by
+tensor-parallel for the families of attention layers, each position of a
+row with its own blocks, and :func:`sharded_step_costs` counts it position by
 position (``flops_per_device`` and ``collective_bytes_per_device``'s
 counterparts).  A record holds what the port does:
 

@@ -22,10 +22,11 @@ the policy's scalar state is replicated, and each batch is cut by
 reference's SPMD program computes it, on the route of
 ``models.tensor_parallel.route``:
 
-1. gather: tensor-parallel (the dense and MoE families), the FSDP gather
-   only -- each position of each data-parallel row gets its "model" block
-   of every leaf, whole over the data axes, on its own device; row-gathered
-   (every other family), every leaf whole onto each row's first device,
+1. gather: tensor-parallel (the families of attention layers: dense,
+   MoE, MLA, the VLM and the encoder), the FSDP gather only -- each
+   position of each data-parallel row gets its "model" block of every
+   leaf, whole over the data axes, on its own device; row-gathered (the
+   Mamba2 families), every leaf whole onto each row's first device,
    once a device (across ranks an all-gather where the blocks live in
    several);
 2. ``steps.rows_loss_and_grad``: each row computes the loss and the
@@ -49,7 +50,8 @@ are another float order (the envelopes of ``tests/test_torch_dp_step.py``
 and ``test_torch_tp_step.py``); on a mesh whose data and model axes are 1
 the step is the unsharded one but for the clip's sum, and one mesh run
 in one process and in several gives bitwise the same state.
-:func:`sharded_prefill` is the sharded prefill on the same routes.
+:func:`sharded_prefill` is the sharded prefill on the same routes, and
+:func:`sharded_forward` an encoder's sharded forward.
 """
 from __future__ import annotations
 
@@ -62,21 +64,24 @@ import torch
 
 from ..configs import ARCH_IDS, get_config
 from ..core.pytree import tree_leaves, tree_map
-from ..mesh import (Mesh, _dp_entry, batch_shardings, block_values,
+from ..mesh import (Mesh, batch_shardings, block_values,
                     cache_shardings, check_one_rank_a_card, device_put,
                     dp_rows, dp_size, init_distributed, make_mesh,
                     param_shardings, process_index, put_model_blocks,
-                    replicated, shutdown_distributed, split_samples)
-from ..models import prefill
+                    replicated, shutdown_distributed, sum_in_order)
+from ..models import forward, prefill
 from ..models.config import ModelConfig
+from ..models.moe import MoeSlice
 from ..models.tensor_parallel import TpLeaf
-from .steps import (Trainer, TrainState, _my_rows, make_trainer, row_params,
-                    rows_loss_and_grad)
+from ..models.transformer import moe_layer_count
+from .steps import (Trainer, TrainState, _my_rows, make_trainer, row_batches,
+                    row_params, rows_loss_and_grad)
 from .train import PRESETS, make_stream
 
 __all__ = ["shard_state", "gather_params", "row_batches",
            "cut_gradients", "update_blocks", "sharded_train_step",
-           "sharded_prefill", "exchanged_bytes", "run", "main"]
+           "sharded_prefill", "sharded_forward", "exchanged_bytes", "run",
+           "main"]
 
 
 def shard_state(state: TrainState, mesh: Mesh) -> TrainState:
@@ -136,26 +141,6 @@ def exchanged_bytes(params_on: Dict[int, Any]) -> int:
               for g in (leaf.group for leaf in tree_leaves(tree)
                         if isinstance(leaf, TpLeaf))}
     return sum(g.exchanged + g.leaf_bytes for g in groups.values())
-
-
-def row_batches(batch, mesh: Mesh) -> Dict[int, Dict[str, torch.Tensor]]:
-    """Each of this rank's data-parallel rows' slices of a batch cut by
-    ``batch_shardings``: the block of the row's first position, cut over
-    the rows where the plan left the batch whole (``split_samples`` then
-    raises where it does not divide)."""
-    rows = dp_rows(mesh)
-    dp = _dp_entry(mesh)
-    out = {}
-    for i in _my_rows(mesh):
-        first = rows[i][0]
-        out[i] = {}
-        for name, leaf in batch.items():
-            block = leaf.shards[first]
-            if dp is None or dp in tuple(leaf.sharding.spec):
-                out[i][name] = block
-            else:
-                out[i][name] = split_samples([block], len(rows))[i][0]
-    return out
 
 
 def cut_gradients(grads, state: TrainState):
@@ -224,31 +209,66 @@ def sharded_train_step(trainer: Trainer, state: TrainState, batch, worker
     return new, metrics
 
 
+def _after_earlier_rows(seen: list):
+    """A MoE layer's ``MoeSlice.offsets`` for the next row of a serving
+    call whose rows run one after the other: the sum of the earlier
+    rows' per-expert counts at the layer (``seen``, in row order; None
+    for the first row), the row's own counts appended for the rows after
+    it."""
+    def offsets(counts: torch.Tensor) -> Optional[torch.Tensor]:
+        earlier = [c.to(counts.device) for c in seen]
+        seen.append(counts)
+        return sum_in_order(earlier) if earlier else None
+    return offsets
+
+
+def _inputs(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """A serving batch's ``tokens`` (B, S) or ``embeds`` (B, S, D)."""
+    return batch["tokens"] if "tokens" in batch else batch["embeds"]
+
+
+def _row_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                mesh: Mesh):
+    """The one-process sharded serving calls' inputs: each data-parallel
+    row's parameters on ``cfg``'s route (``steps.row_params``) and its
+    slice of ``batch`` cut by ``batch_shardings`` (:func:`row_batches`:
+    a VLM's (3, B, S) M-RoPE positions on their batch dim), by row
+    index."""
+    if len({int(p) for p in mesh.processes.flat}) > 1:
+        raise ValueError("the sharded serving calls run in one process")
+    B = int(_inputs(batch).shape[0])
+    cut = row_batches(device_put(batch, batch_shardings(batch, mesh, B)),
+                      mesh)
+    return row_params(params, mesh, cfg), cut
+
+
 def sharded_prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                     mesh: Mesh, window: Optional[int] = None,
                     ring: bool = False, stats: Optional[dict] = None):
     """The sharded prefill (the executed counterpart of the one the
     reference's dry run lowers): ``params`` cut by ``param_shardings``
     (``mesh.device_put``), a one-process ``mesh``, ``batch`` a prompt
-    batch.  Each data-parallel row prefills its slice of the batch on the
-    route of ``models.tensor_parallel.route(cfg)``: tensor-parallel, each
-    position computing its heads (its own share of every product, and
-    under ``attention_impl="pallas"`` the flash-attention kernel on its
-    own heads), else on its parameters gathered whole.  Returns the last
-    position's logits (B, 1, V) on the first row's device and the cache
-    cut by ``mesh.cache_shardings``; ``stats`` (a dict), where given,
-    gets ``exchanged_bytes``."""
-    if len({int(p) for p in mesh.processes.flat}) > 1:
-        raise ValueError("the sharded prefill runs in one process")
+    batch (``tokens`` or ``embeds``, and ``positions`` where given) cut
+    over the data-parallel rows by ``batch_shardings``.  Each row
+    prefills its slice on the route of ``models.tensor_parallel.route
+    (cfg)``: tensor-parallel, each position computing its heads (its own
+    share of every product, and under ``attention_impl="pallas"`` the
+    flash-attention kernel on its own heads), else on its parameters
+    gathered whole.  The rows run in row order, and a capacity MoE layer
+    of each row takes its slots after the earlier rows'
+    (``models.moe.MoeSlice``), so the rows keep the whole batch's (token,
+    slot) pairs.  Returns the last position's logits (B, 1, V) on the
+    first row's device and the cache cut by ``mesh.cache_shardings``;
+    ``stats`` (a dict), where given, gets ``exchanged_bytes``."""
     rows = dp_rows(mesh)
-    params_on = row_params(params, mesh, cfg)
-    names = sorted(batch)
-    cut = split_samples([batch[n] for n in names], len(rows))
+    params_on, cut = _row_inputs(params, cfg, batch, mesh)
     logits, caches = [], []
-    for i, (_, dev, _) in enumerate(rows):
-        lg, c = prefill(params_on[i], cfg, {n: t.to(dev) for n, t in
-                                            zip(names, cut[i])},
-                        window=window, ring=ring)
+    B, S = _inputs(batch).shape[:2]
+    seen: List[list] = [[] for _ in range(moe_layer_count(cfg))]
+    for i in range(len(rows)):
+        moe = [MoeSlice(B * S, _after_earlier_rows(s)) for s in seen]
+        lg, c = prefill(params_on[i], cfg, cut[i], window=window, ring=ring,
+                        moe=moe)
         logits.append(lg)
         caches.append(c)
     first = rows[0][1]
@@ -258,10 +278,31 @@ def sharded_prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     if stats is not None:
         stats["exchanged_bytes"] = exchanged_bytes(params_on)
     del params_on
-    B = sum(int(lg.shape[0]) for lg in logits)
-    S = int(batch[names[0]].shape[-1])
     return (torch.cat([lg.to(first) for lg in logits]),
             device_put(cache, cache_shardings(cache, mesh, B, S)))
+
+
+@torch.inference_mode()
+def sharded_forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                    mesh: Mesh, stats: Optional[dict] = None
+                    ) -> torch.Tensor:
+    """The sharded forward of an encoder (which has no cache, so no
+    prefill): :func:`sharded_prefill`'s contract, but every position's
+    logits (B, S, V), on the first row's device, from ``models.forward``
+    in each row (an encoder has no MoE layer, whose capacity would couple
+    the rows)."""
+    if moe_layer_count(cfg):
+        raise ValueError(f"{cfg.name}: the sharded forward is an "
+                         "encoder's; its MoE layers would couple the rows")
+    rows = dp_rows(mesh)
+    params_on, cut = _row_inputs(params, cfg, batch, mesh)
+    logits = [forward(params_on[i], cfg, cut[i])[0]
+              for i in range(len(rows))]
+    if stats is not None:
+        stats["exchanged_bytes"] = exchanged_bytes(params_on)
+    del params_on
+    first = rows[0][1]
+    return torch.cat([lg.to(first) for lg in logits])
 
 
 def run(cfg: ModelConfig, mesh: Mesh, steps: int = 3, batch: int = 8,

@@ -39,9 +39,10 @@ import torch
 from ..core.prox import ProxOp, Zero
 from ..core.pytree import tree_flatten, tree_map, tree_unflatten
 from ..core.stepsize import Adaptive1, StepsizePolicy
-from ..mesh import (Mesh, device_put, dp_rows, gather, gather_model_blocks,
-                    model_dim, param_shardings, process_index, row_positions,
-                    rows_gather, split_samples, sum_in_order)
+from ..mesh import (Mesh, _dp_entry, batch_shardings, device_put, dp_rows,
+                    gather, gather_model_blocks, model_dim, param_shardings,
+                    process_index, row_positions, rows_gather, split_samples,
+                    sum_in_order)
 from ..models import decode_step, forward, loss_fn, param_tree, prefill
 from ..models.config import ModelConfig
 from ..models import tensor_parallel
@@ -54,7 +55,7 @@ from ..optim.optimizers import (AdamW, DelayAdaptiveOptimizer,
 
 __all__ = ["TrainState", "Trainer", "make_trainer", "make_prefill_step",
            "make_serve_step", "loss_and_grad", "row_params", "model_blocks",
-           "rows_loss_and_grad", "data_parallel_loss_and_grad"]
+           "row_batches", "rows_loss_and_grad", "data_parallel_loss_and_grad"]
 
 
 class TrainState(NamedTuple):
@@ -308,24 +309,41 @@ def rows_loss_and_grad(params_on: Dict[int, Any], cfg: ModelConfig,
             [secs[i] for i in mine])
 
 
+def row_batches(batch, mesh: Mesh) -> Dict[int, Dict[str, torch.Tensor]]:
+    """Each of this rank's data-parallel rows' slices of a batch cut by
+    ``batch_shardings``: the block of the row's first position, cut over
+    the rows where the plan left the batch whole (``split_samples`` then
+    raises where it does not divide)."""
+    rows = dp_rows(mesh)
+    dp = _dp_entry(mesh)
+    out = {}
+    for i in _my_rows(mesh):
+        first = rows[i][0]
+        out[i] = {}
+        for name, leaf in batch.items():
+            block = leaf.shards[first]
+            if dp is None or dp in tuple(leaf.sharding.spec):
+                out[i][name] = block
+            else:
+                out[i][name] = split_samples([block], len(rows))[i][0]
+    return out
+
+
 def data_parallel_loss_and_grad(params, cfg: ModelConfig,
                                 batch: Dict[str, torch.Tensor], mesh: Mesh):
     """:func:`rows_loss_and_grad` of a whole batch on a one-process
-    ``mesh``: the batch's sample axis cut over its data-parallel rows
-    (``mesh.split_samples``; raises where it does not divide), and the
-    parameters cut by ``param_shardings`` and taken by
-    :func:`row_params` onto the rows.  ``(loss,
-    metrics, grads)``, every gradient leaf whole on the last row's first
-    device."""
-    rows = dp_rows(mesh)
-    names = sorted(batch)
-    cut = split_samples([batch[n] for n in names], len(rows))
+    ``mesh``: the batch cut over its data-parallel rows by
+    ``batch_shardings`` (:func:`row_batches`: a VLM's (3, B, S) M-RoPE
+    positions on their batch dim), and the parameters cut by
+    ``param_shardings`` and taken by :func:`row_params` onto the rows.
+    ``(loss, metrics, grads)``, every gradient leaf whole on the last
+    row's first device."""
+    B = int(batch["targets"].shape[0])
+    cut = row_batches(device_put(batch, batch_shardings(batch, mesh, B)),
+                      mesh)
     params_on = row_params(device_put(params, param_shardings(params, mesh)),
                            mesh, cfg)
-    row_batches = {i: {n: t.to(dev) for n, t in zip(names, cut[i])}
-                   for i, (_, dev, _) in enumerate(rows)}
-    loss, metrics, grads, _ = rows_loss_and_grad(params_on, cfg,
-                                                 row_batches, mesh)
+    loss, metrics, grads, _ = rows_loss_and_grad(params_on, cfg, cut, mesh)
     return loss, metrics, tree_map(whole, grads)
 
 

@@ -23,7 +23,8 @@ functions still return the cache, as the reference does.
 
 On a data-parallel row's tensor-parallel leaves (``models.tensor_parallel``)
 ``gqa_attention`` trains and prefills each "model" position on its own
-query heads and the kv heads they read; its decode step raises.
+query heads and the kv heads they read, ``mla_attention`` on its own
+heads of the expanded MHA; their decode steps raise.
 """
 from __future__ import annotations
 
@@ -320,31 +321,47 @@ def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, rope_cs, positions,
     Decode: the absorbed form -- scores and values in the ``kv_lora``
     latent space against the cache of ``ckv`` / ``krope``, float32 scores
     as in the reference, so a token costs O(S r), not O(S H d).  Modes and
-    caches as :func:`gqa_attention`."""
+    caches as :func:`gqa_attention`.
+
+    On tensor-parallel leaves (train and prefill; decode raises) each
+    product takes the plan's cut: the low-rank query's ``wq_a`` and the
+    latent's ``w_dkv`` give their outputs whole on the row's first device
+    for the norms that read them whole (row-parallel sums, or a
+    column-parallel output gathered), ``wq_b`` and ``w_uk`` / ``w_uv``
+    give each position its heads (column-parallel, or sliced from a
+    row-parallel whole), the shared rope key is added to each position's
+    heads, and ``wo`` is row-parallel over the heads or column-parallel
+    on its output D."""
     B, S, D = x.shape
     H, r = cfg.n_heads, cfg.kv_lora_rank
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
     dt = cfg.cdtype
     scale = (dn + dr) ** -0.5
+    tp = group_of(p)
+    if tp is not None and mode == "decode":
+        raise ValueError("a tensor-parallel decode step is not supported; "
+                         "decode on the gathered parameters")
 
     if cfg.q_lora_rank:
-        qa = rmsnorm(x @ p["wq_a"].to(dt), p["q_norm"])
-        q = qa @ p["wq_b"].to(dt)
+        qa = rmsnorm(whole(matmul(x, p["wq_a"], dt)), whole(p["q_norm"]))
+        q = matmul(qa, p["wq_b"], dt)
     else:
-        q = x @ p["wq"].to(dt)
-    q = q.reshape(B, S, H, dn + dr)
-    q_nope, q_rope = q[..., :dn], q[..., dn:]
+        q = matmul(x, p["wq"], dt)
 
-    ckv_full = act_constraint(x @ p["w_dkv"].to(dt), cfg)  # batch-sharded
+    ckv_full = act_constraint(whole(matmul(x, p["w_dkv"], dt)),
+                              cfg)  # batch-sharded
     ckv, k_rope = ckv_full[..., :r], ckv_full[..., r:]
-    ckv = rmsnorm(ckv, p["kv_norm"])
+    ckv = rmsnorm(ckv, whole(p["kv_norm"]))
+    cos, sin = rope_cs if rope_cs is not None else (None, None)
     if rope_cs is not None:
-        cos, sin = rope_cs
-        q_rope = apply_rope(q_rope, cos, sin)
         k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
 
     if mode == "decode":
         pos = int(pos)
+        q = q.reshape(B, S, H, dn + dr)
+        q_nope, q_rope = q[..., :dn], q[..., dn:]
+        if rope_cs is not None:
+            q_rope = apply_rope(q_rope, cos, sin)
         cache = _cache_write(cache, {"ckv": ckv, "krope": k_rope}, pos, ring)
         live = _live(cache, pos, ring)
         kpos = _kpos_of(live, pos, ring)
@@ -362,21 +379,30 @@ def mla_attention(p, x: torch.Tensor, cfg: ModelConfig, rope_cs, positions,
         w_uv = p["w_uv"].to(dt).reshape(r, H, dv)
         out = torch.einsum("bqhr,rhd->bqhd", o_lat, w_uv)         # (B,1,H,dv)
     else:
-        # expand once; standard MHA (KV == H)
-        k_nope = (ckv @ p["w_uk"].to(dt)).reshape(B, S, H, dn)
-        vvec = (ckv @ p["w_uv"].to(dt)).reshape(B, S, H, dv)
-        k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-            B, S, H, dr)], dim=-1)
-        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        # expand once; standard MHA (KV == H), each position on its heads
+        q, k_nope, vvec, _ = attention_heads(
+            tp, q, matmul(ckv, p["w_uk"], dt), matmul(ckv, p["w_uv"], dt),
+            H, H, (dn + dr, dn, dv))
         qpos = torch.arange(S, dtype=torch.int32, device=x.device)
-        out = attend(q_full, k_full, vvec, qpos, qpos, causal=cfg.causal,
-                     window=window, scale=scale, q_chunk=cfg.q_chunk,
-                     impl=cfg.attention_impl, remat_chunk=cfg.remat_chunk)
+
+        def heads(q, k_nope, v, k_rope, cos, sin, qpos):
+            h = q.shape[2]
+            q_nope, q_rope = q[..., :dn], q[..., dn:]
+            if cos is not None:
+                q_rope = apply_rope(q_rope, cos, sin)
+            k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+                B, S, h, dr)], dim=-1)
+            q_full = torch.cat([q_nope, q_rope], dim=-1)
+            return attend(q_full, k_full, v, qpos, qpos, causal=cfg.causal,
+                          window=window, scale=scale, q_chunk=cfg.q_chunk,
+                          impl=cfg.attention_impl,
+                          remat_chunk=cfg.remat_chunk)
+        out = each(tp, heads, q, k_nope, vvec, k_rope, cos, sin, qpos, dim=2)
         if mode == "prefill":
             cache = _prefill_cache(cache, {"ckv": ckv, "krope": k_rope}, S,
                                    window, ring)
-    y = out.reshape(B, S, H * dv) @ p["wo"].to(dt)
-    return y, cache
+    out = each(tp, lambda o: o.reshape(B, S, -1), out)
+    return whole(matmul(out, p["wo"], dt)), cache
 
 
 def attention_block(p, x, cfg: ModelConfig, rope_cs, positions, mode: str,

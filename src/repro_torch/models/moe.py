@@ -136,8 +136,12 @@ def router_topk(logits: torch.Tensor, k: int
 
 
 def _shared(p, t: torch.Tensor, dt) -> torch.Tensor:
-    """The shared expert (tensor-parallel: w1 / w3 column-, w2
-    row-parallel)."""
+    """The shared expert.  On tensor-parallel leaves each product follows
+    the dim the plan cuts: w1 / w3 column-parallel where their output
+    (Fs) is cut (qwen2-moe) and row-parallel where their input (D) is
+    (deepseek-v2: the output is whole on the row's first device); w2
+    row-parallel where its input (Fs) is cut and column-parallel where
+    its output D is (deepseek-v2); the result is gathered whole."""
     hs = each(group_of(p), lambda a, b: F.silu(a) * b,
               matmul(t, p["shared_w3"], dt), matmul(t, p["shared_w1"], dt))
     return whole(matmul(hs, p["shared_w2"], dt))

@@ -32,7 +32,8 @@ row computes it once.  The products the layers need:
 * :func:`each` -- a function of the positions' blocks run by each
   position on its own device;
 * :func:`attention_heads` -- q, k and v as each position's whole heads,
-  the kv heads of its query heads as the GQA fold reads them;
+  the kv heads of its query heads as the GQA fold reads them (MLA's
+  MHA too: q, k and v of their own head dims);
 * :func:`lookup` -- the vocab-parallel embedding (each position looks up
   the tokens in its vocab range; the rows are selected, not summed).
 
@@ -59,13 +60,14 @@ ROW_GATHERED = "row_gathered"
 
 
 def route(cfg) -> str:
-    """The sharded step's route for ``cfg``: tensor-parallel for the
-    dense and MoE families with grouped-query attention, every other
-    family (Mamba2, the hybrid, MLA, VLM, the encoder) row-gathered (each
-    row gathers the parameters whole, ROADMAP item 18b)."""
-    if cfg.family in ("dense", "moe") and not cfg.use_mla:
-        return TENSOR_PARALLEL
-    return ROW_GATHERED
+    """The sharded step's route for ``cfg``: tensor-parallel for every
+    family of attention layers (dense, MoE, MLA with DeepSeek's MoE, the
+    VLM and the encoder); row-gathered for the Mamba2 families (ssm and
+    the hybrid: each row gathers the parameters whole, ROADMAP item
+    18c)."""
+    if cfg.family in ("ssm", "hybrid"):
+        return ROW_GATHERED
+    return TENSOR_PARALLEL
 
 
 class ModelGroup:
@@ -435,26 +437,30 @@ def _head_blocks(g: ModelGroup, t: Value, n: int, hd: int,
 
 
 def attention_heads(g: Optional[ModelGroup], q: Value, k: Value, v: Value,
-                    H: int, KV: int, hd: int):
-    """q (B, S, H * hd) and k, v (B, S, KV * hd) as heads: without a group
-    the reshaped tensors; with one, each position's query heads (its
-    column block where q is cut, which must hold whole heads; H / size
-    heads each where q is whole) and the kv heads those query heads read
-    under the GQA fold (query head h reads kv head h // (H / KV)).  A
-    position's query heads must fold onto its kv heads as the kernel
+                    H: int, KV: int, hd):
+    """q (B, S, H * dq) and k (B, S, KV * dk), v (B, S, KV * dv) as heads,
+    ``hd`` the head dim of all three or the triple (dq, dk, dv) (MLA's
+    MHA: KV = H, q of nope + rope dims, k of the nope dims alone, whose
+    shared rope part the caller adds to each position's heads): without
+    a group the reshaped tensors; with one, each position's query heads
+    (its column block where q is cut, which must hold whole heads; H /
+    size heads each where q is whole) and the kv heads those query heads
+    read under the GQA fold (query head h reads kv head h // (H / KV)).
+    A position's query heads must fold onto its kv heads as the kernel
     folds them: whole groups, or a part of one group.  Returns (q, k, v,
     kv_ranges)."""
+    dq, dk, dv = (hd, hd, hd) if isinstance(hd, int) else hd
     if g is None:
         B, S = q.shape[:2]
-        return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
-                v.reshape(B, S, KV, hd), None)
+        return (q.reshape(B, S, H, dq), k.reshape(B, S, KV, dk),
+                v.reshape(B, S, KV, dv), None)
     M, G = g.size, H // KV
     if isinstance(q, Parts) and q.dim == -1:
         widths = [b.shape[-1] for b in q.blocks]
-        if any(w % hd for w in widths):
+        if any(w % dq for w in widths):
             raise ValueError(f"query column blocks of widths {widths} do "
-                             f"not hold whole heads of {hd}")
-        counts = [w // hd for w in widths]
+                             f"not hold whole heads of {dq}")
+        counts = [w // dq for w in widths]
     else:
         if H % M:
             raise ValueError(f"{H} query heads do not divide over {M} "
@@ -470,9 +476,9 @@ def attention_heads(g: Optional[ModelGroup], q: Value, k: Value, v: Value,
             raise ValueError(f"query heads [{a}, {b}) of a position do not "
                              f"fold onto whole kv heads (group {G})")
         kv_ranges.append((a // G, (b - 1) // G + 1))
-    return (_head_blocks(g, q, H, hd, q_ranges),
-            _head_blocks(g, k, KV, hd, kv_ranges),
-            _head_blocks(g, v, KV, hd, kv_ranges), kv_ranges)
+    return (_head_blocks(g, q, H, dq, q_ranges),
+            _head_blocks(g, k, KV, dk, kv_ranges),
+            _head_blocks(g, v, KV, dv, kv_ranges), kv_ranges)
 
 
 def kv_whole(t: Value, ranges) -> torch.Tensor:

@@ -516,7 +516,8 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
 @torch.inference_mode()
 def prefill(params, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], window: Optional[int] = None,
-            ring: bool = False, max_len: Optional[int] = None):
+            ring: bool = False, max_len: Optional[int] = None,
+            moe: Optional[Sequence[MoeSlice]] = None):
     """Full-sequence forward over ``tokens`` or ``embeds`` (with optional
     ``positions``) that also returns the cache and the last position's
     logits (B, 1, V).
@@ -529,7 +530,9 @@ def prefill(params, cfg: ModelConfig,
     ``ssm``) is the state after the prompt, with or without ``max_len``
     (the reference's graft keeps such a state whole).  ``params`` is a
     ``Transformer`` or a parameter tree, whose leaves may be a row's
-    tensor-parallel blocks (``models.tensor_parallel``)."""
+    tensor-parallel blocks (``models.tensor_parallel``); ``moe`` (one
+    ``MoeSlice`` a MoE layer) places the batch as one data slice of a
+    larger one, as :func:`loss_parts`'s does."""
     embed_p, layers, shared, final = _parts(params, cfg)
     x, positions = _inputs_to_x(embed_p, final["scale"].device, cfg, batch)
     window = window if window is not None else cfg.sliding_window
@@ -541,7 +544,7 @@ def prefill(params, cfg: ModelConfig,
         cache = make_cache(cfg, x.shape[0], max_len, device=x.device)
     x, cache, _ = _run_layers(layers, shared, x, cfg, mode="prefill",
                               positions=positions, cache=cache,
-                              window=window, ring=ring)
+                              window=window, ring=ring, moe=moe)
     x = apply_norm(final, x[:, -1:], cfg)
     return unembed(embed_p, x, cfg), cache
 
